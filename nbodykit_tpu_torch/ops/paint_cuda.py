@@ -1,0 +1,176 @@
+"""The mxu paint's tile deposit: Hopper kernel and plain version.
+
+Replaces the Pallas TPU kernel ``nbodykit_tpu/ops/paint_pallas.py``
+``_deposit_kernel`` (and the XLA ``piece()`` of ``ops/paint.py``). For
+every x-stripe t, y-tile bucket ty and padded slot p of the bucket
+payload, it deposits the slot's s^3 window terms into the
+(M, N2) tile block, M = (rb+s-1)(cb+s-1):
+
+    blocks[t, ty, (rloc+a)*cbh + (yloc+b), (z0+c) mod N2]
+        += (w0_a * w1_b) * mass * w2_c
+
+Columns outside [0, M) and slots of mass 0 contribute nothing.
+
+The TPU builds one-hot matrices (W0Y (K, M), Z (K, N2)) and multiplies
+them because it has a matrix unit and no scatter; per bucket that
+product holds only n*s^3 nonzero terms. ``csrc/paint_deposit.cu``
+deposits those terms directly: one CUDA block per (stripe, y-tile,
+z-range) keeps its (M, Zc) tile in shared memory, walks the bucket's
+slots and adds each term with a shared-memory atomic, then writes the
+tile out once. Z is split into ranges so the tile fits (a full f32
+PCS tile at N2 = 512 is 248 KB, over the 227 KB a block may use).
+
+Bound on the H100: bytes. The payload is read once (3 positions and a
+mass per slot) and the blocks are written once; the s^3 multiply-adds
+per slot are negligible next to that. Each block re-reads its bucket's
+payload once per z-range (from L2 after the first), and the atomics'
+order varies from run to run, so results differ from the plain version
+in the last bits.
+
+Plain version: :func:`deposit_blocks_plain`, the one-hot ``piece()``
+and a batched product, used for CPU tensors and, on the card, only to
+check the kernel.
+"""
+
+import ctypes
+
+import torch
+
+from .window import window_support, window_weights
+
+# shared-memory budget of one deposit block: two blocks fit on an SM
+TILE_BYTES = 96 * 1024
+
+
+def _piece(t, x, y, z, m, *, s, resampler, rb, cb, n0l, p0, N1, N2,
+           origin, nty, ck):
+    """One piece of one stripe as the JAX ``piece()``: the (nty, M, N2)
+    product of the one-hot x*y*mass and z expansions."""
+    rbh, cbh = rb + s - 1, cb + s - 1
+    M = rbh * cbh
+    dtype = m.dtype
+    dev = m.device
+    ii0, ww0 = window_weights(x, resampler)
+    ii1, ww1 = window_weights(y, resampler)
+    ii2, ww2 = window_weights(z, resampler)
+    r0 = torch.remainder(ii0[:, 0] - origin, p0)
+    r0 = torch.where(r0 >= n0l, r0 - p0, r0)
+    rloc = torch.clamp(r0 + rb - t * rb, 0, rb - 1)
+    ty_k = torch.arange(nty, dtype=torch.int32,
+                        device=dev).repeat_interleave(ck)
+    yloc = torch.remainder(ii1[:, 0], N1) - ty_k * cb
+    col_i = torch.arange(M, dtype=torch.int32, device=dev)
+    z_i = torch.arange(N2, dtype=torch.int32, device=dev)
+    w0y = torch.zeros((x.shape[0], M), dtype=dtype, device=dev)
+    zm = torch.zeros((x.shape[0], N2), dtype=dtype, device=dev)
+    for a in range(s):
+        for b in range(s):
+            col = (rloc + a) * cbh + (yloc + b)
+            w = (ww0[:, a] * ww1[:, b]).to(dtype) * m
+            w0y = w0y + torch.where(col[:, None] == col_i, w[:, None], 0)
+    for c in range(s):
+        zc = torch.remainder(ii2[:, c], N2)
+        zw = ww2[:, c].to(dtype)
+        zm = zm + torch.where(zc[:, None] == z_i, zw[:, None], 0)
+    return torch.bmm(w0y.reshape(nty, ck, M).transpose(1, 2),
+                     zm.reshape(nty, ck, N2))
+
+
+def deposit_blocks_plain(sx, sy, sz, sm, *, resampler, rb, cb, n0l, p0,
+                         N1, N2, origin, ck):
+    """Plain PyTorch deposit: (T, nty, M, N2) blocks of all stripes from
+    the padded bucket payload.
+
+    sx, sy, sz : (T, nty, K) positions (global cell units); stripe t has
+        stripe index t. sm : (T, nty, K) masses in the mesh dtype (empty
+        slots carry 0). ck : slots per piece of the one-hot product
+        (K % ck == 0); it bounds the one-hot's size, not the result.
+    """
+    T, nty, K = sx.shape
+    s = window_support(resampler)
+    M = (rb + s - 1) * (cb + s - 1)
+    out = torch.empty((T, nty, M, N2), dtype=sm.dtype, device=sm.device)
+    kw = dict(s=s, resampler=resampler, rb=rb, cb=cb, n0l=n0l, p0=p0,
+              N1=N1, N2=N2, origin=origin, nty=nty, ck=ck)
+    for t in range(T):
+        blocks = torch.zeros((nty, M, N2), dtype=sm.dtype,
+                             device=sm.device)
+        for j in range(K // ck):
+            sl = slice(j * ck, (j + 1) * ck)
+            blocks = blocks + _piece(
+                t, sx[t, :, sl].reshape(-1), sy[t, :, sl].reshape(-1),
+                sz[t, :, sl].reshape(-1), sm[t, :, sl].reshape(-1), **kw)
+        out[t] = blocks
+    return out
+
+
+def z_range(M, N2, itemsize):
+    """z cells per deposit block: the whole axis when the (M, N2) tile
+    fits ``TILE_BYTES``, else the fewest equal ranges (rounded up to 32
+    cells) that fit it."""
+    nzr = max(1, -(-M * N2 * itemsize // TILE_BYTES))
+    per = -(-N2 // nzr)
+    zc = min(N2, -(-per // 32) * 32)
+    while zc > 1 and M * zc * itemsize > TILE_BYTES:
+        zc = max(1, zc // 2)
+    return zc
+
+
+_FLOATS = (torch.float32, torch.float64)
+
+
+def deposit_blocks_cuda(sx, sy, sz, sm, *, resampler, rb, cb, n0l, p0,
+                        N1, N2, origin):
+    """The deposit on the CUDA kernel (``csrc/paint_deposit.cu``). Same
+    contract as :func:`deposit_blocks_plain`; positions may be f32 or
+    f64 independently of the f32/f64 mass (mesh) dtype."""
+    for name, a in (('sx', sx), ('sy', sy), ('sz', sz), ('sm', sm)):
+        if not isinstance(a, torch.Tensor) or a.device.type != 'cuda':
+            raise ValueError("deposit_blocks_cuda takes CUDA tensors "
+                             "(%s)" % name)
+        if not a.is_contiguous() or a.dim() != 3 \
+                or a.shape != sx.shape or a.device != sx.device:
+            raise ValueError("%s must be a contiguous (T, nty, K) tensor "
+                             "on the device of sx, got %s"
+                             % (name, tuple(a.shape)))
+    if sx.dtype not in _FLOATS or sy.dtype != sx.dtype \
+            or sz.dtype != sx.dtype or sm.dtype not in _FLOATS:
+        raise ValueError("positions must share one float dtype and the "
+                         "mass be f32/f64, got %s %s %s %s"
+                         % (sx.dtype, sy.dtype, sz.dtype, sm.dtype))
+    T, nty, K = sx.shape
+    s = window_support(resampler)
+    M = (rb + s - 1) * (cb + s - 1)
+    if not (1 <= rb and 1 <= cb and s <= N2 and 0 < n0l <= p0):
+        raise ValueError("bad deposit geometry rb=%d cb=%d n0l=%d p0=%d "
+                         "N2=%d" % (rb, cb, n0l, p0, N2))
+    zc = z_range(M, N2, sm.element_size())
+    out = torch.empty((T, nty, M, N2), dtype=sm.dtype, device=sm.device)
+    if out.numel() == 0:
+        return out
+    from .._build import check, load
+    fn = load('paint_deposit').nbk_deposit
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(sm.device).cuda_stream
+    check('paint_deposit', fn(
+        sx.data_ptr(), sy.data_ptr(), sz.data_ptr(), sm.data_ptr(),
+        out.data_ptr(), int(sx.dtype == torch.float64),
+        int(sm.dtype == torch.float64), s, T, nty, K, rb, cb, n0l, p0, N1,
+        N2, int(origin), zc, stream))
+    deposit_blocks_cuda.launches += 1
+    return out
+
+
+deposit_blocks_cuda.launches = 0
+
+
+def deposit_blocks(sx, sy, sz, sm, *, ck, **geometry):
+    """The deposit dispatched on the tensors' device: the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if sm.device.type == 'cpu':
+        return deposit_blocks_plain(sx, sy, sz, sm, ck=ck, **geometry)
+    if sm.device.type == 'cuda':
+        return deposit_blocks_cuda(sx, sy, sz, sm, **geometry)
+    raise ValueError("no deposit for device %s" % sm.device)

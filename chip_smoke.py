@@ -80,25 +80,57 @@ def bound(nbytes, flops, peak_flops):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def rank_cases(gen):
+    """(label, digits, D) of the rank pass's checks: random digits at n
+    around one chunk and at the main path's sizes for D in {1, 2, 65,
+    1024}, then all-equal, sorted and reverse-sorted digits."""
+    from nbodykit_tpu_torch.ops.radix_cuda import KERNEL_CHUNK as C
+
+    def rand(n, D):
+        return torch.randint(0, D, (n,), generator=gen, device='cuda',
+                             dtype=torch.int32)
+    for n in (1, C - 1, C, C + 1, 10 ** 6, 10 ** 7):
+        for D in (1, 2, 65, 1024):
+            yield 'random n=%d D=%d' % (n, D), rand(n, D), D
+    for D in (65, 1024):
+        n = 10 ** 6
+        yield 'all_equal D=%d' % D, torch.full(
+            (n,), D - 1, dtype=torch.int32, device='cuda'), D
+        srt = torch.sort(rand(n, D))[0]
+        yield 'sorted D=%d' % D, srt, D
+        yield 'reverse_sorted D=%d' % D, torch.flip(srt, (0,)), D
+
+
 def check_rank():
-    """The rank kernel against its plain version; bit-identical."""
+    """The rank kernel against its plain version; bit-identical in
+    every case, and in 10 repeated launches on one input (a look-back
+    race would show there)."""
     from nbodykit_tpu_torch.ops.radix import stable_key_order
     from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
                                                    pass_rank_hist_plain,
                                                    raise_on_bad_digits)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(7)
-    for n in (10 ** 6, 10 ** 7):
-        for D in (65, 1024):
-            d = torch.randint(0, D, (n,), generator=gen, device='cuda',
-                              dtype=torch.int32)
+    cases = []
+    for label, d, D in rank_cases(gen):
+        rk, hk = pass_rank_hist_cuda(d, D)
+        rp, hp = pass_rank_hist_plain(d, D)
+        torch.cuda.synchronize()
+        assert torch.equal(rk, rp), "rank mismatch: %s" % label
+        assert torch.equal(hk, hp), "hist mismatch: %s" % label
+        cases.append(label)
+    raise_on_bad_digits('cuda')
+    emit({'phase': 'rank_check', 'bit_identical': cases})
+    for D in (65, 1024):
+        d = torch.randint(0, D, (10 ** 7,), generator=gen, device='cuda',
+                          dtype=torch.int32)
+        rp, hp = pass_rank_hist_plain(d, D)
+        for rep in range(10):
             rk, hk = pass_rank_hist_cuda(d, D)
-            rp, hp = pass_rank_hist_plain(d, D)
-            torch.cuda.synchronize()
-            assert torch.equal(rk, rp), "rank mismatch n=%d D=%d" % (n, D)
-            assert torch.equal(hk, hp), "hist mismatch n=%d D=%d" % (n, D)
-            emit({'phase': 'rank_check', 'n': n, 'D': D,
-                  'bit_identical': True})
+            assert torch.equal(rk, rp) and torch.equal(hk, hp), \
+                "repeat %d of the rank pass at D=%d differs" % (rep, D)
+        emit({'phase': 'rank_check', 'n': 10 ** 7, 'D': D,
+              'repeats_bit_identical': 10})
     raise_on_bad_digits('cuda')
     # a digit outside [0, D) is skipped by the kernel, counted on the
     # device and raised on at the next read of the count
@@ -145,49 +177,51 @@ def kernel_device_ms(fn, names, reps=10):
 
 def time_rank(n, D=65):
     """Rank pass times at the main path's shape (n particles, 2 LSD
-    passes of 65 digits at 512^3): the three kernels alone (CUDA events
-    around the C call into preallocated outputs, and each kernel's
-    device time from the profiler), the wrapper (checks and
-    allocation), the plain version and ``torch.argsort``."""
-    from nbodykit_tpu_torch.ops.radix_cuda import (KERNEL_CHUNK,
-                                                   pass_rank_hist_cuda,
+    passes of 65 digits at 512^3): the kernel alone (CUDA events around
+    the C call into preallocated outputs, the status words' clearing
+    included, and the kernel's device time from the profiler), the
+    wrapper (checks and allocation), the plain version and
+    ``torch.argsort``."""
+    from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
                                                    pass_rank_hist_plain,
-                                                   rank_pass_launch)
+                                                   rank_pass_launch,
+                                                   rank_plan)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(11)
     d = torch.randint(0, D, (n,), generator=gen, device='cuda',
                       dtype=torch.int32)
     rank = torch.empty_like(d)
     hist = torch.empty(D, dtype=torch.int32, device='cuda')
-    chunk_hist = torch.empty((-(-n // KERNEL_CHUNK), D), dtype=torch.int32,
-                             device='cuda')
+    plan = rank_plan(n, D)
+    scratch = torch.empty(plan['scratch_words'], dtype=torch.int64,
+                          device='cuda')
 
     def launch():
-        rank_pass_launch(d, D, rank, hist, chunk_hist)
+        rank_pass_launch(d, D, rank, hist, scratch)
     ms = cuda_ms(launch, reps=20)
     wrapper_ms = cuda_ms(lambda: pass_rank_hist_cuda(d, D), reps=20)
-    split = kernel_device_ms(launch, ('chunk_hist_kernel',
-                                      'chunk_scan_kernel',
-                                      'chunk_rank_kernel'))
+    split = kernel_device_ms(launch, ('rank_lookback_kernel', 'Memset'))
     plain_ms = cuda_ms(lambda: pass_rank_hist_plain(d, D), reps=2)
     lib_ms = cuda_ms(lambda: torch.argsort(d, stable=True), reps=10)
     b_ms, b_by = bound(n * 4 + n * 4 + D * 4, 0, F32_FLOPS)
     emit({'phase': 'rank_timing', 'n': n, 'D': D, 'kernels_ms': ms,
           'wrapper_ms': wrapper_ms, 'device_ms_per_kernel': split,
-          'bound_ms': b_ms})
+          'bound_ms': b_ms, 'ctas': plan['ctas'],
+          'clear_bytes': plan['clear_bytes']})
     return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=0, at='n=%d D=%d' % (n, D))
 
 
-def deposit_case(label, pos_cells, mass, shape, period, origin, resampler):
+def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
+                 slack=2.0):
     """Kernel vs plain deposit on the mxu payload of one catalog."""
     from nbodykit_tpu_torch.ops.paint import mxu_payload, mxu_plan
     from nbodykit_tpu_torch.ops.paint_cuda import (deposit_blocks_cuda,
                                                    deposit_blocks_plain,
-                                                   z_range)
+                                                   deposit_plan)
     plan = mxu_plan(pos_cells.shape[0], shape, resampler, period,
-                    mass.element_size())
+                    mass.element_size(), slack=slack)
     sx, sy, sz, sm, over = mxu_payload(pos_cells, mass, plan, resampler,
                                        origin, 'radix')
     assert int(over) == 0, "bucket overflow in %s" % label
@@ -201,11 +235,12 @@ def deposit_case(label, pos_cells, mass, shape, period, origin, resampler):
     scale = float(ref.abs().max())
     tol = (1e-12 if sm.dtype == torch.float64 else 1e-5) * scale
     total, mass_in = float(got.double().sum()), float(sm.double().sum())
+    lplan = deposit_plan(got.shape[2], got.shape[3], got.element_size())
     emit({'phase': 'deposit_check', 'case': label, 'max_abs_err': err,
           'max_abs_block': scale, 'tol': tol, 'blocks': list(got.shape),
-          'z_cells_per_block': z_range(got.shape[2], got.shape[3],
-                                       got.element_size()),
-          'blocks_sum': total, 'payload_mass': mass_in})
+          'cluster': lplan['nz'], 'z_cells_per_cta': lplan['zc'],
+          'ragged': lplan['ragged'], 'blocks_sum': total,
+          'payload_mass': mass_in})
     assert np.isfinite(err) and err <= tol, \
         "deposit %s: max |kernel - plain| %g > %g" % (label, err, tol)
     # every window sums to one: the blocks hold the payload's mass
@@ -223,8 +258,11 @@ def uniform_cells(n, nmesh, seed, dtype=torch.float64):
 
 def check_deposit(cat, nmesh):
     """The deposit kernel against its plain version: the main path's
-    512^3 CIC stripes, TSC and PCS at 256^3 / 1e6, a slab block with
-    origin != 0 and an f8 mesh. Returns the main-path record."""
+    512^3 CIC stripes; TSC and PCS at 256^3 / 1e6; a slab block with
+    origin != 0; f8 meshes; each cluster size the plan gives at 512^3
+    (PCS f4: 2 CTAs, CIC f8: 2, PCS f8: 3); rows that are not 16-byte
+    aligned (CIC f4 at 250^3, TSC f8 at 130^3); and 1e6 particles in
+    four cells, for atomic contention. Returns the main-path record."""
     from nbodykit_tpu_torch.ops.paint_cuda import (deposit_blocks_cuda,
                                                    deposit_blocks_plain)
     from nbodykit_tpu_torch.ops.window import window_support
@@ -249,6 +287,29 @@ def check_deposit(cat, nmesh):
                  uniform_cells(2 * 10 ** 5, 128, seed=9),
                  torch.ones(2 * 10 ** 5, dtype=torch.float64, device='cuda'),
                  (128,) * 3, (128,) * 3, 0, 'tsc')
+    cells = uniform_cells(10 ** 6, nmesh, seed=13)
+    for res, dt in (('pcs', torch.float32), ('cic', torch.float64),
+                    ('pcs', torch.float64)):
+        deposit_case('%s %d^3 n=1e6 %s mesh' % (res, nmesh, str(dt)[-7:]),
+                     cells, torch.ones(10 ** 6, dtype=dt, device='cuda'),
+                     full, full, 0, res)
+    deposit_case('cic 250^3 n=1e6 (rows not 16-byte aligned)',
+                 uniform_cells(10 ** 6, 250, seed=17), ones, (250,) * 3,
+                 (250,) * 3, 0, 'cic')
+    deposit_case('tsc 130^3 n=2e5 f8 mesh',
+                 uniform_cells(2 * 10 ** 5, 130, seed=19),
+                 torch.ones(2 * 10 ** 5, dtype=torch.float64, device='cuda'),
+                 (130,) * 3, (130,) * 3, 0, 'tsc')
+    # 1e6 particles in four cells of a 32^3 mesh; the slack lets one
+    # bucket hold them all (1 / the bucket's share of the mesh is 16).
+    # An f8 mesh: 250,000 f32 terms in one cell would round by more than
+    # the f32 tolerance in any summation order.
+    corner = torch.tensor([[3, 5, 7], [3, 5, 8], [20, 9, 31], [0, 0, 0]],
+                          dtype=torch.float64, device='cuda')
+    which = torch.arange(10 ** 6, device='cuda') % 4
+    clumped = corner[which] + uniform_cells(10 ** 6, 1, seed=23)
+    deposit_case('cic 32^3 n=1e6 in 4 cells f8 mesh', clumped, w.double(),
+                 (32,) * 3, (32,) * 3, 0, 'cic', slack=17.0)
 
     sx, sy, sz, sm = payload
     ms = cuda_ms(lambda: deposit_blocks_cuda(sx, sy, sz, sm, **geom),

@@ -14,18 +14,18 @@ Columns outside [0, M) and slots of mass 0 contribute nothing.
 The TPU builds one-hot matrices (W0Y (K, M), Z (K, N2)) and multiplies
 them because it has a matrix unit and no scatter; per bucket that
 product holds only n*s^3 nonzero terms. ``csrc/paint_deposit.cu``
-deposits those terms directly: one CUDA block per (stripe, y-tile,
-z-range) keeps its (M, Zc) tile in shared memory, walks the bucket's
-slots and adds each term with a shared-memory atomic, then writes the
-tile out once. Z is split into ranges so the tile fits (a full f32
-PCS tile at N2 = 512 is 248 KB, over the 227 KB a block may use).
+deposits those terms directly with shared-memory atomics into the
+bucket's tile, held whole in one CTA where it fits (CIC and TSC f32 at
+N2 = 512) and else split along z over a thread-block cluster whose CTAs
+add into each other's tiles; persistent CTAs walk the buckets and write
+each finished tile with asynchronous bulk copies while they load the
+next bucket's slots into registers. :func:`deposit_plan` holds the
+launch geometry. Atomics reorder the sums, so results differ from the plain
+version in the last bits.
 
-Bound on the H100: bytes. The payload is read once (3 positions and a
-mass per slot) and the blocks are written once; the s^3 multiply-adds
-per slot are negligible next to that. Each block re-reads its bucket's
-payload once per z-range (from L2 after the first), and the atomics'
-order varies from run to run, so results differ from the plain version
-in the last bits.
+Bound on the H100: bytes. The payload is read once (masses of every
+slot, positions of the occupied ones) and the blocks are written once;
+the s^3 multiply-adds per slot are negligible next to that.
 
 Plain version: :func:`deposit_blocks_plain`, the one-hot ``piece()``
 and a batched product, used for CPU tensors and, on the card, only to
@@ -38,8 +38,15 @@ import torch
 
 from .window import window_support, window_weights
 
-# shared-memory budget of one deposit block: two blocks fit on an SM
-TILE_BYTES = 96 * 1024
+# shared memory one CTA may use on Hopper (227 KB), and what the kernel
+# keeps beside the tile in static shared memory
+SMEM_PER_CTA = 232448
+SMEM_STATIC = 128
+# threads per CTA of csrc/paint_deposit.cu (DEP_THREADS must match)
+DEPOSIT_THREADS = 512
+# the largest cluster Hopper launches; above 8 CTAs it is non-portable
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
 
 
 def _piece(t, x, y, z, m, *, s, resampler, rb, cb, n0l, p0, N1, N2,
@@ -104,16 +111,45 @@ def deposit_blocks_plain(sx, sy, sz, sm, *, resampler, rb, cb, n0l, p0,
     return out
 
 
-def z_range(M, N2, itemsize):
-    """z cells per deposit block: the whole axis when the (M, N2) tile
-    fits ``TILE_BYTES``, else the fewest equal ranges (rounded up to 32
-    cells) that fit it."""
-    nzr = max(1, -(-M * N2 * itemsize // TILE_BYTES))
-    per = -(-N2 // nzr)
-    zc = min(N2, -(-per // 32) * 32)
-    while zc > 1 and M * zc * itemsize > TILE_BYTES:
-        zc = max(1, zc // 2)
-    return zc
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def deposit_plan(M, N2, itemsize):
+    """Launch geometry of the deposit kernel for (M, N2) tiles of
+    ``itemsize``-byte cells.
+
+    One CTA holds a bucket's whole tile where it fits a CTA's shared
+    memory (``nz`` = 1, ``zc`` = N2); else a cluster of the fewest ``nz``
+    CTAs splits z into ranges of ``zc`` cells, rounded up to whole
+    16-byte units, one CTA each. Returns a dict: ``nz``, ``zc``,
+    ``z_ranges`` (each CTA's [z0, z1)), ``smem_bytes`` (dynamic shared
+    memory per CTA), ``portable`` (nz <= 8), ``ragged`` (rows are not
+    16-byte aligned in the output, so parts of them leave by plain stores
+    instead of bulk copies) and ``threads``. Raises ValueError if no
+    cluster of MAX_CLUSTER CTAs holds the tile."""
+    M, N2, itemsize = int(M), int(N2), int(itemsize)
+    if M < 1 or N2 < 1 or itemsize not in (4, 8):
+        raise ValueError("bad deposit tile M=%d N2=%d itemsize=%d"
+                         % (M, N2, itemsize))
+    align = 16 // itemsize
+    budget = SMEM_PER_CTA - SMEM_STATIC
+    for nz in range(1, MAX_CLUSTER + 1):
+        zc = N2 if nz == 1 else _ceil_div(_ceil_div(N2, nz), align) * align
+        if (nz - 1) * zc >= N2:
+            continue                   # the last CTA would own no z cell
+        smem = _ceil_div(M * zc * itemsize, 16) * 16
+        if smem <= budget:
+            break
+    else:
+        raise ValueError("a (%d, %d) tile of %d-byte cells does not fit a "
+                         "cluster of %d CTAs" % (M, N2, itemsize,
+                                                 MAX_CLUSTER))
+    return dict(nz=nz, zc=zc, smem_bytes=smem,
+                portable=nz <= PORTABLE_CLUSTER,
+                ragged=(N2 * itemsize) % 16 != 0, threads=DEPOSIT_THREADS,
+                z_ranges=[(r * zc, min((r + 1) * zc, N2))
+                          for r in range(nz)])
 
 
 _FLOATS = (torch.float32, torch.float64)
@@ -144,13 +180,13 @@ def deposit_blocks_cuda(sx, sy, sz, sm, *, resampler, rb, cb, n0l, p0,
     if not (1 <= rb and 1 <= cb and s <= N2 and 0 < n0l <= p0):
         raise ValueError("bad deposit geometry rb=%d cb=%d n0l=%d p0=%d "
                          "N2=%d" % (rb, cb, n0l, p0, N2))
-    zc = z_range(M, N2, sm.element_size())
+    plan = deposit_plan(M, N2, sm.element_size())
     out = torch.empty((T, nty, M, N2), dtype=sm.dtype, device=sm.device)
     if out.numel() == 0:
         return out
     from .._build import check, load
     fn = load('paint_deposit').nbk_deposit
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(sm.device).cuda_stream
@@ -158,7 +194,8 @@ def deposit_blocks_cuda(sx, sy, sz, sm, *, resampler, rb, cb, n0l, p0,
         sx.data_ptr(), sy.data_ptr(), sz.data_ptr(), sm.data_ptr(),
         out.data_ptr(), int(sx.dtype == torch.float64),
         int(sm.dtype == torch.float64), s, T, nty, K, rb, cb, n0l, p0, N1,
-        N2, int(origin), zc, stream))
+        N2, int(origin), plan['zc'], plan['nz'], plan['smem_bytes'],
+        stream))
     deposit_blocks_cuda.launches += 1
     return out
 

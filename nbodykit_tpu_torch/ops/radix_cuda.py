@@ -8,25 +8,24 @@ Replaces the Pallas TPU kernel ``nbodykit_tpu/ops/radix_pallas.py``
 for int32 digits in [0, D), D <= 1024.
 
 The TPU kernel carries a running per-digit base across its sequential
-grid. Blocks on Hopper run in no order, so ``csrc/radix_rank.cu`` takes
-three passes: (1) per-chunk digit histograms in shared memory,
-(2) an exclusive scan of those histograms over chunks, per digit,
-which also yields ``hist``, (3) the stable in-chunk rank plus the chunk
-base. Pass 3 is stable without atomics: each warp owns a contiguous
-sub-chunk, ranks 32 digits at a time with ``__match_any_sync`` and
-``__popc(mask & lanemask_lt)``, and starts from per-warp per-digit
-counts scanned across warps in warp order. The result is bit-identical
-to the plain version. Nothing is padded, so no histogram correction
-is needed.
+grid. CTAs on Hopper run in no order, so ``csrc/radix_rank.cu`` is a
+single-pass counting rank with decoupled look-back: each CTA takes a
+chunk of ``KERNEL_CHUNK`` digits from an atomic ticket, ranks it stably
+within its warps (peer masks from one ``__ballot_sync`` per digit bit,
+``__popc(mask & lanemask_lt)``, per-warp counts scanned across warps in
+warp order), publishes its per-digit chunk totals behind a status word
+and looks back over the lower chunks' status words for its per-digit
+base. It reads each digit once and writes each rank once; the last
+chunk's inclusive prefix is ``hist``. The result is bit-identical to
+the plain version. Nothing is padded, so no histogram correction is
+needed.
 
 Bound on the H100: bytes. A pass reads n int32 digits and writes n
 int32 ranks and D int32 counts; it does no arithmetic worth counting.
-The digits are read twice (passes 1 and 3) and the chunk histograms
-(n/4096 x D int32, D/4096 of the digit stream: 1.6% at D = 65) are the
-only other traffic, so the kernel moves about twice the bound. Most of
-its time goes to pass 3, which sweeps its digits twice with
-``__match_any_sync``; that pass, not the chunk scan, is where a faster
-rank pass starts (``chip_smoke.py`` prints each kernel's device time).
+Beside that each chunk of ``KERNEL_CHUNK`` digits writes 2 * D int32
+counts (D / 4096 bytes per digit byte: 1.6% at D = 65) and a status
+word, which :func:`rank_plan` sizes; the C entry point clears the status
+words on the stream.
 
 The wrapper does not check the digits' values, which would cost a
 reduction and a host round trip per pass: the kernel counts digits
@@ -38,9 +37,10 @@ import ctypes
 
 import torch
 
-# elements per chunk (one CUDA block) of the kernel; csrc/radix_rank.cu
-# RANK_CHUNK must match
-KERNEL_CHUNK = 4096
+# digits per chunk (one CTA) and threads per CTA of the kernel;
+# csrc/radix_rank.cu RANK_CHUNK and RANK_THREADS must match
+KERNEL_CHUNK = 8192
+KERNEL_THREADS = 512
 MAX_DIGITS = 1024
 
 
@@ -131,17 +131,37 @@ def _rank_fn():
     return _fn[0]
 
 
-def rank_pass_launch(digit, D, rank, hist, chunk_hist):
-    """Launch the rank pass's three kernels into preallocated outputs on
-    the current stream, with no checks: ``digit`` (n,) int32, ``rank``
-    (n,) int32, ``hist`` (D,) int32 and ``chunk_hist`` (ceil(n /
-    KERNEL_CHUNK), D) int32, all contiguous on one CUDA device, n >= 1.
-    :func:`pass_rank_hist_cuda` checks and allocates, then calls this."""
+def rank_plan(n, D):
+    """Launch geometry of the rank kernel for n digits of alphabet D:
+    ``chunk`` (digits per CTA), ``ctas`` (one per chunk, at least one),
+    ``threads``, ``smem_bytes`` (dynamic shared memory per CTA: the
+    chunk, per-warp counts and two D-vectors), ``scratch_words`` (int64
+    words of scratch: a 16-byte ticket, a 4-byte status word per chunk
+    padded to 16 bytes, then each chunk's D aggregate and D inclusive
+    int32 counts) and ``clear_bytes`` (the ticket and the status words,
+    cleared before each pass)."""
+    n, D = int(n), int(D)
+    ctas = max(1, -(-n // KERNEL_CHUNK))
+    clear = 16 + -(-4 * ctas // 16) * 16
+    warps = KERNEL_THREADS // 32
+    return dict(chunk=KERNEL_CHUNK, ctas=ctas, threads=KERNEL_THREADS,
+                smem_bytes=4 * (KERNEL_CHUNK + (warps + 2) * D),
+                scratch_words=-(-(clear + 8 * ctas * D) // 8),
+                clear_bytes=clear)
+
+
+def rank_pass_launch(digit, D, rank, hist, scratch):
+    """Launch the rank kernel into preallocated outputs on the current
+    stream, with no checks: ``digit`` (n,) int32, ``rank`` (n,) int32,
+    ``hist`` (D,) int32 and ``scratch`` (``rank_plan(n, D)
+    ['scratch_words']``,) int64, all contiguous on one CUDA device,
+    n >= 1. :func:`pass_rank_hist_cuda` checks and allocates, then calls
+    this."""
     from .._build import check
     stream = torch.cuda.current_stream(digit.device).cuda_stream
     check('radix_rank', _rank_fn()(
         digit.data_ptr(), rank.data_ptr(), hist.data_ptr(),
-        chunk_hist.data_ptr(), _bad_counter(digit.device).data_ptr(),
+        scratch.data_ptr(), _bad_counter(digit.device).data_ptr(),
         digit.shape[0], D, stream))
     pass_rank_hist_cuda.launches += 1
 
@@ -172,9 +192,9 @@ def pass_rank_hist_cuda(digit, D):
     if n == 0:
         return rank, torch.zeros(D, dtype=torch.int32, device=digit.device)
     hist = torch.empty(D, dtype=torch.int32, device=digit.device)
-    chunk_hist = torch.empty((-(-n // KERNEL_CHUNK), D), dtype=torch.int32,
-                             device=digit.device)
-    rank_pass_launch(digit, D, rank, hist, chunk_hist)
+    scratch = torch.empty(rank_plan(n, D)['scratch_words'],
+                          dtype=torch.int64, device=digit.device)
+    rank_pass_launch(digit, D, rank, hist, scratch)
     return rank, hist
 
 

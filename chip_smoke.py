@@ -6,17 +6,32 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, drives
-the main path (a UniformCatalog of ~1e7 particles painted onto a 512^3
-CIC mesh, compensated, FFTPower in (k, mu) with multipoles) and checks
-what comes out. Every check is an ``assert`` or a raise, so any failure
-exits non-zero. Output: one JSON line per phase; then the ``kernels``
-line, the ``nvidia-smi`` name and power limit, and last
-``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
-result. Times are CUDA-event times on this card.
+holds each kernel against its plain PyTorch version on the card, and
+drives two paths through the user entry points:
+
+- the main path: a UniformCatalog of ~1e7 threefry particles painted
+  onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
+  multipoles;
+- the lognormal path, the repo's FFTPower benchmark flow
+  (``benchmarks/test_fftpower.py`` at its ``desi_like`` scale):
+  LogNormalCatalog(LinearPower(Planck15, 0.55, 'EisensteinHu'),
+  bias=2, seed=42) at BoxSize 5000, Nmesh 1024, nbar 1e7 / 5000^3,
+  then FFTPower(mode='2d', kmin=0.001, Nmu=10) on its compensated CIC
+  mesh;
+
+and LinearMesh at the same scale against its exact expectation. Every
+check is an ``assert`` or a raise, so any failure exits non-zero.
+Output: one JSON line per phase; then the ``kernels`` line, the
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``. Without CUDA it exits 1 and prints no result. Times are
+CUDA-event times on this card.
 """
 
+import contextlib
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -27,8 +42,15 @@ import torch
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# calls per timed phase of the main path
+# 32-bit integer add, shift and logic results per clock per SM, compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput); times the SMs and the boost clock nvidia-smi reports
+INT32_OPS_PER_CLOCK_PER_SM = 64
+# calls per timed phase of the main path, and of the lognormal path
 REPS = 5
+LN_REPS = 3
+# the lognormal path: benchmarks/test_fftpower.py at desi_like
+LN_BOX, LN_NMESH, LN_N, LN_BIAS, LN_SEED = 5000.0, 1024, 1e7, 2.0, 42
 
 
 def emit(obj):
@@ -80,19 +102,37 @@ def bound(nbytes, flops, peak_flops):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def smi_query(query):
+    """``nvidia-smi --query-gpu=<query>`` of card 0, as printed."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=%s' % query, '--format=csv,noheader'],
+        capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s():
+    """The card's 32-bit integer rate for add, shift and logic: 64 per
+    clock per SM x SMs x the boost clock (``clocks.max.sm``)."""
+    mhz = float(smi_query('clocks.max.sm').split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6, mhz, sms
+
+
 def rank_cases(gen):
     """(label, digits, D) of the rank pass's checks: random digits at n
     around one chunk and at the main path's sizes for D in {1, 2, 65,
-    1024}, then all-equal, sorted and reverse-sorted digits."""
+    129, 1024} (65 and 129 are the LSD digits of the 512^3 and the
+    1024^3 CIC bucket alphabets), then all-equal, sorted and
+    reverse-sorted digits."""
     from nbodykit_tpu_torch.ops.radix_cuda import KERNEL_CHUNK as C
 
     def rand(n, D):
         return torch.randint(0, D, (n,), generator=gen, device='cuda',
                              dtype=torch.int32)
     for n in (1, C - 1, C, C + 1, 10 ** 6, 10 ** 7):
-        for D in (1, 2, 65, 1024):
+        for D in (1, 2, 65, 129, 1024):
             yield 'random n=%d D=%d' % (n, D), rand(n, D), D
-    for D in (65, 1024):
+    for D in (65, 129, 1024):
         n = 10 ** 6
         yield 'all_equal D=%d' % D, torch.full(
             (n,), D - 1, dtype=torch.int32, device='cuda'), D
@@ -121,7 +161,7 @@ def check_rank():
         cases.append(label)
     raise_on_bad_digits('cuda')
     emit({'phase': 'rank_check', 'bit_identical': cases})
-    for D in (65, 1024):
+    for D in (65, 129, 1024):
         d = torch.randint(0, D, (10 ** 7,), generator=gen, device='cuda',
                           dtype=torch.int32)
         rp, hp = pass_rank_hist_plain(d, D)
@@ -214,8 +254,12 @@ def time_rank(n, D=65):
 
 
 def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
-                 slack=2.0):
-    """Kernel vs plain deposit on the mxu payload of one catalog."""
+                 slack=2.0, check_order=False):
+    """Kernel vs plain deposit on the mxu payload of one catalog. With
+    ``check_order``, the payload bucketed by the radix rank passes must
+    equal the one bucketed by a stable ``torch.argsort``. Returns (mxu
+    plan, payload, geometry, max |kernel - plain|, deposit launch
+    plan)."""
     from nbodykit_tpu_torch.ops.paint import mxu_payload, mxu_plan
     from nbodykit_tpu_torch.ops.paint_cuda import (deposit_blocks_cuda,
                                                    deposit_blocks_plain,
@@ -225,6 +269,13 @@ def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
     sx, sy, sz, sm, over = mxu_payload(pos_cells, mass, plan, resampler,
                                        origin, 'radix')
     assert int(over) == 0, "bucket overflow in %s" % label
+    if check_order:
+        ref = mxu_payload(pos_cells, mass, plan, resampler, origin,
+                          'argsort')
+        for a, b in zip((sx, sy, sz, sm, over), ref):
+            assert torch.equal(a, b), \
+                "%s: radix bucketing differs from argsort's" % label
+        del ref
     geom = dict(resampler=resampler, rb=plan['rb'], cb=plan['cb'],
                 n0l=int(shape[0]), p0=int(period[0]), N1=int(shape[1]),
                 N2=int(shape[2]), origin=origin)
@@ -236,17 +287,19 @@ def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
     tol = (1e-12 if sm.dtype == torch.float64 else 1e-5) * scale
     total, mass_in = float(got.double().sum()), float(sm.double().sum())
     lplan = deposit_plan(got.shape[2], got.shape[3], got.element_size())
+    blocks = list(got.shape)
+    del got, ref
     emit({'phase': 'deposit_check', 'case': label, 'max_abs_err': err,
-          'max_abs_block': scale, 'tol': tol, 'blocks': list(got.shape),
+          'max_abs_block': scale, 'tol': tol, 'blocks': blocks,
           'cluster': lplan['nz'], 'z_cells_per_cta': lplan['zc'],
           'ragged': lplan['ragged'], 'blocks_sum': total,
-          'payload_mass': mass_in})
+          'payload_mass': mass_in, 'radix_equals_argsort': check_order})
     assert np.isfinite(err) and err <= tol, \
         "deposit %s: max |kernel - plain| %g > %g" % (label, err, tol)
     # every window sums to one: the blocks hold the payload's mass
     assert abs(total - mass_in) <= 1e-5 * mass_in, \
         "deposit %s does not conserve mass" % label
-    return plan, (sx, sy, sz, sm), geom, err
+    return plan, (sx, sy, sz, sm), geom, err, lplan
 
 
 def uniform_cells(n, nmesh, seed, dtype=torch.float64):
@@ -269,9 +322,9 @@ def check_deposit(cat, nmesh):
     full = (nmesh,) * 3
     pos = cat['Position'] * (nmesh / float(cat.attrs['BoxSize'][0]))
     mass = torch.ones(pos.shape[0], dtype=torch.float32, device='cuda')
-    plan, payload, geom, err = deposit_case(
+    plan, payload, geom, err, _ = deposit_case(
         'cic %d^3 n=%d' % (nmesh, pos.shape[0]), pos, mass, full, full, 0,
-        'cic')
+        'cic', check_order=True)
     cells = uniform_cells(10 ** 6, 256, seed=3)
     ones = torch.ones(10 ** 6, dtype=torch.float32, device='cuda')
     for res in ('tsc', 'pcs'):
@@ -336,29 +389,47 @@ def check_deposit(cat, nmesh):
                     nmesh, [T, nty, M, nmesh], [T, nty, K], occupied))
 
 
+def launch_counters():
+    from nbodykit_tpu_torch.ops import threefry_cuda as tf
+    from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_cuda
+    from nbodykit_tpu_torch.ops.radix_cuda import pass_rank_hist_cuda
+    return {'radix_rank': pass_rank_hist_cuda,
+            'paint_deposit': deposit_blocks_cuda,
+            'threefry_fill': tf.threefry_fill_cuda,
+            'poisson_threefry': tf.poisson_threefry_cuda}
+
+
+@contextlib.contextmanager
+def counted_launches():
+    """Every kernel's launch count set to 0 on entry; the dict yielded
+    holds the counts on exit, after a synchronize."""
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    yield out
+    torch.cuda.synchronize()
+    out.update({k: fn.launches for k, fn in counters.items()})
+
+
 def main_path(cat, nmesh):
     """FFTPower on the catalog at full width through the user entry
-    points, with both kernels' launches counted."""
+    points, with every kernel's launches counted."""
     from nbodykit_tpu_torch import set_options
     from nbodykit_tpu_torch.algorithms.fftpower import (FFTPower,
                                                         project_to_basis)
-    from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_cuda
-    from nbodykit_tpu_torch.ops.radix_cuda import pass_rank_hist_cuda
 
     def run():
         mesh = cat.to_mesh(Nmesh=nmesh, resampler='cic', compensated=True)
         return mesh, FFTPower(mesh, mode='2d', Nmu=5, poles=[0, 2, 4])
 
     run()                                            # warm-up
-    torch.cuda.synchronize()
-    pass_rank_hist_cuda.launches = 0
-    deposit_blocks_cuda.launches = 0
-    t0 = time.perf_counter()
-    mesh, r = run()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {'radix_rank': pass_rank_hist_cuda.launches,
-                'paint_deposit': deposit_blocks_cuda.launches}
+    with counted_launches() as launches:
+        t0 = time.perf_counter()
+        mesh, r = run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
     assert launches['paint_deposit'] >= 1, launches
     assert launches['radix_rank'] >= 2, launches
 
@@ -452,8 +523,8 @@ def _device_us(evt):
     return 0
 
 
-def profile_main_path(run):
-    """One main-path run under ``torch.profiler``: device busy time, the
+def profile_main_path(run, path='main_512'):
+    """One run of a path under ``torch.profiler``: device busy time, the
     idle share of the run's wall time and the kernels that take most."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -467,12 +538,430 @@ def profile_main_path(run):
                if str(e.device_type).endswith('CUDA')]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
-    emit({'phase': 'profile', 'wall_ms_profiled': wall_ms,
+    emit({'phase': 'profile', 'path': path, 'wall_ms_profiled': wall_ms,
           'device_busy_ms': busy_ms,
           'device_idle_share': (1 - busy_ms / wall_ms) if busy_ms else None,
           'device_time_visible': bool(busy_ms),
           'top_kernels': [[e.key[:90], e.count, _device_us(e) / 1e3]
                           for e in top]})
+
+
+def _same(a, b):
+    """(cells that differ, max |difference| in ulp) of two tensors of
+    one dtype, compared as bit patterns."""
+    ints = {1: torch.int8, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    ia, ib = a.view(ints).long(), b.view(ints).long()
+    nd = int((ia != ib).sum())
+    return nd, int((ia - ib).abs().max()) if nd else 0
+
+
+def rng_keys():
+    """(label, key): seeds 0, 42 and 2^31 - 1, and each one's fold_in
+    and split children."""
+    from nbodykit_tpu_torch import rng
+    for seed in (0, 42, 2 ** 31 - 1):
+        k = rng.key(seed)
+        yield 'seed=%d' % seed, k
+        yield 'fold_in(seed=%d, 1)' % seed, rng.fold_in(k, 1)
+        yield 'split(seed=%d)[1]' % seed, rng.split(k)[1]
+
+
+def check_rng():
+    """threefry_fill and poisson_threefry against their plain versions:
+    bits (32, 64) bit-identical for n in {1, 2, 3, 1023, 2^20+1} under
+    nine keys and n = 1e8 under three, and past counter 2^32; uniforms
+    and normals (f32, f64) bit-identical; Poisson counts identical on a
+    256^3 lognormal lam (Knuth only) and on lam in [0, 50] with exact
+    zeros (both branches)."""
+    from nbodykit_tpu_torch.ops import threefry_cuda as tf
+
+    def pair(key, c0, n, kind, lo=0.0, hi=1.0):
+        a = tf.threefry_fill_cuda(key, c0, n, kind, lo, hi, device='cuda')
+        b = tf.threefry_fill_plain(key, c0, n, kind, lo, hi, device='cuda')
+        return _same(a, b)
+
+    cases = 0
+    keys = list(rng_keys())
+    for i, (label, key) in enumerate(keys):
+        sizes = [1, 2, 3, 1023, 2 ** 20 + 1] + ([10 ** 8] if i % 3 == 0
+                                                else [])
+        for n in sizes:
+            for kind in ('bits32', 'bits64'):
+                nd, _ = pair(key, 0, n, kind)
+                assert nd == 0, "%s n=%d %s: %d differ" % (kind, n, label, nd)
+                cases += 1
+        for kind, lo, hi in (('uniform32', 0.0, 1.0),
+                             ('uniform64', 0.0, 1.0),
+                             ('uniform32', -3.3, 7.1),
+                             ('uniform64', 2.5, 1000.0),
+                             ('normal32', 0.0, 1.0), ('normal64', 0.0, 1.0)):
+            for n in (1023, 2 ** 20 + 1, 10 ** 7):
+                nd, ulp = pair(key, 0, n, kind, lo, hi)
+                assert nd == 0, "%s n=%d %s: %d differ (%d ulp)" % (
+                    kind, n, label, nd, ulp)
+                cases += 1
+    c0 = 2 ** 32 - 2 ** 19
+    for kind in tf.KINDS:
+        nd, _ = pair(keys[1][1], c0, 2 ** 20, kind)
+        assert nd == 0, "%s past 2^32: %d differ" % (kind, nd)
+        cases += 1
+    emit({'phase': 'rng_check', 'kernel': 'threefry_fill',
+          'cases_bit_identical': cases,
+          'kinds': list(tf.KINDS), 'largest_n': 10 ** 8,
+          'counter_past_2^32': c0})
+
+    # Poisson: a lognormal lam at the lognormal path's density, and a
+    # synthetic lam over both samplers
+    lam_ln = lognormal_lam(256, 1000.0, 7)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    lam_mix = torch.rand((256,) * 3, generator=gen, device='cuda') * 50
+    lam_mix.view(-1)[::97] = 0
+    key = tf.split_key(keys[1][1])[0]
+    for label, lam in (('lognormal 256^3', lam_ln),
+                       ('uniform [0, 50] with zeros 256^3', lam_mix)):
+        sk, sp = {}, {}
+        a = tf.poisson_threefry_cuda(key, lam, stats=sk)
+        b = tf.poisson_threefry_plain(key, lam, stats=sp)
+        nd = int((a != b).sum())
+        knuth = int((lam < 10).sum())
+        emit({'phase': 'rng_check', 'kernel': 'poisson_threefry',
+              'field': label, 'differing_cells': nd,
+              'knuth_cells': knuth, 'rejection_cells': lam.numel() - knuth,
+              'lam_max': float(lam.max()), 'hashes_kernel': sk['hashes'],
+              'hashes_plain': sp['hashes'], 'N': int(a.sum())})
+        assert nd == 0, "poisson %s: %d cells differ" % (label, nd)
+        assert sk['hashes'] == sp['hashes'], (sk, sp)
+    assert float(lam_ln.max()) < 10, "the lognormal lam left Knuth's range"
+
+    # a cell that runs past a subkey table sets the kernel's flag, and
+    # the wrapper raises: Knuth cells past 2 draws, rejection cells past
+    # 1 iteration
+    for name in ('KNUTH_TABLE', 'REJECTION_TABLE'):
+        saved = getattr(tf, name)
+        setattr(tf, name, 2 if name == 'KNUTH_TABLE' else 1)
+        try:
+            tf.poisson_threefry_cuda(key, lam_mix)
+        except tf.PoissonTableExhausted:
+            pass
+        else:
+            raise AssertionError("%s overflow was not reported" % name)
+        finally:
+            setattr(tf, name, saved)
+    emit({'phase': 'rng_check', 'kernel': 'poisson_threefry',
+          'table_overflow_raises': ['KNUTH_TABLE', 'REJECTION_TABLE']})
+
+
+def lognormal_lam(nmesh, box, seed):
+    """lam of a lognormal mock at the lognormal path's density and bias
+    (the first steps of LogNormalCatalog): the Poisson kernel's input."""
+    from nbodykit_tpu_torch import mockmaker
+    from nbodykit_tpu_torch.pmesh import ParticleMesh
+    pm = ParticleMesh(nmesh, box, dtype='f4')
+    delta_k, _ = mockmaker.gaussian_complex_fields(pm, linear_power(), seed)
+    delta = pm.c2r(delta_k.value)
+    del delta_k
+    return mockmaker.lognormal_lambda(delta, pm, LN_N / LN_BOX ** 3,
+                                      LN_BIAS)
+
+
+def sass_hash_ops():
+    """(integer instructions of one threefry2x32 hash, their opcodes) in
+    the built library's SASS (``cuobjdump -sass``): the grid-stride loop
+    body of the bits32 fill kernel, less what is not the hash: the store,
+    the branch, the compares, the address arithmetic, the 64-bit adds of
+    the counter and the loop index (IADD3 with a carry out, IADD3.X with
+    a carry in) and the one xor of the two hash words."""
+    from nbodykit_tpu_torch import _build
+    tool = shutil.which('cuobjdump') or os.path.join(
+        os.path.dirname(_build.nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', _build._target('threefry')[1]],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    fn = sass.split('Function : _Z20threefry_fill_kernelILi0E')[1]
+    fn = fn.split('Function :')[0]
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r'/\*([0-9a-f]{4,})\*/\s+([^;]*);', fn)]
+    end, top = next((a, int(t.split()[-1], 16)) for a, t in ins
+                    if re.match(r'@!?P\d BRA 0x', t)
+                    and int(t.split()[-1], 16) < a)
+    ops = {}
+    for a, t in ins:
+        if not top <= a <= end:
+            continue
+        op = t.split()[0]
+        if op.startswith('@'):
+            op = t.split()[1]
+        carry = op.startswith('IADD3') and re.search(r'\bP[0-6]\b', t)
+        if carry or op.startswith(('STG', 'BRA', 'ISETP', 'LEA')):
+            continue
+        ops[op] = ops.get(op, 0) + 1
+    ops['LOP3.LUT'] -= 1                       # the output's h1 ^ h2
+    return sum(ops.values()), ops
+
+
+def threefry_bound(nbytes, hashes, ops_per_hash):
+    """(ms, by) of a threefry kernel: bytes at the HBM rate, or
+    ``ops_per_hash`` integer operations per hash at the card's int32
+    rate."""
+    rate, _, _ = int32_ops_per_s()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = hashes * ops_per_hash / rate * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def time_threefry(n, ops_per_hash):
+    """threefry_fill at the white noise's shape (normal f32, n = Nmesh^3
+    of the lognormal path): kernel, plain version, and both compared."""
+    from nbodykit_tpu_torch import rng
+    from nbodykit_tpu_torch.ops import threefry_cuda as tf
+    key = rng.key(LN_SEED)
+
+    def launch():
+        return tf.threefry_fill_cuda(key, 0, n, 'normal32', device='cuda')
+    ms = cuda_ms(launch, reps=5)
+    a = launch()
+    b, plain_ms = timed(lambda: tf.threefry_fill_plain(
+        key, 0, n, 'normal32', device='cuda'))
+    nd, ulp = _same(a, b)
+    err = float((a - b).abs().max())
+    assert nd == 0, "white noise draw: %d of %d differ" % (nd, n)
+    del a, b
+    b_ms, b_by = threefry_bound(4 * n, n, ops_per_hash)
+    rate, mhz, sms = int32_ops_per_s()
+    emit({'phase': 'threefry_timing', 'n': n, 'kind': 'normal32',
+          'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+          'int_ops_per_hash': ops_per_hash, 'int32_ops_per_s': rate,
+          'clocks_max_sm_mhz': mhz, 'sms': sms})
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err,
+                at='normal f32 n=%d (the %d^3 white noise)' % (n, LN_NMESH))
+
+
+def time_poisson(lam, ops_per_hash):
+    """poisson_threefry at the lognormal path's lam: kernel, plain
+    version, and both compared."""
+    from nbodykit_tpu_torch import rng
+    from nbodykit_tpu_torch.ops import threefry_cuda as tf
+    key = rng.split(rng.key(LN_SEED))[0]
+    stats = {}
+    ms = cuda_ms(lambda: tf.poisson_threefry_cuda(key, lam, stats=stats),
+                 reps=5)
+    a = tf.poisson_threefry_cuda(key, lam)
+    b, plain_ms = timed(lambda: tf.poisson_threefry_plain(key, lam))
+    nd = int((a != b).sum())
+    err = int((a - b).abs().max())
+    assert nd == 0, "poisson at the lognormal path: %d cells differ" % nd
+    n = lam.numel()
+    del a, b
+    b_ms, b_by = threefry_bound(4 * n + 8 * n, stats['hashes'],
+                                ops_per_hash)
+    emit({'phase': 'poisson_timing', 'cells': n, 'ms': ms,
+          'plain_ms': plain_ms, 'hashes': stats['hashes'],
+          'hashes_per_cell': stats['hashes'] / n, 'bound_ms': b_ms,
+          'bound_by': b_by, 'lam_mean': float(lam.double().mean()),
+          'lam_max': float(lam.max())})
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err,
+                at='f32 lam %d^3 -> int64 counts, %d hashes' % (
+                    LN_NMESH, stats['hashes']))
+
+
+def linear_power():
+    from nbodykit_tpu_torch import cosmology
+    return cosmology.LinearPower(cosmology.Planck15, 0.55, 'EisensteinHu')
+
+
+def check_linear_mesh():
+    """LinearMesh at BoxSize 5000 / Nmesh 1024 with unitary amplitude:
+    |delta_k|^2 V is P(|k|) mode by mode, so each FFTPower bin must be
+    the mean of P(|k|) over its modes, binned by the same
+    project_to_basis; 1e-4 relative below k_Nyquist."""
+    from nbodykit_tpu_torch.algorithms.fftpower import (FFTPower,
+                                                        project_to_basis)
+    from nbodykit_tpu_torch.base.mesh import Field
+    from nbodykit_tpu_torch.source.mesh import LinearMesh
+    plin = linear_power()
+    mesh = LinearMesh(plin, BoxSize=LN_BOX, Nmesh=LN_NMESH, seed=LN_SEED,
+                      unitary_amplitude=True)
+    r, ms = timed(lambda: FFTPower(mesh, mode='1d'))
+    pm = mesh.pm
+    kx, ky, kz = pm.k_list()
+    expect = torch.empty(pm.shape_complex, dtype=torch.complex128,
+                         device='cuda')
+    for a in range(0, ky.shape[0], 64):
+        k2 = kx ** 2 + ky[a:a + 64] ** 2 + kz ** 2
+        expect[a:a + 64] = plin(torch.sqrt(k2)).to(torch.complex128)
+    expect[0, 0, 0] = 0
+    edges = [np.asarray(r.power.edges['k']), np.array([-1.0, 1.0])]
+    (_, _, pe, ne), _ = project_to_basis(Field(expect, pm, 'complex'),
+                                         edges)
+    del expect
+    P, modes, k = (r.power['power'].real, r.power['modes'],
+                   r.power['k'])
+    pe, ne = np.squeeze(pe).real, np.squeeze(ne)
+    knyq = np.pi * LN_NMESH / LN_BOX
+    sel = (modes > 0) & (k > 0) & (k < knyq)     # not the DC-only bin
+    assert np.array_equal(ne, modes)
+    rel = np.abs(P[sel] / pe[sel] - 1)
+    emit({'phase': 'linear_mesh', 'nmesh': LN_NMESH, 'box': LN_BOX,
+          'fftpower_ms': ms, 'bins_checked': int(sel.sum()),
+          'max_rel_err': float(rel.max()), 'tol': 1e-4})
+    assert np.isfinite(P[sel]).all() and rel.max() <= 1e-4, rel.max()
+
+
+def lognormal_catalog():
+    from nbodykit_tpu_torch.source.catalog import LogNormalCatalog
+    return LogNormalCatalog(linear_power(), nbar=LN_N / LN_BOX ** 3,
+                            BoxSize=LN_BOX, Nmesh=LN_NMESH, bias=LN_BIAS,
+                            seed=LN_SEED)
+
+
+def lognormal_fftpower(cat):
+    """The benchmark's algorithm on the catalog: its compensated CIC
+    mesh in f32, as the benchmark paints on the TPU (FFTPower on the
+    catalog itself paints f64, as the JAX package does under x64)."""
+    from nbodykit_tpu_torch.algorithms.fftpower import FFTPower
+    mesh = cat.to_mesh(Nmesh=LN_NMESH, resampler='cic', compensated=True)
+    return mesh, FFTPower(mesh, mode='2d', kmin=0.001, Nmu=10)
+
+
+def lognormal_path():
+    """The benchmark flow at full width: Data (LogNormalCatalog) and
+    Algorithm (FFTPower) once with every kernel's launches counted; the
+    physics gates on the result; the mxu paint against the index_add_
+    paint, and the deposit kernel against its plain version on the
+    catalog's own payload (cluster branch, radix bucketing equal to
+    argsort's); then one warm-up and LN_REPS timed calls of each."""
+    from nbodykit_tpu_torch import set_options
+    with counted_launches() as launches:
+        torch.cuda.reset_peak_memory_stats()
+        cat = lognormal_catalog()
+        torch.cuda.synchronize()
+        peak_data = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh, r = lognormal_fftpower(cat)
+        torch.cuda.synchronize()
+        peak_alg = torch.cuda.max_memory_allocated()
+    for k, v in launches.items():
+        assert v >= 1, "%s was not launched on the lognormal path" % k
+
+    # gates: N, the painted mean, the large-scale bias
+    nbar = LN_N / LN_BOX ** 3
+    nexp = nbar * LN_BOX ** 3
+    N = len(cat)
+    assert abs(N - nexp) <= 5 * np.sqrt(nexp), (N, nexp)
+    field = mesh.to_real_field()
+    mean = float(field.value.double().mean())
+    assert abs(mean - 1) <= 1e-5, "painted field mean %r" % mean
+    with set_options(paint_method='scatter'):
+        plain = mesh.to_real_field()
+    diff = float((plain.value - field.value).abs().max())
+    fmax = float(field.value.abs().max())
+    del plain, field
+    assert diff <= 1e-5 * fmax, \
+        "mxu paint vs index_add_ paint: %g > 1e-5 * %g" % (diff, fmax)
+    P, modes, k = (r.power['power'].real, r.power['modes'],
+                   r.power['k'])
+    sel = (modes > 0) & (k > 0.005) & (k < 0.03)
+    plin = linear_power()
+    ratio = float(np.sum(modes[sel] * (P[sel] - 1.0 / nbar))
+                  / np.sum(modes[sel] * LN_BIAS ** 2 * plin(k[sel])))
+    assert np.isfinite(P[modes > 0]).all()
+    assert 0.85 <= ratio <= 1.15, "large-scale bias ratio %r" % ratio
+    del mesh, r
+    torch.cuda.empty_cache()
+
+    full = (LN_NMESH,) * 3
+    pos = cat['Position'] * (LN_NMESH / LN_BOX)
+    plan, _, _, _, dplan = deposit_case(
+        'cic %d^3 lognormal n=%d' % (LN_NMESH, N), pos,
+        torch.ones(N, dtype=torch.float32, device='cuda'), full, full, 0,
+        'cic', check_order=True)
+    del pos
+    assert dplan['nz'] > 1, "the 1024^3 deposit did not take the cluster " \
+        "branch"
+    torch.cuda.empty_cache()
+
+    def data():
+        return lognormal_catalog()
+
+    def algorithm():
+        return lognormal_fftpower(cat)
+    data()
+    _, t_data = spread(data, LN_REPS)
+    algorithm()
+    _, t_alg = spread(algorithm, LN_REPS)
+    emit({'phase': 'lognormal_path', 'nmesh': LN_NMESH, 'box': LN_BOX,
+          'nbar': nbar, 'N': N, 'N_expected': nexp,
+          'N_gate': 5 * np.sqrt(nexp), 'field_mean': mean,
+          'mxu_vs_scatter_max_abs': diff, 'field_max': fmax,
+          'bias_ratio_0.005_0.03': ratio, 'bias_gate': [0.85, 1.15],
+          'bins_in_bias_ratio': int(sel.sum()),
+          'modes_in_bias_ratio': int(modes[sel].sum()),
+          'peak_gb_data': peak_data / 1e9,
+          'peak_gb_algorithm': peak_alg / 1e9,
+          'deposit_plan': {'nz': dplan['nz'], 'zc': dplan['zc'],
+                           'M': (plan['rb'] + 1) * (plan['cb'] + 1),
+                           'smem_bytes': dplan['smem_bytes']},
+          'launches': launches, 'reps': LN_REPS,
+          'data_ms': t_data, 'algorithm_ms': t_alg})
+    return cat, launches, lambda: lognormal_fftpower(data())
+
+
+class StageTimes(object):
+    """``mockmaker.stage_timer``: one CUDA-event window per stage,
+    the stream drained before and after it."""
+
+    def __init__(self):
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        b.synchronize()
+        self.ms.setdefault(name, []).append(a.elapsed_time(b))
+
+
+def lognormal_stages(cat):
+    """The lognormal path's stages: LN_REPS LogNormalCatalog builds with
+    ``mockmaker.stage_timer`` set, so each stage of the real build is
+    one CUDA-event window, and LN_REPS runs of the Algorithm's steps
+    (paint, r2c, 3-D power, binning), one window each."""
+    from nbodykit_tpu_torch import mockmaker as mm
+    from nbodykit_tpu_torch.algorithms.fftpower import (FFTPower,
+                                                        project_to_basis)
+    times = StageTimes()
+    mm.stage_timer = times
+    try:
+        for _ in range(LN_REPS):
+            lognormal_catalog()
+    finally:
+        mm.stage_timer = None
+
+    def step(name, fn):
+        with times(name):
+            return fn()
+    mesh = cat.to_mesh(Nmesh=LN_NMESH, resampler='cic', compensated=True)
+    for _ in range(LN_REPS):
+        field = step('paint', lambda: mesh.to_real_field())
+        step('r2c', lambda: field.r2c())
+        del field
+    r = FFTPower(mesh, mode='2d', kmin=0.001, Nmu=10)
+    edges = [np.asarray(r.power.edges['k']), np.linspace(-1, 1, 11)]
+    for _ in range(LN_REPS):
+        y3d = step('power3d', lambda: r._compute_3d_power(r.first,
+                                                          r.second)[0])
+        step('binning', lambda: project_to_basis(y3d, edges))
+        del y3d
+    summary = {k: {'median': float(np.median(v)), 'min': min(v),
+                   'max': max(v)} for k, v in times.ms.items()}
+    emit({'phase': 'lognormal_stages', 'reps': LN_REPS, 'ms': summary})
 
 
 def main():
@@ -487,39 +976,72 @@ def main():
     torch.set_float32_matmul_precision('highest')
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = smi_query('name,power.limit')
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     for src, log in logs.items():
         print('nvcc %s:\n%s' % (src, log), file=sys.stderr)
+    hash_ops, hash_opcodes = sass_hash_ops()
     emit({'phase': 'device', 'name': name, 'nvidia_smi': smi,
           'count': torch.cuda.device_count(), 'torch': torch.__version__,
           'cuda': torch.version.cuda, 'build_s': build_s,
-          'built': sorted(logs)})
+          'built': sorted(logs), 'threefry_hash_int_ops_sass': hash_ops,
+          'threefry_hash_opcodes': hash_opcodes})
 
     check_rank()
     nmesh = 512
-    cat = UniformCatalog(nbar=1e-2, BoxSize=1000.0, seed=42)
+    with counted_launches() as cat_launches:
+        cat = UniformCatalog(nbar=1e-2, BoxSize=1000.0, seed=42)
+    assert cat_launches['threefry_fill'] >= 2, cat_launches
     rank_rec = time_rank(len(cat))
     dep_rec = check_deposit(cat, nmesh)
-    launches, run = main_path(cat, nmesh)
+    run_launches, run = main_path(cat, nmesh)
+    # the 512^3 path: the catalog's draws, then the counted FFTPower run
+    launches = {k: cat_launches[k] + run_launches[k] for k in cat_launches}
     paint_breakdown(cat, nmesh)
     profile_main_path(run)
+    del cat, run
+    torch.cuda.empty_cache()
 
+    check_rng()
+    torch.cuda.empty_cache()
+    check_linear_mesh()
+    torch.cuda.empty_cache()
+    ln_cat, ln_launches, ln_run = lognormal_path()
+    lognormal_stages(ln_cat)
+    pois_rec = time_poisson(lognormal_lam(LN_NMESH, LN_BOX, LN_SEED),
+                            hash_ops)
+    torch.cuda.empty_cache()
+    profile_main_path(ln_run, 'lognormal_1024')
+    del ln_cat, ln_run
+    torch.cuda.empty_cache()
+    tf_rec = time_threefry(LN_NMESH ** 3, hash_ops)
+
+    def counted(name):
+        by_path = {'main_512': launches[name],
+                   'lognormal_1024': ln_launches[name]}
+        return dict(launches=sum(by_path.values()),
+                    launches_by_path=by_path)
+    rng_src = 'nbodykit_tpu_torch/csrc/threefry.cu'
+    rng_replaces = 'jax.random threefry2x32 / poisson (XLA; no Pallas kernel)'
     kernels = [
         dict(name='radix_rank', route='cuda',
              source='nbodykit_tpu_torch/csrc/radix_rank.cu',
              replaces='nbodykit_tpu/ops/radix_pallas.py:30',
-             launches=launches['radix_rank'], **rank_rec),
+             **counted('radix_rank'), **rank_rec),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
              replaces='nbodykit_tpu/ops/paint_pallas.py:37',
-             launches=launches['paint_deposit'], **dep_rec),
+             **counted('paint_deposit'), **dep_rec),
+        dict(name='threefry_fill', route='cuda', source=rng_src,
+             replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),
+        dict(name='poisson_threefry', route='cuda', source=rng_src,
+             replaces=rng_replaces, **counted('poisson_threefry'),
+             **pois_rec),
     ]
+    for kern in kernels:
+        kern['share_of_bound'] = kern['bound_ms'] / kern['ms']
     emit({'kernels': kernels})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

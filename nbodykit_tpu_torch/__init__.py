@@ -11,9 +11,11 @@ without that request an entry point raises; it never carries on
 quietly on the CPU.
 
 Hand-written Hopper kernels (``csrc/*.cu``, built by ``_build.py`` at
-first use) carry the mxu paint's tile deposit and the radix counting
-sort's rank pass. A wrapper launches its kernel for a CUDA tensor and
-uses the kernel's plain PyTorch version only for a CPU tensor.
+first use) carry the mxu paint's tile deposit, the radix counting
+sort's rank pass and the threefry draws (JAX's values, so a seed gives
+the JAX package's catalog). A wrapper launches its kernel for a CUDA
+tensor and uses the kernel's plain PyTorch version only for a CPU
+tensor.
 """
 
 from contextlib import contextmanager

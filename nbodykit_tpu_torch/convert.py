@@ -1,8 +1,9 @@
 """Carry state across from the JAX package, as numpy arrays.
 
-The system holds no model weights: what crosses is a catalog's columns
-and a field. Both cross as numpy arrays (``nbodykit_tpu.utils.as_numpy``
-on the JAX side), so this module imports nothing of JAX.
+The system holds no model weights: what crosses is a catalog's columns,
+a field, or a PRNG key. All cross as numpy arrays
+(``nbodykit_tpu.utils.as_numpy`` or ``jax.random.key_data`` on the JAX
+side), so this module imports nothing of JAX.
 """
 
 import numpy as np
@@ -39,3 +40,14 @@ def field_from_numpy(array, pm, kind='real'):
     value = torch.as_tensor(np.ascontiguousarray(array)).to(
         device=pm.device, dtype=dtype)
     return Field(value, pm, kind)
+
+
+def key_from_numpy(raw):
+    """The port's threefry key (see :mod:`nbodykit_tpu_torch.rng`) from
+    JAX's raw key data, ``np.asarray(jax.random.key_data(k))``: a (2,)
+    uint32 array. Draws under it equal JAX's draws under ``k``."""
+    raw = np.asarray(raw)
+    if raw.shape != (2,) or raw.dtype != np.uint32:
+        raise ValueError("JAX threefry key data is a (2,) uint32 array, "
+                         "got %s %s" % (raw.dtype, raw.shape))
+    return raw.copy()

@@ -102,14 +102,27 @@ class ParticleMesh(object):
 
     def r2c(self, real):
         """Forward real-to-complex FFT, forward-normalized (divides by
-        Nmesh^3), in the transposed (N1, N0, N2//2+1) layout."""
-        c = torch.fft.rfftn(real, dim=(0, 1, 2)) * (1.0 / self.Ntot)
+        Nmesh^3), in the transposed (N1, N0, N2//2+1) layout. The
+        scaling is in place on the transform's output, so a field costs
+        two complex copies at the peak, not three."""
+        return self._r2c_scaled(real, 1.0 / self.Ntot)
+
+    def _r2c_scaled(self, real, scale):
+        c = torch.fft.rfftn(real, dim=(0, 1, 2))
+        c.mul_(scale)
         return c.permute(1, 0, 2).contiguous()
 
     def c2r(self, cplx):
         """Inverse of :meth:`r2c` (unnormalized inverse, since the
         forward carried the 1/N^3); returns the mesh dtype."""
-        natural = (cplx * self.Ntot).permute(1, 0, 2)
+        return self.c2r_natural(cplx.permute(1, 0, 2).contiguous())
+
+    def c2r_natural(self, natural):
+        """:meth:`c2r` of a complex field already in the natural
+        (N0, N1, N2//2+1) layout, which it scales in place and consumes
+        (a caller that builds the field in that layout saves the
+        transposed copy)."""
+        natural.mul_(self.Ntot)
         return torch.fft.irfftn(natural, s=self.shape_real,
                                 dim=(0, 1, 2)).to(self.torch_dtype)
 
@@ -172,6 +185,44 @@ class ParticleMesh(object):
         w = torch.where((iz > 0) & ~((N2 % 2 == 0) & (iz == N2 // 2)),
                         2.0, 1.0)
         return w.to(torch_dtype(dtype)).reshape(1, 1, nz)
+
+    # -- white noise and particle grids -------------------------------------
+
+    def generate_whitenoise(self, seed, unitary=False, inverted_phase=False):
+        """A hermitian complex field with unit variance per mode: the
+        threefry normal draw of ``key(seed)`` over the real mesh (the
+        JAX package's draw), through the unnormalized r2c transform,
+        times 1/sqrt(Ntot), in the transposed layout. ``unitary`` sets
+        every amplitude to 1; ``inverted_phase`` flips the sign. Scaled
+        in place: the peak is the draw and two complex copies."""
+        from .rng import key, normal
+        g = normal(key(seed), self.shape_real, self.dtype, self.device)
+        eta = self._r2c_scaled(g, 1.0 / np.sqrt(self.Ntot))
+        del g
+        if unitary:
+            amp = eta.abs()
+            amp = torch.where(amp == 0, 1.0, amp)
+            eta.div_(amp)
+            del amp
+        if inverted_phase:
+            eta.neg_()
+        return eta
+
+    def generate_uniform_particle_grid(self, shift=0.5, dtype='f4'):
+        """Positions of a uniform lattice of Nmesh^3 particles, offset by
+        ``shift`` cells: (Ntot, 3) in the raster order of the real mesh
+        (the first axis slowest), computed in f64 and cast to
+        ``dtype``, as in the JAX package."""
+        N0, N1, N2 = self.shape_real
+        H = self.cellsize
+        axes = []
+        for ax, n in enumerate((N0, N1, N2)):
+            shape = [1, 1, 1]
+            shape[ax] = n
+            i = torch.arange(n, dtype=torch.float64, device=self.device)
+            axes.append(((i + shift) * float(H[ax])).reshape(shape)
+                        .expand(N0, N1, N2).reshape(-1))
+        return torch.stack(axes, dim=-1).to(torch_dtype(dtype))
 
     # -- paint / readout --------------------------------------------------
 

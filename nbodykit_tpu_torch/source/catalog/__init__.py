@@ -1,4 +1,5 @@
 """Catalog sources."""
 
 from .array import ArrayCatalog  # noqa: F401
-from .uniform import UniformCatalog  # noqa: F401
+from .lognormal import LogNormalCatalog  # noqa: F401
+from .uniform import RandomCatalog, UniformCatalog  # noqa: F401

@@ -1,21 +1,45 @@
-"""Uniform catalogs (counterpart of
+"""Random and uniform catalogs (counterpart of
 ``nbodykit_tpu/source/catalog/uniform.py``)."""
 
 import numpy as np
 import torch
 
 from ...base.catalog import CatalogSource, column
-from ...utils import torch_dtype
+from ...rng import DistributedRNG
+from ...utils import torch_dtype, working_dtype
 
 
-class UniformCatalog(CatalogSource):
+class RandomCatalog(CatalogSource):
+    """A catalog whose columns are drawn from the seeded threefry
+    generator exposed as :attr:`rng` (the JAX package's draws, call for
+    call)."""
+
+    def __init__(self, csize, seed=None, device=None):
+        if seed is None:
+            seed = np.random.randint(0, 2 ** 31 - 1)
+        if csize == 0:
+            raise ValueError("no random particles generated!")
+        CatalogSource.__init__(self, csize, device=device)
+        self.attrs['seed'] = seed
+        self._rng = DistributedRNG(seed, csize, device=self.device)
+
+    @property
+    def rng(self):
+        return self._rng
+
+    def __repr__(self):
+        return "RandomCatalog(size=%d, seed=%s)" % (
+            self.size, self.attrs['seed'])
+
+
+class UniformCatalog(RandomCatalog):
     """Uniformly distributed ``Position`` and ``Velocity`` in a box.
 
     The count N is Poisson(nbar * volume) drawn by the same numpy call
-    as the JAX package, so N matches it for the same seed. Positions and
-    velocities are drawn on ``device`` from a ``torch.Generator`` seeded
-    with ``seed``: they do NOT equal the JAX package's threefry draws
-    for that seed, only their distribution does.
+    as the JAX package. Positions, then velocities, are drawn from
+    ``rng`` and equal the JAX package's bit for bit, at f8 and f4 (the
+    f4 draws are scaled by the f8 box before they are rounded, as
+    there).
     """
 
     def __init__(self, nbar, BoxSize, seed=None, dtype='f8', device=None):
@@ -28,19 +52,18 @@ class UniformCatalog(CatalogSource):
         if N == 0:
             raise ValueError("no uniform particles generated; "
                              "increase nbar")
-        CatalogSource.__init__(self, N, device=device)
-        self.attrs['seed'] = seed
+        RandomCatalog.__init__(self, N, seed=seed, device=device)
         self.attrs['BoxSize'] = _BoxSize
         self.attrs['nbar'] = nbar
 
-        tdt = torch_dtype(dtype)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        box = torch.as_tensor(_BoxSize, dtype=tdt, device=self.device)
-        self._pos = torch.rand((N, 3), generator=gen, dtype=tdt,
-                               device=self.device) * box
-        self._vel = torch.rand((N, 3), generator=gen, dtype=tdt,
-                               device=self.device) * box * 0.01
+        wdt = working_dtype(dtype)
+        tdt = torch_dtype(wdt)
+        box = torch.as_tensor(_BoxSize, dtype=torch.float64,
+                              device=self.device)
+        u = self.rng.uniform(itemshape=(3,), dtype=wdt)
+        self._pos = (u.double() * box).to(tdt)
+        u = self.rng.uniform(itemshape=(3,), dtype=wdt)
+        self._vel = (u.double() * box * 0.01).to(tdt)
 
     def __repr__(self):
         return "UniformCatalog(size=%d, seed=%s)" % (

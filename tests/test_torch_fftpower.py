@@ -114,14 +114,23 @@ def test_project_to_basis_on_a_carried_field():
 
 
 def test_uniform_catalog_count_matches_jax():
+    """N, and the threefry Position and Velocity bit for bit, at f8 and
+    f4 (the columns come from the port's threefry, which draws JAX's
+    values)."""
     for seed in (1, 42):
-        t = UniformCatalog(nbar=3e-4, BoxSize=BOX, seed=seed)
-        j = JaxUniform(nbar=3e-4, BoxSize=BOX, seed=seed)
-        assert t.size == j.size > 0
-        pos = t['Position']
-        assert tuple(pos.shape) == (t.size, 3)
-        assert float(pos.min()) >= 0 and float(pos.max()) < BOX
-    again = UniformCatalog(nbar=3e-4, BoxSize=BOX, seed=42)
+        for dtype in ('f8', 'f4'):
+            t = UniformCatalog(nbar=3e-4, BoxSize=BOX, seed=seed,
+                               dtype=dtype)
+            j = JaxUniform(nbar=3e-4, BoxSize=BOX, seed=seed, dtype=dtype)
+            assert t.size == j.size > 0
+            pos = t['Position']
+            assert tuple(pos.shape) == (t.size, 3)
+            assert float(pos.min()) >= 0 and float(pos.max()) < BOX
+            for col in ('Position', 'Velocity'):
+                got, ref = t[col].numpy(), as_numpy(j[col])
+                assert got.dtype == ref.dtype == np.dtype(dtype)
+                np.testing.assert_array_equal(got, ref)
+    again = UniformCatalog(nbar=3e-4, BoxSize=BOX, seed=42, dtype='f4')
     assert np.array_equal(again['Position'].numpy(), pos.numpy())
 
 

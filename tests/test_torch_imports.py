@@ -67,16 +67,31 @@ def test_import_loads_no_jax():
 
 def test_entry_points_refuse_cpu_without_asking():
     from nbodykit_tpu_torch import set_options
-    from nbodykit_tpu_torch.lab import (ArrayCatalog, ParticleMesh,
-                                        UniformCatalog, catalog_from_numpy)
+    from nbodykit_tpu_torch.lab import (ArrayCatalog, ArrayMesh,
+                                        LinearMesh, LogNormalCatalog,
+                                        ParticleMesh, UniformCatalog,
+                                        catalog_from_numpy)
+    from nbodykit_tpu_torch import rng
+    from nbodykit_tpu_torch.ops.threefry_cuda import threefry_fill
+    from nbodykit_tpu_torch.rng import DistributedRNG
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")
+    plin = lambda k: k * 0 + 1.0                       # noqa: E731
     with set_options(device=None):
         for make in (lambda: ParticleMesh(8, 1.0),
                      lambda: UniformCatalog(1e-3, 100.0, seed=1),
                      lambda: ArrayCatalog({'x': np.zeros(3)}),
                      lambda: catalog_from_numpy(
-                         {'Position': np.zeros((3, 3))}, 1.0)):
+                         {'Position': np.zeros((3, 3))}, 1.0),
+                     lambda: LinearMesh(plin, 100.0, 8, seed=1),
+                     lambda: ArrayMesh(np.zeros((4, 4, 4)), 1.0),
+                     lambda: LogNormalCatalog(plin, 1e-3, 100.0, 8, seed=1),
+                     lambda: DistributedRNG(1, 10),
+                     lambda: rng.random_bits(rng.key(1), 32, (4,)),
+                     lambda: rng.uniform(rng.key(1), (4,)),
+                     lambda: rng.normal(rng.key(1), (4,)),
+                     lambda: rng.poisson(rng.key(1), np.ones(4)),
+                     lambda: threefry_fill(rng.key(1), 0, 4, 'bits32')):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
         # asking for the CPU, per call or by option, works

@@ -42,10 +42,16 @@ import torch
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# 32-bit integer add, shift and logic results per clock per SM, compute
-# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-# throughput); times the SMs and the boost clock nvidia-smi reports
-INT32_OPS_PER_CLOCK_PER_SM = 64
+# Integer issue on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput): IADD3, LOP3 and SHF go to the ALU
+# pipe and IMAD to the FMA pipe, each 64 results per clock per SM, and
+# the two run side by side; an SM issues at most 4 warp-instructions
+# (128 thread instructions) per clock. kernel_variants.py checks the
+# assignment on the card (pipe_probe).
+ALU_OPCODES = ('IADD3', 'LOP3', 'SHF')
+FMA_OPCODES = ('IMAD',)
+PIPE_PER_CLOCK_PER_SM = 64
+ISSUE_PER_CLOCK_PER_SM = 128
 # calls per timed phase of the main path, and of the lognormal path
 REPS = 5
 LN_REPS = 3
@@ -110,12 +116,10 @@ def smi_query(query):
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def int32_ops_per_s():
-    """The card's 32-bit integer rate for add, shift and logic: 64 per
-    clock per SM x SMs x the boost clock (``clocks.max.sm``)."""
+def sm_clock():
+    """(boost clock in MHz, SMs): ``clocks.max.sm`` and the SM count."""
     mhz = float(smi_query('clocks.max.sm').split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6, mhz, sms
+    return mhz, torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def rank_cases(gen):
@@ -396,7 +400,8 @@ def launch_counters():
     return {'radix_rank': pass_rank_hist_cuda,
             'paint_deposit': deposit_blocks_cuda,
             'threefry_fill': tf.threefry_fill_cuda,
-            'poisson_threefry': tf.poisson_threefry_cuda}
+            'poisson_threefry': tf.poisson_threefry_cuda,
+            'poisson_cells': tf.poisson_cells_cuda}
 
 
 @contextlib.contextmanager
@@ -570,9 +575,8 @@ def check_rng():
     """threefry_fill and poisson_threefry against their plain versions:
     bits (32, 64) bit-identical for n in {1, 2, 3, 1023, 2^20+1} under
     nine keys and n = 1e8 under three, and past counter 2^32; uniforms
-    and normals (f32, f64) bit-identical; Poisson counts identical on a
-    256^3 lognormal lam (Knuth only) and on lam in [0, 50] with exact
-    zeros (both branches)."""
+    and normals (f32, f64) bit-identical; then the Poisson kernel in
+    both modes (:func:`check_poisson`)."""
     from nbodykit_tpu_torch.ops import threefry_cuda as tf
 
     def pair(key, c0, n, kind, lo=0.0, hi=1.0):
@@ -610,46 +614,141 @@ def check_rng():
           'kinds': list(tf.KINDS), 'largest_n': 10 ** 8,
           'counter_past_2^32': c0})
 
-    # Poisson: a lognormal lam at the lognormal path's density, and a
-    # synthetic lam over both samplers
+    check_poisson(keys[1][1])
+
+
+def poisson_case(key, label, lam, expected=None):
+    """Both modes of the Poisson kernel on one lam against the plain
+    version: the full-mesh counts bit for bit, the occupied cells
+    (ids, counts, N) equal to nonzero() of the plain counts, and the
+    same number of hashes in all three. The list is sized for
+    ``expected`` (default: the sum of lam's finite positive cells).
+    Returns the plain counts and the occupied-cells stats."""
+    from nbodykit_tpu_torch.ops import threefry_cuda as tf
+    if expected is None:
+        expected = float(lam.double().nan_to_num(0.0, 0.0, 0.0)
+                         .clamp(min=0).sum())
+    sk, sc, sp = {}, {}, {}
+    a = tf.poisson_threefry_cuda(key, lam, stats=sk)
+    b = tf.poisson_threefry_plain(key, lam, stats=sp)
+    nd = int((a != b).sum())
+    del a
+    flat = b.reshape(-1)
+    ref = torch.nonzero(flat).reshape(-1)
+    ids, cnts, N = tf.poisson_cells_cuda(key, lam, expected, stats=sc)
+    same = bool(torch.equal(ids, ref) and torch.equal(cnts, flat[ref])
+                and N == int(flat.sum()))
+    rejection = int((~(torch.isnan(lam) | (lam < 10))).sum())
+    emit({'phase': 'rng_check', 'kernel': 'poisson_threefry',
+          'field': label, 'cells': lam.numel(),
+          'lam_offset_cells': (lam.data_ptr() // 4) % 4,
+          'differing_cells_full_mesh': nd,
+          'occupied_cells_equal_nonzero': same,
+          'occupied': int(ref.numel()), 'N': N,
+          'rejection_cells': rejection, 'hashes_full_mesh': sk['hashes'],
+          'hashes_occupied_cells': sc['hashes'], 'hashes_plain': sp['hashes'],
+          'occupied_cells_launches': sc['runs'],
+          'capacity': sc['capacity']})
+    assert nd == 0, "poisson %s: %d cells differ" % (label, nd)
+    assert same, "poisson %s: occupied cells differ from nonzero()" % label
+    assert sk['hashes'] == sp['hashes'] == sc['hashes'], (sk, sc, sp)
+    return b, sc
+
+
+def check_poisson(key0):
+    """poisson_threefry in both modes against its plain version: a 256^3
+    lognormal lam (Knuth only), lam in [0, 50] with zeros (both
+    samplers), exact zeros, negatives, NaN, +-inf and both sides of the
+    switch at 10, lam views 1-3 cells past 16-byte alignment and lengths
+    that are no multiple of the vector width, a lam that puts every
+    cell's Knuth stop decision on its boundary, a list sized too small
+    (the kernel reports it, the wrapper draws again); the
+    __logf screen's margin over every uniform; a cell past either
+    subkey table raises in both modes."""
+    from nbodykit_tpu_torch.ops import threefry_cuda as tf
+    key = tf.split_key(key0)[0]
+    bad, worst = tf.poisson_screen_check()
+    emit({'phase': 'rng_check', 'kernel': 'poisson_threefry',
+          'logf_screen_uniforms_checked': 2 ** 23 - 1,
+          'logf_screen_margin_violations': bad,
+          'logf_screen_worst_error_over_margin': worst})
+    assert bad == 0 and worst <= 0.5, (bad, worst)
+
     lam_ln = lognormal_lam(256, 1000.0, 7)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(3)
     lam_mix = torch.rand((256,) * 3, generator=gen, device='cuda') * 50
     lam_mix.view(-1)[::97] = 0
-    key = tf.split_key(keys[1][1])[0]
-    for label, lam in (('lognormal 256^3', lam_ln),
-                       ('uniform [0, 50] with zeros 256^3', lam_mix)):
-        sk, sp = {}, {}
-        a = tf.poisson_threefry_cuda(key, lam, stats=sk)
-        b = tf.poisson_threefry_plain(key, lam, stats=sp)
-        nd = int((a != b).sum())
-        knuth = int((lam < 10).sum())
-        emit({'phase': 'rng_check', 'kernel': 'poisson_threefry',
-              'field': label, 'differing_cells': nd,
-              'knuth_cells': knuth, 'rejection_cells': lam.numel() - knuth,
-              'lam_max': float(lam.max()), 'hashes_kernel': sk['hashes'],
-              'hashes_plain': sp['hashes'], 'N': int(a.sum())})
-        assert nd == 0, "poisson %s: %d cells differ" % (label, nd)
-        assert sk['hashes'] == sp['hashes'], (sk, sp)
+    poisson_case(key, 'lognormal 256^3', lam_ln)
     assert float(lam_ln.max()) < 10, "the lognormal lam left Knuth's range"
+    poisson_case(key, 'uniform [0, 50] with zeros 256^3', lam_mix)
+
+    n = 2 ** 20 + 3
+    edge = torch.rand(n, generator=gen, device='cuda') * 30
+    specials = ((97, 0.0), (89, -1e-3), (83, -5.0), (101, float('nan')),
+                (1009, float('inf')), (1013, float('-inf')), (103, 1e-40),
+                (107, 10.0), (109, float(np.nextafter(np.float32(10),
+                                                      np.float32(0)))))
+    for step, value in specials:
+        edge[step // 2::step] = value
+    poisson_case(key, 'zeros, negatives, NaN, +-inf, 10 and its '
+                 'neighbour, n = 2^20 + 3', edge)
+
+    flat = lam_mix.view(-1)
+    for off in (1, 2, 3):
+        poisson_case(key, 'view at +%d cells, n = 2^20 + 5' % off,
+                     flat[off:off + 2 ** 20 + 5])
+    for m in (1, 2, 3, 5, 4095, 4097, 12291):
+        poisson_case(key, 'view at +3 cells, n = %d' % m, flat[3:3 + m])
+
+    # lam = -logf(u0) of each cell's own first uniform, and its two
+    # neighbours: the stop decision of Knuth's first step on its boundary
+    m = 2 ** 22
+    knuth_tab, _ = tf.poisson_tables(key)
+    u0 = tf.threefry_fill_cuda(knuth_tab[0], 0, m, 'uniform32',
+                               device='cuda')
+    base = -torch.log(u0)
+    del u0
+    lam_b = base.clone()
+    lam_b[1::3] = torch.nextafter(base, torch.full_like(base,
+                                                       float('inf')))[1::3]
+    lam_b[2::3] = torch.nextafter(base, torch.zeros_like(base))[2::3]
+    del base
+    counts, _ = poisson_case(key, 'Knuth stop boundary 2^22', lam_b)
+    knuth = lam_b < 10
+    for r, stops in ((0, True), (1, False), (2, True)):
+        sel = knuth[r::3]
+        stopped = counts[r::3][sel] == 0
+        assert bool(stopped.all() if stops else (~stopped).all()), \
+            "boundary cells %d::3 did not %s" % (r, 'stop' if stops
+                                                 else 'go on')
+    del lam_b, counts, knuth
+
+    # a list sized for expected = 0 holds the floor of 1024 entries
+    _, sc = poisson_case(key, 'uniform [0, 50] with zeros 256^3, list '
+                         'sized for expected = 0', lam_mix, expected=0.0)
+    assert sc['runs'] == 2 and sc['capacity'] > 1024, sc
 
     # a cell that runs past a subkey table sets the kernel's flag, and
     # the wrapper raises: Knuth cells past 2 draws, rejection cells past
     # 1 iteration
     for name in ('KNUTH_TABLE', 'REJECTION_TABLE'):
-        saved = getattr(tf, name)
-        setattr(tf, name, 2 if name == 'KNUTH_TABLE' else 1)
-        try:
-            tf.poisson_threefry_cuda(key, lam_mix)
-        except tf.PoissonTableExhausted:
-            pass
-        else:
-            raise AssertionError("%s overflow was not reported" % name)
-        finally:
-            setattr(tf, name, saved)
+        for fn, args in ((tf.poisson_threefry_cuda, ()),
+                         (tf.poisson_cells_cuda, (float(lam_mix.sum()),))):
+            saved = getattr(tf, name)
+            setattr(tf, name, 2 if name == 'KNUTH_TABLE' else 1)
+            try:
+                fn(key, lam_mix, *args)
+            except tf.PoissonTableExhausted:
+                pass
+            else:
+                raise AssertionError("%s overflow was not reported by %s"
+                                     % (name, fn.__name__))
+            finally:
+                setattr(tf, name, saved)
     emit({'phase': 'rng_check', 'kernel': 'poisson_threefry',
-          'table_overflow_raises': ['KNUTH_TABLE', 'REJECTION_TABLE']})
+          'table_overflow_raises': ['KNUTH_TABLE', 'REJECTION_TABLE'],
+          'modes': ['full_mesh', 'occupied_cells']})
 
 
 def lognormal_lam(nmesh, box, seed):
@@ -700,17 +799,28 @@ def sass_hash_ops():
     return sum(ops.values()), ops
 
 
-def threefry_bound(nbytes, hashes, ops_per_hash):
-    """(ms, by) of a threefry kernel: bytes at the HBM rate, or
-    ``ops_per_hash`` integer operations per hash at the card's int32
-    rate."""
-    rate, _, _ = int32_ops_per_s()
+def hash_clocks(opcodes):
+    """(clocks per threefry hash per SM, the limit): the busiest of the
+    ALU pipe, the FMA pipe and the issue slots for the hash's SASS
+    instruction mix ``opcodes``."""
+    alu = sum(v for k, v in opcodes.items() if k.startswith(ALU_OPCODES))
+    fma = sum(v for k, v in opcodes.items() if k.startswith(FMA_OPCODES))
+    return max((alu / PIPE_PER_CLOCK_PER_SM, 'alu_pipe'),
+               (fma / PIPE_PER_CLOCK_PER_SM, 'fma_pipe'),
+               (sum(opcodes.values()) / ISSUE_PER_CLOCK_PER_SM, 'issue'))
+
+
+def threefry_bound(nbytes, hashes, opcodes):
+    """(ms, by) of a threefry kernel: bytes at the HBM rate, or the
+    hashes at :func:`hash_clocks` clocks per hash on every SM at the
+    boost clock."""
+    mhz, sms = sm_clock()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = hashes * ops_per_hash / rate * 1e3
+    t_ops = hashes * hash_clocks(opcodes)[0] / (sms * mhz * 1e6) * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def time_threefry(n, ops_per_hash):
+def time_threefry(n, opcodes):
     """threefry_fill at the white noise's shape (normal f32, n = Nmesh^3
     of the lognormal path): kernel, plain version, and both compared."""
     from nbodykit_tpu_torch import rng
@@ -727,44 +837,74 @@ def time_threefry(n, ops_per_hash):
     err = float((a - b).abs().max())
     assert nd == 0, "white noise draw: %d of %d differ" % (nd, n)
     del a, b
-    b_ms, b_by = threefry_bound(4 * n, n, ops_per_hash)
-    rate, mhz, sms = int32_ops_per_s()
+    b_ms, b_by = threefry_bound(4 * n, n, opcodes)
+    mhz, sms = sm_clock()
+    clocks, limit = hash_clocks(opcodes)
     emit({'phase': 'threefry_timing', 'n': n, 'kind': 'normal32',
           'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-          'int_ops_per_hash': ops_per_hash, 'int32_ops_per_s': rate,
-          'clocks_max_sm_mhz': mhz, 'sms': sms})
+          'hash_opcodes': opcodes, 'hash_clocks_per_sm': clocks,
+          'hash_limit': limit, 'clocks_max_sm_mhz': mhz, 'sms': sms})
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err,
                 at='normal f32 n=%d (the %d^3 white noise)' % (n, LN_NMESH))
 
 
-def time_poisson(lam, ops_per_hash):
-    """poisson_threefry at the lognormal path's lam: kernel, plain
-    version, and both compared."""
+def time_poisson(lam, opcodes, expected):
+    """poisson_threefry at the lognormal path's lam in both modes: the
+    kernel's times, the plain versions' times, the full-mesh counts
+    against the plain counts and the occupied cells against their
+    nonzero(); bounds from this lam's bytes and hashes."""
     from nbodykit_tpu_torch import rng
     from nbodykit_tpu_torch.ops import threefry_cuda as tf
     key = rng.split(rng.key(LN_SEED))[0]
-    stats = {}
-    ms = cuda_ms(lambda: tf.poisson_threefry_cuda(key, lam, stats=stats),
-                 reps=5)
+    n = lam.numel()
+    sf, sc = {}, {}
+    full_ms = cuda_ms(lambda: tf.poisson_threefry_cuda(key, lam, stats=sf),
+                      reps=5)
+    cells_ms = cuda_ms(lambda: tf.poisson_cells_cuda(key, lam, expected,
+                                                     stats=sc), reps=5)
     a = tf.poisson_threefry_cuda(key, lam)
-    b, plain_ms = timed(lambda: tf.poisson_threefry_plain(key, lam))
+    b, full_plain_ms = timed(lambda: tf.poisson_threefry_plain(key, lam))
     nd = int((a != b).sum())
     err = int((a - b).abs().max())
     assert nd == 0, "poisson at the lognormal path: %d cells differ" % nd
-    n = lam.numel()
-    del a, b
-    b_ms, b_by = threefry_bound(4 * n + 8 * n, stats['hashes'],
-                                ops_per_hash)
-    emit({'phase': 'poisson_timing', 'cells': n, 'ms': ms,
-          'plain_ms': plain_ms, 'hashes': stats['hashes'],
-          'hashes_per_cell': stats['hashes'] / n, 'bound_ms': b_ms,
-          'bound_by': b_by, 'lam_mean': float(lam.double().mean()),
-          'lam_max': float(lam.max())})
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err,
-                at='f32 lam %d^3 -> int64 counts, %d hashes' % (
-                    LN_NMESH, stats['hashes']))
+    del a
+    flat = b.reshape(-1)
+    ref = torch.nonzero(flat).reshape(-1)
+    ref_counts, ref_N = flat[ref], int(flat.sum())
+    del b, flat
+    ids, cnts, N = tf.poisson_cells_cuda(key, lam, expected)
+    same = bool(torch.equal(ids, ref) and torch.equal(cnts, ref_counts)
+                and N == ref_N)
+    assert same, "occupied cells at the lognormal path differ"
+    occupied = ids.numel()
+    del ids, cnts, ref, ref_counts
+    torch.cuda.empty_cache()
+    _, cells_plain_ms = timed(lambda: tf.poisson_cells_plain(key, lam))
+    torch.cuda.empty_cache()
+    full_bound = threefry_bound(12 * n, sf['hashes'], opcodes)
+    cells_bound = threefry_bound(4 * n + 16 * occupied, sc['hashes'],
+                                 opcodes)
+    assert sf['hashes'] == sc['hashes'], (sf, sc)
+    at = 'f32 lam %d^3, %d hashes' % (LN_NMESH, sc['hashes'])
+    modes = {
+        'full_mesh': dict(ms=full_ms, plain_ms=full_plain_ms,
+                          library_ms=None, bound_ms=full_bound[0],
+                          bound_by=full_bound[1], max_abs_err=err,
+                          share_of_bound=full_bound[0] / full_ms,
+                          at=at + ' -> int64 counts'),
+        'occupied_cells': dict(ms=cells_ms, plain_ms=cells_plain_ms,
+                               library_ms=None, bound_ms=cells_bound[0],
+                               bound_by=cells_bound[1], max_abs_err=0,
+                               share_of_bound=cells_bound[0] / cells_ms,
+                               at=at + ' -> %d occupied cells' % occupied)}
+    emit({'phase': 'poisson_timing', 'cells': n, 'occupied': occupied,
+          'N': N, 'hashes': sc['hashes'],
+          'hashes_per_cell': sc['hashes'] / n, 'capacity': sc['capacity'],
+          'launches_per_call': sc['runs'],
+          'lam_mean': float(lam.double().mean()),
+          'lam_max': float(lam.max()), 'modes': modes})
+    return modes
 
 
 def linear_power():
@@ -843,8 +983,12 @@ def lognormal_path():
         mesh, r = lognormal_fftpower(cat)
         torch.cuda.synchronize()
         peak_alg = torch.cuda.max_memory_allocated()
+    # every kernel, the Poisson draw in its occupied-cells mode: the full
+    # count mesh is not made on this path
     for k, v in launches.items():
-        assert v >= 1, "%s was not launched on the lognormal path" % k
+        assert v >= 1 or k == 'poisson_threefry', \
+            "%s was not launched on the lognormal path" % k
+    assert launches['poisson_threefry'] == 0, launches
 
     # gates: N, the painted mean, the large-scale bias
     nbar = LN_N / LN_BOX ** 3
@@ -983,11 +1127,14 @@ def main():
     for src, log in logs.items():
         print('nvcc %s:\n%s' % (src, log), file=sys.stderr)
     hash_ops, hash_opcodes = sass_hash_ops()
+    clocks, limit = hash_clocks(hash_opcodes)
     emit({'phase': 'device', 'name': name, 'nvidia_smi': smi,
           'count': torch.cuda.device_count(), 'torch': torch.__version__,
           'cuda': torch.version.cuda, 'build_s': build_s,
           'built': sorted(logs), 'threefry_hash_int_ops_sass': hash_ops,
-          'threefry_hash_opcodes': hash_opcodes})
+          'threefry_hash_opcodes': hash_opcodes,
+          'threefry_hash_clocks_per_sm': clocks,
+          'threefry_hash_limit': limit})
 
     check_rank()
     nmesh = 512
@@ -1010,19 +1157,30 @@ def main():
     torch.cuda.empty_cache()
     ln_cat, ln_launches, ln_run = lognormal_path()
     lognormal_stages(ln_cat)
-    pois_rec = time_poisson(lognormal_lam(LN_NMESH, LN_BOX, LN_SEED),
-                            hash_ops)
+    pois_modes = time_poisson(lognormal_lam(LN_NMESH, LN_BOX, LN_SEED),
+                              hash_opcodes, LN_N)
     torch.cuda.empty_cache()
     profile_main_path(ln_run, 'lognormal_1024')
     del ln_cat, ln_run
     torch.cuda.empty_cache()
-    tf_rec = time_threefry(LN_NMESH ** 3, hash_ops)
+    tf_rec = time_threefry(LN_NMESH ** 3, hash_opcodes)
 
     def counted(name):
         by_path = {'main_512': launches[name],
                    'lognormal_1024': ln_launches[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
+
+    def poisson_counted():
+        # one row, two modes: the occupied cells on the lognormal path
+        modes = {'full_mesh': counted('poisson_threefry'),
+                 'occupied_cells': counted('poisson_cells')}
+        return dict(
+            launches=sum(m['launches'] for m in modes.values()),
+            launches_by_path={p: sum(m['launches_by_path'][p]
+                                     for m in modes.values())
+                              for p in ('main_512', 'lognormal_1024')},
+            launches_by_mode={k: m['launches'] for k, m in modes.items()})
     rng_src = 'nbodykit_tpu_torch/csrc/threefry.cu'
     rng_replaces = 'jax.random threefry2x32 / poisson (XLA; no Pallas kernel)'
     kernels = [
@@ -1037,8 +1195,8 @@ def main():
         dict(name='threefry_fill', route='cuda', source=rng_src,
              replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),
         dict(name='poisson_threefry', route='cuda', source=rng_src,
-             replaces=rng_replaces, **counted('poisson_threefry'),
-             **pois_rec),
+             replaces=rng_replaces, **poisson_counted(),
+             **pois_modes['occupied_cells'], modes=pois_modes),
     ]
     for kern in kernels:
         kern['share_of_bound'] = kern['bound_ms'] / kern['ms']

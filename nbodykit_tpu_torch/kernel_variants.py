@@ -5,15 +5,22 @@ back by a text substitution. The variants are built with the same
 ``nvcc`` flags as the kernels, into ``_build/variants/``, and timed
 beside the kernel as built at the main path's shapes: the rank pass on
 9,998,863 int32 digits of alphabet 65, the deposit on the CIC payload
-of ``UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42)`` at 512^3. Run
-from the repository root on a CUDA machine::
+of ``UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42)`` at 512^3, the
+Poisson draw (both output modes) on the lognormal path's 1024^3 lam.
+Run from the repository root on a CUDA machine::
 
-    python -m nbodykit_tpu_torch.kernel_variants
+    python -m nbodykit_tpu_torch.kernel_variants [kernel ...]
 
-It prints one JSON line per timing: the mean CUDA-event time of 20
+(kernels: radix_rank, paint_deposit, poisson, pipes; default all). It
+prints one JSON line per timing: the mean CUDA-event time of 20
 launches into preallocated outputs, the kernels in turn (as built,
 each variant, as built again), and whether the variant's result
-matches (ranks bit for bit, blocks within 1e-5 of their maximum).
+matches (ranks and counts bit for bit, blocks within 1e-5 of their
+maximum). The Poisson case also times the occupied cells as the
+full-mesh draw followed by ``nonzero`` (the compaction unfused). The
+``pipes`` probe runs loops of ALU-pipe (LOP3, SHF) and FMA-pipe (IMAD)
+instructions, alone and together, one CTA per SM, and prints their
+results per clock per SM: whether the two pipes issue side by side.
 Without CUDA it exits 1.
 """
 
@@ -40,6 +47,19 @@ FAST_PMOD = '''  int r = a;
   if (r >= n) r -= n;
   if ((unsigned)r < (unsigned)n) return r;
   r = a % n;'''
+
+# the Poisson draw's lam loads and count stores cell by cell, for any
+# POISSON_VEC
+SCALAR_IO = [
+    ('''  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  l[0] = q.x, l[1] = q.y, l[2] = q.z, l[3] = q.w;''',
+     '  for (int v = 0; v < POISSON_VEC; ++v) l[v] = __ldcs(p + v);'),
+    ('''  __stcs(reinterpret_cast<longlong2*>(p), make_longlong2(c[0], c[1]));
+  __stcs(reinterpret_cast<longlong2*>(p + 2), make_longlong2(c[2], c[3]));''',
+     '  for (int v = 0; v < POISSON_VEC; ++v)\n'
+     '    __stcs(p + v, (long long)c[v]);')]
+VEC4_ASSERT = ('static_assert(POISSON_VEC == 4, "load_cells and store_counts '
+               'move 4 cells");')
 
 # name: (source, [(text, replacement)], what the substitution takes back)
 VARIANTS = {
@@ -69,6 +89,46 @@ VARIANTS = {
         ('#define STAGE_WORDS 56 ', '#define STAGE_WORDS 7 ')],
         'one slot a thread loaded while the copies drain, the rest '
         'loaded in the deposit'),
+    'poisson_scalar_loads': ('threefry', SCALAR_IO,
+        'scalar loads of lam and scalar stores of the counts, the same 16 '
+        'cells a thread in flight and the same tiles, not float4 loads '
+        'and longlong2 stores'),
+    'poisson_four_cells_a_thread': ('threefry', SCALAR_IO + [
+        ('#define POISSON_VEC 4 ', '#define POISSON_VEC 1 '),
+        (VEC4_ASSERT, '')],
+        'four scalar cells a thread (a quarter of the loads in flight) and '
+        'tiles of 4096 cells, not four float4 loads and tiles of 16384'),
+    'poisson_one_load_in_flight': ('threefry', SCALAR_IO + [
+        ('#define POISSON_VEC 4 ', '#define POISSON_VEC 1 '),
+        ('#define POISSON_UNROLL 4 ', '#define POISSON_UNROLL 1 '),
+        (VEC4_ASSERT, '')],
+        'one cell per thread per step: one scalar load in flight'),
+    'poisson_subkey_reload': ('threefry', [
+        ('for (int v = 0; v < POISSON_VEC; ++v) threefry(ks0, h1[v], h2[v]);',
+         'for (int v = 0; v < POISSON_VEC; ++v) { int z;'
+         ' asm volatile("mov.u32 %0, 0;" : "=r"(z));'
+         ' threefry(schedule(tables[2 * z], tables[2 * z + 1]), h1[v],'
+         ' h2[v]); }')],
+        'iteration 0\'s subkey loaded and its key schedule rebuilt for '
+        'every cell'),
+    'poisson_no_screen': ('threefry', [
+        ('  const float g = __logf(u);\n'
+         '  return g + screen_margin(g) <= neg;',
+         '  return !(logf(u) > neg);')],
+        'the exact logf for every cell\'s first step, no __logf screen'),
+    'poisson_256_threads': ('threefry', [
+        ('#define POISSON_THREADS 1024', '#define POISSON_THREADS 256')],
+        'CTAs of 256 threads and tiles of 4096 cells'),
+    # a probe, not a design: what the ordered look-back costs (its list is
+    # out of raster order, so it does not match)
+    'poisson_unordered_bases': ('threefry', [
+        ('const long long base = tile_lookback(status, tile, agg, lane);',
+         'long long base = 0; if (lane == 0) base = (long long)atomicAdd('
+         '(unsigned long long*)(scratch + SCR_TICKET + 1), '
+         '(unsigned long long)agg); base = __shfl_sync(0xffffffffu, base, '
+         '0);')],
+        'tile bases in raster order: each tile takes its base from an '
+        'atomic counter instead (timing probe; the list is unordered)'),
 }
 
 
@@ -180,10 +240,212 @@ def _deposit_case():
     return run, same
 
 
-def main():
+def _lognormal_lam():
+    """The lognormal path's lam at 1024^3 (LogNormalCatalog's first
+    steps: white noise, power, c2r, lognormal transform) and its sum."""
+    from . import cosmology, mockmaker
+    from .pmesh import ParticleMesh
+    box, nmesh, nbar = 5000.0, 1024, 1e7 / 5000.0 ** 3
+    pm = ParticleMesh(nmesh, box, dtype='f4')
+    plin = cosmology.LinearPower(cosmology.Planck15, 0.55, 'EisensteinHu')
+    delta_k, _ = mockmaker.gaussian_complex_fields(pm, plin, 42)
+    delta = pm.c2r(delta_k.value)
+    del delta_k
+    return mockmaker.lognormal_lambda(delta, pm, nbar, 2.0), nbar * box ** 3
+
+
+def _poisson_cases():
+    """(label, run, same) for both modes of the Poisson kernel on the
+    lognormal path's lam, and the occupied cells drawn unfused (the full
+    mesh, then nonzero, the counts' gather and sum)."""
+    from . import rng
+    from .ops import threefry_cuda as tf
+    lam, expected = _lognormal_lam()
+    lam = lam.reshape(-1)
+    n = lam.numel()
+    key = rng.split(rng.key(42))[0]
+    ref_full = tf.poisson_threefry_cuda(key, lam)
+    ref_ids, ref_cnts, ref_n = tf.poisson_cells_cuda(key, lam, expected)
+    tables = tf._device_tables(key, lam.device)
+    cap = tf.cell_capacity(expected, n)
+    out = torch.empty(n, dtype=torch.int64, device='cuda')
+    ids = torch.empty(cap, dtype=torch.int64, device='cuda')
+    cnts = torch.empty(cap, dtype=torch.int64, device='cuda')
+    # room for the smallest tile any variant takes (1024 cells)
+    scratch = torch.zeros(tf.SCRATCH_WORDS + n // 1024 + 1,
+                          dtype=torch.int64, device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(mode):
+        a, b = (out, None) if mode == tf.FULL_MESH else (ids, cnts)
+
+        def launch(lib):
+            fn = lib.nbk_poisson_threefry
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p]
+            return lambda: _build.check('threefry', fn(
+                lam.data_ptr(), n, 0, tables.data_ptr(), tf.KNUTH_TABLE,
+                tf.REJECTION_TABLE, a.data_ptr(),
+                0 if b is None else b.data_ptr(), cap, scratch.data_ptr(),
+                mode, stream))
+        return launch
+
+    def same_full():
+        return bool(torch.equal(out, ref_full))
+
+    def same_cells():
+        w = scratch[:tf.SCRATCH_WORDS].cpu()
+        occ = int(w[tf.SCR_OCCUPIED])
+        return bool(occ == ref_ids.numel() and int(w[tf.SCR_TOTAL]) == ref_n
+                    and torch.equal(ids[:occ], ref_ids)
+                    and torch.equal(cnts[:occ], ref_cnts))
+
+    def unfused():
+        counts = tf.poisson_threefry_cuda(key, lam)
+        cells = torch.nonzero(counts).reshape(-1)
+        c = counts[cells]
+        return cells, c, int(c.sum())
+
+    def fused():
+        return tf.poisson_cells_cuda(key, lam, expected)
+    return [('poisson full_mesh', run(tf.FULL_MESH), same_full),
+            ('poisson occupied_cells', run(tf.OCCUPIED_CELLS), same_cells)
+            ], fused, unfused
+
+
+PIPE_PROBE = r'''
+// Loops of one instruction mix, eight independent chains a thread, one
+// CTA of 1024 threads per SM (the shared memory asked for keeps a second
+// CTA off the SM); thread 0 reads the SM clock around the loop.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+template <int ALU, int FMA>
+__global__ void __launch_bounds__(1024) probe(uint32_t seed, int iters,
+                                              uint32_t* sink,
+                                              long long* clocks) {
+  uint32_t x[8], y[8];
+  const uint32_t sh = seed & 31u, m = seed | 1u;
+  for (int j = 0; j < 8; ++j) {
+    x[j] = seed + threadIdx.x * 8 + j;
+    y[j] = seed ^ (threadIdx.x + 3 * j);
+  }
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int a = 0; a < ALU; ++a) {
+        if (a & 1)
+          asm volatile("shf.l.wrap.b32 %0, %0, %0, %1;" : "+r"(x[j])
+                       : "r"(sh));
+        else
+          asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;" : "+r"(x[j])
+                       : "r"(m), "r"(sh));
+      }
+#pragma unroll
+      for (int f = 0; f < FMA; ++f)
+        asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(y[j])
+                     : "r"(m), "r"(sh));
+    }
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  uint32_t acc = 0;
+  for (int j = 0; j < 8; ++j) acc ^= x[j] ^ y[j];
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+  if (threadIdx.x == 0) clocks[blockIdx.x] = t1 - t0;
+}
+
+template <int ALU, int FMA>
+static int launch(int ctas, int iters, uint32_t* sink, long long* clocks,
+                  cudaStream_t s) {
+  const int smem = 150 * 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      probe<ALU, FMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  probe<ALU, FMA><<<ctas, 1024, smem, s>>>(0x9E3779B9u, iters, sink, clocks);
+  return (int)cudaGetLastError();
+}
+
+// mix 0: 4 ALU-pipe instructions a chain and round (LOP3, SHF); 1: 4
+// FMA-pipe ones (IMAD); 2: both
+extern "C" int nbk_pipe_probe(int mix, int ctas, int iters, uint32_t* sink,
+                              long long* clocks, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mix == 0) return launch<4, 0>(ctas, iters, sink, clocks, s);
+  if (mix == 1) return launch<0, 4>(ctas, iters, sink, clocks, s);
+  return launch<4, 4>(ctas, iters, sink, clocks, s);
+}
+
+extern "C" const char* nbk_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+'''
+
+
+def pipe_probe():
+    """Results per clock per SM of the probe's three mixes: ALU pipe
+    alone, FMA pipe alone, both. If the pipes run side by side, the mix
+    of both takes about as many clocks as the slower alone."""
+    os.makedirs(VARIANT_DIR, exist_ok=True)
+    cu = os.path.join(VARIANT_DIR, 'pipe_probe.cu')
+    so = os.path.join(VARIANT_DIR, 'libpipe_probe.so')
+    with open(cu, 'w') as f:
+        f.write(PIPE_PROBE)
+    out = subprocess.run([_build.nvcc()] + _build.FLAGS + ['-o', so, cu],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError("nvcc failed on the pipe probe:\n%s"
+                           % (out.stdout + out.stderr))
+    fn = ctypes.CDLL(so).nbk_pipe_probe
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    ctas = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    sink = torch.empty(ctas * 1024, dtype=torch.int32, device='cuda')
+    clocks = torch.empty(ctas, dtype=torch.int64, device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for mix, label, per_chain in ((0, 'alu_pipe', (4, 0)),
+                                  (1, 'fma_pipe', (0, 4)),
+                                  (2, 'alu_and_fma', (4, 4))):
+        for _ in range(2):                      # the second is timed
+            err = fn(mix, ctas, iters, sink.data_ptr(), clocks.data_ptr(),
+                     stream)
+            if err:
+                raise RuntimeError("pipe probe launch failed: CUDA error "
+                                   "%d" % err)
+        torch.cuda.synchronize()
+        cyc = float(clocks.double().median())
+        alu, fma = (1024 * iters * 8 * k for k in per_chain)
+        res[label] = {'clocks': cyc, 'alu_per_clock': alu / cyc,
+                      'fma_per_clock': fma / cyc,
+                      'clocks_max_over_min': float(clocks.max())
+                      / float(clocks.min())}
+    res['both_over_slower_alone'] = res['alu_and_fma']['clocks'] / max(
+        res['alu_pipe']['clocks'], res['fma_pipe']['clocks'])
+    return res
+
+
+def _cases(kernel):
+    """(label, run, same) of a kernel's timed cases."""
+    if kernel == 'radix_rank':
+        run, same = _rank_case()
+        return [('radix_rank', run, same)]
+    run, same = _deposit_case()
+    return [('paint_deposit', run, same)]
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
+    which = list(argv) or ['radix_rank', 'paint_deposit', 'poisson',
+                           'pipes']
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -191,23 +453,45 @@ def main():
     print(json.dumps({'device': torch.cuda.get_device_name(0),
                       'nvidia_smi': smi}), flush=True)
     _build.build_all()
-    libs = _build_variants(sorted(VARIANTS))
-    for kernel, case in (('radix_rank', _rank_case),
-                         ('paint_deposit', _deposit_case)):
-        run, same = case()
-        names = [n for n in sorted(VARIANTS) if VARIANTS[n][0] == kernel]
-        built = run(_build.load(kernel))
-        order = [('as_built', built)] + [(n, run(libs[n])) for n in names] \
-            + [('as_built', built)]
-        for name, fn in order:
-            ms = _ms(fn)
-            rec = {'kernel': kernel, 'variant': name, 'ms': ms,
-                   'matches': same()}
-            if name in VARIANTS:
-                rec['takes_back'] = VARIANTS[name][2]
+    source = {'radix_rank': 'radix_rank', 'paint_deposit': 'paint_deposit',
+              'poisson': 'threefry'}
+    names = sorted(n for n in VARIANTS if VARIANTS[n][0] in
+                   [source[k] for k in which if k in source])
+    libs = _build_variants(names)
+    for kernel in which:
+        if kernel == 'pipes':
+            print(json.dumps({'probe': 'pipes', **pipe_probe()}), flush=True)
+            continue
+        extra = None
+        if kernel == 'poisson':
+            cases, fused, unfused = _poisson_cases()
+            extra = [('as_built', fused), ('poisson_unfused_compaction',
+                                           unfused), ('as_built', fused)]
+        else:
+            cases = _cases(kernel)
+        src = source[kernel]
+        built = _build.load(src)
+        for label, run, same in cases:
+            order = [('as_built', run(built))] + [
+                (n, run(libs[n])) for n in names
+                if VARIANTS[n][0] == src] + [('as_built', run(built))]
+            for name, fn in order:
+                ms = _ms(fn)
+                rec = {'kernel': label, 'variant': name, 'ms': ms,
+                       'matches': same()}
+                if name in VARIANTS:
+                    rec['takes_back'] = VARIANTS[name][2]
+                print(json.dumps(rec), flush=True)
+        for name, fn in extra or ():
+            rec = {'kernel': 'poisson occupied_cells, through the wrapper',
+                   'variant': name, 'ms': _ms(fn)}
+            if name != 'as_built':
+                rec['takes_back'] = ('the compaction fused into the draw: '
+                                     'the full mesh, then nonzero(), the '
+                                     'counts\' gather and sum')
             print(json.dumps(rec), flush=True)
     return 0
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

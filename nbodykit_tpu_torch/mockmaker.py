@@ -10,7 +10,8 @@ package's mock.
 Memory: a 1024^3 f4 field is 4.3 GB real or complex. The fields are
 built slab by slab and scaled in place, each displacement component is
 transformed alone, read only at the occupied cells and freed, and the
-Poisson counts are reduced to the occupied cells before the repeat.
+Poisson draw yields the occupied cells alone (the kernel's occupied-cells
+mode): no count mesh is made.
 """
 
 import contextlib
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from .base.mesh import Field
-from .rng import key as make_key, poisson, split, uniform
+from .ops import threefry_cuda
+from .rng import key as make_key, split, uniform
 
 # ky rows per step of the slab loops over a complex field
 _SLAB_ROWS = 64
@@ -134,15 +136,15 @@ def lognormal_lambda(delta, pm, nbar, bias):
     return lam.mul_(nbar * float(np.prod(pm.cellsize)))
 
 
-def poisson_cells(lam, seed):
+def poisson_cells(lam, seed, expected):
     """(occupied cell ids in raster order, their counts, Ntot): the
     JAX package's ``poisson(split(key(seed))[0], lam)``, reduced to the
-    occupied cells with one host sync for the total."""
+    occupied cells. On the card the Poisson kernel writes that list in
+    the launch that draws the counts (no count mesh, one host read);
+    ``expected``, the sum of lam (nbar V once lam is normalized), sizes
+    the list."""
     k_pois = split(make_key(seed))[0]
-    counts = poisson(k_pois, lam).reshape(-1)
-    cells = torch.nonzero(counts).reshape(-1)
-    counts = counts[cells]
-    return cells, counts, int(counts.sum())
+    return threefry_cuda.poisson_cells(k_pois, lam, expected=expected)
 
 
 def cell_points(pm, cells, counts, ntot, seed):
@@ -173,7 +175,8 @@ def poisson_sample_to_points(delta, displacement, pm, nbar, bias=1.0,
     if seed is None:
         seed = np.random.randint(0, 2 ** 31 - 1)
     lam = lognormal_lambda(delta.value, pm, nbar, bias)
-    cells, counts, ntot = poisson_cells(lam, seed)
+    cells, counts, ntot = poisson_cells(
+        lam, seed, expected=nbar * float(np.prod(pm.BoxSize)))
     del lam
     cell_ids, pos = cell_points(pm, cells, counts, ntot, seed)
     disp = None

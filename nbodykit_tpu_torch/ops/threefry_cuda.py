@@ -18,7 +18,11 @@ registers instead:
   the kernel gives each cell its own loop over the same chain of
   subkeys, on its own branch only, and stops it when the cell is done.
   The subkey chains are the same for every cell, so they are computed
-  once on the host (``poisson_tables``) and passed as tables.
+  once on the host (``poisson_tables``) and passed as tables. Two
+  output modes: the int64 count mesh (``poisson_threefry_cuda``; bound:
+  bytes) and the occupied cells (``poisson_cells_cuda``): the
+  raster-ordered ids and counts of the nonzero cells and their sum,
+  compacted in the launch that draws them (bound: the hashes).
 
 The plain versions below repeat the kernels' arithmetic in torch with
 int64 words held in [0, 2**32) and are what the CPU uses. The fused
@@ -52,6 +56,52 @@ REJECTION_TABLE = 48
 # lam its rejection loop runs with in the Knuth cells
 KNUTH_MAX = 10.0
 REJECTION_IDLE_LAM = 1e5
+
+# the Poisson kernel's geometry (csrc/threefry.cu POISSON_*): threads per
+# CTA, cells per vector load, vector loads per thread; one CTA step is a
+# tile of POISSON_TILE cells
+POISSON_THREADS = 1024
+POISSON_VEC = 4
+POISSON_UNROLL = 4
+POISSON_TILE = POISSON_THREADS * POISSON_VEC * POISSON_UNROLL
+# its two output modes, and its scratch words (int64): the rejection
+# loop's length, the tables' overflow flag, the hashes used, the counts'
+# sum, the list's length, the listed rejection cells whose count is 0,
+# the tile ticket
+FULL_MESH, OCCUPIED_CELLS = 0, 1
+(SCR_ITERS, SCR_OVERFLOW, SCR_HASHES, SCR_TOTAL, SCR_OCCUPIED, SCR_ZEROS,
+ SCR_TICKET) = range(7)
+SCRATCH_WORDS = 8
+
+
+def poisson_plan(n, shift=0):
+    """Launch geometry of the Poisson kernel for n cells, the first of
+    them ``shift`` cells past a 16-byte boundary: ``tile`` (cells per
+    CTA step), ``tiles``, ``threads`` (per CTA), ``out_words`` (the full-mesh
+    counts' buffer; the counts start ``shift`` words into it, aligned
+    like lam), ``scratch_words`` (SCRATCH_WORDS, then one look-back
+    status word per tile for the occupied cells) and ``clear_bytes``
+    (what the entry point clears before an occupied-cells draw)."""
+    n, shift = int(n), int(shift)
+    if n < 1 or not 0 <= shift < POISSON_VEC:
+        raise ValueError("poisson_plan takes n >= 1 and 0 <= shift < %d, "
+                         "got %d, %d" % (POISSON_VEC, n, shift))
+    tiles = -(-(n + shift) // POISSON_TILE)
+    return dict(threads=POISSON_THREADS, tile=POISSON_TILE, tiles=tiles,
+                shift=shift, out_words=n + shift,
+                scratch_words=SCRATCH_WORDS + tiles,
+                clear_bytes=8 * (SCRATCH_WORDS + tiles))
+
+
+def cell_capacity(expected, n):
+    """List entries for an occupied-cells draw of n cells whose lam sums
+    to ``expected``. The counts' sum is Poisson(expected) and bounds the
+    occupied cells, so expected + 8 sqrt(expected) + 1024 entries, at
+    most n and at least 1; a sum that is not finite and positive gives
+    the floor. A longer list is drawn again at its length."""
+    s = float(expected)
+    s = s if math.isfinite(s) and s > 0 else 0.0
+    return int(max(1, min(int(n), math.ceil(s + 8 * math.sqrt(s) + 1024))))
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -484,6 +534,17 @@ def poisson_threefry_plain(key, lam, stats=None):
     return out.reshape(shape)
 
 
+def poisson_cells_plain(key, lam, stats=None):
+    """Plain PyTorch occupied-cells Poisson draw: (ids, counts, N), the
+    raster-ordered flat ids of the cells whose count is nonzero, their
+    int64 counts and the counts' sum: ``nonzero`` of
+    :func:`poisson_threefry_plain`'s counts. ``stats`` receives
+    ``'hashes'``."""
+    counts = poisson_threefry_plain(key, lam, stats=stats).reshape(-1)
+    ids = torch.nonzero(counts).reshape(-1)
+    return ids, counts[ids], int(counts.sum())
+
+
 # -- the kernels ----------------------------------------------------------
 
 _fns = {}
@@ -586,45 +647,143 @@ def _device_tables(key, device):
     return t
 
 
-def poisson_threefry_cuda(key, lam, stats=None):
-    """``poisson_threefry`` on the CUDA kernel. Same contract as
-    :func:`poisson_threefry_plain`, bit-identical counts. It reads one
-    device word back (the tables' overflow flag, with the hash count),
-    so the call synchronizes with the stream."""
-    from .._build import check
-    if not isinstance(lam, torch.Tensor) or lam.device.type != 'cuda':
-        raise ValueError("poisson_threefry_cuda takes a CUDA tensor")
-    shape = lam.shape
+def _lam32(lam):
+    """lam as a flat f32 tensor (a view where it already is one) and its
+    cells' offset from 16-byte alignment, in cells."""
     lam32 = lam.to(torch.float32).contiguous().reshape(-1)
-    n = lam32.numel()
-    out = torch.empty(n, dtype=torch.int64, device=lam.device)
-    if n == 0:
-        return out.reshape(shape)
-    knuth_len, rejection_len = KNUTH_TABLE, REJECTION_TABLE
-    tables = _device_tables(key, lam.device)
-    # [0] iterations of the rejection loop, [1] table overflow flag,
-    # [2:4] hash count (uint64)
-    scratch = torch.zeros(4, dtype=torch.int32, device=lam.device)
+    return lam32, (lam32.data_ptr() // 4) % POISSON_VEC
+
+
+def _poisson_launch(key, lam32, shift, mode, a, b, cap, scratch):
+    """One call of the kernel's three phases on the current stream;
+    ``scratch``'s first SCRATCH_WORDS words hold the results."""
+    from .._build import check
+    tables = _device_tables(key, lam32.device)
     fn = _lib_fn('nbk_poisson_threefry',
-                 [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(lam.device).cuda_stream
-    check('threefry', fn(lam32.data_ptr(), n, tables.data_ptr(), knuth_len,
-                         rejection_len, out.data_ptr(), scratch.data_ptr(),
-                         stream))
+                 [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(lam32.device).cuda_stream
+    check('threefry', fn(lam32.data_ptr(), lam32.numel(), shift,
+                         tables.data_ptr(), KNUTH_TABLE, REJECTION_TABLE,
+                         a.data_ptr(), 0 if b is None else b.data_ptr(),
+                         cap, scratch.data_ptr(), mode, stream))
+
+
+def _require_cuda(name, lam):
+    if not isinstance(lam, torch.Tensor) or lam.device.type != 'cuda':
+        raise ValueError("%s takes a CUDA tensor" % name)
+
+
+def poisson_threefry_cuda(key, lam, stats=None):
+    """``poisson_threefry`` on the CUDA kernel, full-mesh mode. Same
+    contract as :func:`poisson_threefry_plain`, bit-identical counts.
+    It reads the scratch words back once (the tables' overflow flag,
+    with the hash count), so the call synchronizes with the stream."""
+    _require_cuda('poisson_threefry_cuda', lam)
+    shape = lam.shape
+    lam32, shift = _lam32(lam)
+    n = lam32.numel()
+    if n == 0:
+        return torch.empty(shape, dtype=torch.int64, device=lam.device)
+    plan = poisson_plan(n, shift)
+    # the counts start `shift` words into their buffer, so that they are
+    # 16-byte aligned where lam is
+    out = torch.empty(plan['out_words'], dtype=torch.int64,
+                      device=lam.device)[shift:]
+    scratch = torch.empty(SCRATCH_WORDS, dtype=torch.int64,
+                          device=lam.device)
+    _poisson_launch(key, lam32, shift, FULL_MESH, out, None, 0, scratch)
     poisson_threefry_cuda.launches += 1
-    words = scratch.cpu().numpy()
-    if words[1]:
+    w = scratch.cpu().numpy()
+    if w[SCR_OVERFLOW]:
         raise PoissonTableExhausted(
             "a Poisson cell needed more iterations than the tables hold "
-            "(Knuth %d, rejection %d)" % (knuth_len, rejection_len))
+            "(Knuth %d, rejection %d)" % (KNUTH_TABLE, REJECTION_TABLE))
     if stats is not None:
-        stats['hashes'] = int(words[2:4].view(np.uint64)[0])
+        stats['hashes'] = int(w[SCR_HASHES])
     return out.reshape(shape)
 
 
 poisson_threefry_cuda.launches = 0
+
+
+def _collect_cells(run, cap, stats):
+    """The occupied-cells wrapper's side of the kernel's protocol.
+    ``run(cap)`` launches once into lists of ``cap`` entries and returns
+    (ids, counts, scratch words); a list longer than ``cap`` is drawn
+    again at its reported length (same bits), and listed rejection cells
+    whose count came out 0 are dropped. Returns (ids, counts, N)."""
+    runs = 0
+    while True:
+        ids, cnts, w = run(cap)
+        runs += 1
+        if w[SCR_OVERFLOW]:
+            raise PoissonTableExhausted(
+                "a Poisson cell needed more iterations than the tables "
+                "hold (Knuth %d, rejection %d)"
+                % (KNUTH_TABLE, REJECTION_TABLE))
+        occupied = int(w[SCR_OCCUPIED])
+        if occupied <= cap:
+            break
+        cap = occupied
+    ids, cnts = ids[:occupied], cnts[:occupied]
+    if w[SCR_ZEROS]:
+        keep = cnts != 0
+        ids, cnts = ids[keep], cnts[keep]
+    if stats is not None:
+        stats.update(hashes=int(w[SCR_HASHES]), runs=runs, capacity=cap)
+    return ids, cnts, int(w[SCR_TOTAL])
+
+
+def poisson_cells_cuda(key, lam, expected, stats=None):
+    """:func:`poisson_cells_plain` on the CUDA kernel, occupied-cells
+    mode: the list and N from the launch that draws the counts, with no
+    count mesh; bit-identical to the plain version. ``expected``, the
+    sum of lam (which a caller that normalized lam knows), sizes the
+    list (:func:`cell_capacity`). Each launch reads its scratch words
+    (list length, N, overflow flag) back once; a list longer than its
+    capacity is drawn again at the reported length. ``stats`` receives
+    ``'hashes'``, ``'runs'`` (launches) and ``'capacity'``."""
+    _require_cuda('poisson_cells_cuda', lam)
+    lam32, shift = _lam32(lam)
+    n = lam32.numel()
+    if n == 0:
+        empty = torch.empty(0, dtype=torch.int64, device=lam.device)
+        return empty, empty.clone(), 0
+    plan = poisson_plan(n, shift)
+    scratch = torch.empty(plan['scratch_words'], dtype=torch.int64,
+                          device=lam.device)
+
+    def run(cap):
+        ids = torch.empty(cap, dtype=torch.int64, device=lam.device)
+        cnts = torch.empty(cap, dtype=torch.int64, device=lam.device)
+        _poisson_launch(key, lam32, shift, OCCUPIED_CELLS, ids, cnts, cap,
+                        scratch)
+        poisson_cells_cuda.launches += 1
+        return ids, cnts, scratch[:SCRATCH_WORDS].cpu().numpy()
+
+    return _collect_cells(run, cell_capacity(expected, n), stats)
+
+
+poisson_cells_cuda.launches = 0
+
+
+def poisson_screen_check(device='cuda'):
+    """The margin of the kernel's ``__logf`` screen, over every uniform
+    Knuth's first step can draw (k 2^-23, 0 < k < 2^23), on the card:
+    (how many exceed half the margin, the largest |__logf(u) - logf(u)|
+    over the margin). The screen is sound when the first is 0."""
+    from .._build import check
+    if torch.device(device).type != 'cuda':
+        raise ValueError("poisson_screen_check runs on a CUDA device")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    worst = torch.zeros(1, dtype=torch.float32, device=device)
+    fn = _lib_fn('nbk_poisson_screen_check', [ctypes.c_void_p] * 3)
+    check('threefry', fn(bad.data_ptr(), worst.data_ptr(),
+                         torch.cuda.current_stream(device).cuda_stream))
+    return int(bad), float(worst)
 
 
 def poisson_threefry(key, lam, stats=None):
@@ -634,3 +793,14 @@ def poisson_threefry(key, lam, stats=None):
     if lam.device.type == 'cuda':
         return poisson_threefry_cuda(key, lam, stats=stats)
     raise ValueError("no poisson_threefry for device %s" % lam.device)
+
+
+def poisson_cells(key, lam, expected, stats=None):
+    """(ids, counts, N) of JAX's ``random.poisson(key, lam)`` reduced to
+    its occupied cells, dispatched on lam's device; ``expected``, the
+    sum of lam, sizes the kernel's list."""
+    if lam.device.type == 'cpu':
+        return poisson_cells_plain(key, lam, stats)
+    if lam.device.type == 'cuda':
+        return poisson_cells_cuda(key, lam, expected, stats)
+    raise ValueError("no poisson_cells for device %s" % lam.device)

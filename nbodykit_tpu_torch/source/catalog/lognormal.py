@@ -34,8 +34,8 @@ class LogNormalCatalog(CatalogSource):
     device : 'cuda' (default) or 'cpu'
 
     The fields live one at a time where they can: delta_k stays while
-    delta becomes lam in place, the counts are reduced to the occupied
-    cells, then each displacement component is transformed, read at
+    delta becomes lam in place, the Poisson draw yields the occupied
+    cells alone, then each displacement component is transformed, read at
     the particles' cells and freed.
     """
 
@@ -62,7 +62,8 @@ class LogNormalCatalog(CatalogSource):
             lam = mockmaker.lognormal_lambda(delta, pm, nbar, bias)
         del delta
         with stage('poisson'):
-            cells, counts, ntot = mockmaker.poisson_cells(lam, seed)
+            cells, counts, ntot = mockmaker.poisson_cells(
+                lam, seed, expected=nbar * float(np.prod(pm.BoxSize)))
         del lam
         with stage('points'):
             cell_ids, pos = mockmaker.cell_points(pm, cells, counts, ntot,

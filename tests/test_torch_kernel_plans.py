@@ -1,8 +1,10 @@
-"""Launch geometry of the port's two Hopper kernels, checked without a
+"""Launch geometry of the port's Hopper kernels, checked without a
 card: the deposit's tile, cluster and shared-memory plan
-(``ops/paint_cuda.deposit_plan``) and the rank pass's chunk, CTA and
-scratch plan (``ops/radix_cuda.rank_plan``), against the limits of the
-H100 and the constants compiled into ``csrc/*.cu``."""
+(``ops/paint_cuda.deposit_plan``), the rank pass's chunk, CTA and
+scratch plan (``ops/radix_cuda.rank_plan``) and the Poisson draw's
+tiles, alignment shift, scratch and list capacity
+(``ops/threefry_cuda.poisson_plan``, ``cell_capacity``), against the
+limits of the H100 and the constants compiled into ``csrc/*.cu``."""
 
 import os
 import re
@@ -11,6 +13,7 @@ import pytest
 
 from nbodykit_tpu_torch import kernel_variants
 from nbodykit_tpu_torch.ops import paint_cuda, radix_cuda
+from nbodykit_tpu_torch.ops import threefry_cuda
 from nbodykit_tpu_torch.ops.paint import mxu_plan
 from nbodykit_tpu_torch.ops.window import RESAMPLERS
 
@@ -119,6 +122,58 @@ def test_plans_match_the_kernel_sources():
         == radix_cuda.KERNEL_THREADS
     per = _define('radix_rank.cu', 'RANK_PER_THREAD')
     assert per * radix_cuda.KERNEL_THREADS == radix_cuda.KERNEL_CHUNK
+    for name in ('POISSON_THREADS', 'POISSON_VEC', 'POISSON_UNROLL'):
+        assert _define('threefry.cu', name) == getattr(threefry_cuda, name)
+    assert _define('threefry.cu', 'SCR_WORDS') == threefry_cuda.SCRATCH_WORDS
+    for name in ('SCR_ITERS', 'SCR_OVERFLOW', 'SCR_HASHES', 'SCR_TOTAL',
+                 'SCR_OCCUPIED', 'SCR_ZEROS', 'SCR_TICKET'):
+        assert _define('threefry.cu', name) == getattr(threefry_cuda, name)
+
+
+POISSON_N = [1, 3, 16383, 16384, 16385, 2 ** 20 + 3, 1024 ** 3]
+
+
+@pytest.mark.parametrize('n', POISSON_N)
+@pytest.mark.parametrize('shift', [0, 1, 2, 3])
+def test_poisson_plan(n, shift):
+    plan = threefry_cuda.poisson_plan(n, shift)
+    tile = plan['tile']
+    assert tile == threefry_cuda.POISSON_TILE == 16384
+    assert tile == plan['threads'] * threefry_cuda.POISSON_VEC \
+        * threefry_cuda.POISSON_UNROLL
+    # the tiles cover the cells at [shift, shift + n) of the aligned
+    # slots, each once
+    assert (plan['tiles'] - 1) * tile < n + shift <= plan['tiles'] * tile
+    assert plan['out_words'] == n + shift
+    assert plan['scratch_words'] == threefry_cuda.SCRATCH_WORDS \
+        + plan['tiles']
+    assert plan['clear_bytes'] == 8 * plan['scratch_words']
+    assert plan['clear_bytes'] % 8 == 0
+    if n == 1024 ** 3:
+        assert plan['tiles'] == 65536 + (shift > 0)
+
+
+@pytest.mark.parametrize('n,shift', [(0, 0), (10, 4), (10, -1)])
+def test_poisson_plan_refuses(n, shift):
+    with pytest.raises(ValueError):
+        threefry_cuda.poisson_plan(n, shift)
+
+
+@pytest.mark.parametrize('expected,n,cap', [
+    (1e7, 1024 ** 3, 10026323),      # the lognormal path: nbar V = 1e7
+    (3750.0, 32 ** 3, 5264),         # the mock tests' 32^3 mesh
+    (0.0, 10, 10),                   # never more than the cells
+    (float('nan'), 10 ** 6, 1024),   # a sum that is no sum: the floor
+    (float('inf'), 10 ** 6, 1024),
+    (-5.0, 10 ** 6, 1024),
+    (0.0, 1, 1),
+])
+def test_cell_capacity(expected, n, cap):
+    got = threefry_cuda.cell_capacity(expected, n)
+    assert got == cap and 1 <= got <= n
+    if 0 < expected < float('inf') and n > 10 ** 5:
+        # 8 sigma of the Poisson count sum that bounds the occupied cells
+        assert got >= expected + 8 * expected ** 0.5
 
 
 @pytest.mark.parametrize('name', sorted(kernel_variants.VARIANTS))

@@ -324,3 +324,30 @@ def test_lognormal_stage_timer_wraps_each_stage(catalogs_f8, monkeypatch):
                     'points', 'displacement_c2r_gather', 'zeldovich']
     for col in ('Position', 'Velocity', 'VelocityOffset'):
         assert torch.equal(cat[col], ref[col])
+
+
+@pytest.mark.parametrize('dtype', ['f8', 'f4'])
+def test_poisson_cells_match_jax(dtype):
+    """mockmaker.poisson_cells (the occupied-cells draw, sized by the
+    lam sum nbar V) against the JAX package's counts on the same lam:
+    the cells JAX's repeat keeps, their counts and Ntot. f8: the port's
+    own lam (equal to JAX's to 1e-12); f4: JAX's lam handed over, as
+    Queue C states for f4."""
+    pj = JaxPM(NMESH, BOX, dtype=dtype)
+    delta, _ = jmock.gaussian_real_fields(pj, _plin(jcosmo), SEED)
+    lam_j = NBAR * float(np.prod(pj.cellsize)) \
+        * jmock.lognormal_transform(delta, bias=1.0).value
+    counts_j = np.asarray(jax.random.poisson(
+        jax.random.split(jax.random.key(SEED))[0], lam_j)).reshape(-1)
+    if dtype == 'f8':
+        pt = ParticleMesh(NMESH, BOX, dtype='f8')
+        delta_k, _ = tmock.gaussian_complex_fields(pt, _plin(tcosmo), SEED)
+        lam_t = tmock.lognormal_lambda(pt.c2r(delta_k.value), pt, NBAR, 2.0)
+    else:
+        lam_t = torch.from_numpy(np.array(as_numpy(lam_j)))
+    cells, counts, ntot = tmock.poisson_cells(lam_t, SEED,
+                                              expected=NBAR * BOX ** 3)
+    nz = np.flatnonzero(counts_j)
+    np.testing.assert_array_equal(cells.numpy(), nz)
+    np.testing.assert_array_equal(counts.numpy(), counts_j[nz])
+    assert ntot == int(counts_j.sum()) > 1000

@@ -298,3 +298,136 @@ def test_plain_versions_do_not_depend_on_their_chunk(monkeypatch):
     assert torch.equal(tf.poisson_threefry_plain(key, lam), ref_p)
     assert torch.equal(tf.threefry_fill_plain(key, 5, 1000, 'normal64'),
                        ref_f)
+
+
+# -- the occupied-cells mode ----------------------------------------------
+
+def _cells_fields():
+    rs = np.random.RandomState(5)
+    mixed = rs.uniform(0, 30, 6000).astype('f4')
+    mixed[::7] = 0
+    mixed[3::11] = -1.5
+    mixed[5::13] = np.nan
+    mixed[17] = 1e-40
+    return {
+        'knuth_only': rs.lognormal(-4, 1.0, 8000).astype('f4'),
+        'knuth_dense': rs.uniform(0, 9.9, 4000).astype('f4'),
+        'rejection_only': rs.uniform(10, 200, 1500).astype('f4'),
+        'mixed_with_zeros_nan_negatives': mixed,
+        'all_zero': np.zeros(300, 'f4'),
+    }
+
+
+CELLS_FIELDS = sorted(_cells_fields())
+
+
+@pytest.mark.parametrize('field', CELLS_FIELDS)
+def test_poisson_cells_plain_equals_nonzero_of_counts(field):
+    """The occupied-cells plain path gives nonzero() of the full-mesh
+    counts over Knuth-only, rejection and mixed fields with zeros, NaN
+    and negatives: ids, counts, N and the hashes used."""
+    lam = torch.from_numpy(_cells_fields()[field])
+    key = rng.key(11)
+    sf, sc = {}, {}
+    full = tf.poisson_threefry_plain(key, lam, stats=sf)
+    ref = torch.nonzero(full).reshape(-1)
+    ids, counts, N = tf.poisson_cells_plain(key, lam, stats=sc)
+    assert ids.dtype == counts.dtype == torch.int64
+    assert torch.equal(ids, ref) and torch.equal(counts, full[ref])
+    assert N == int(full.sum()) and sc['hashes'] == sf['hashes']
+
+
+def _kernel_lists(full, lam):
+    """A stand-in for one occupied-cells launch, for the wrapper's side of
+    the protocol: it lists every cell with a nonzero count and every
+    rejection cell (count 0 included) in raster order, into ``cap``
+    entries, and reports the list's full length, the counts' sum and the
+    listed rejection cells whose count is 0."""
+    listed = torch.nonzero((full != 0) | ~(torch.isnan(lam) | (lam < 10)))
+    listed = listed.reshape(-1)
+
+    def run(cap):
+        ids = torch.full((cap,), -7, dtype=torch.int64)
+        cnts = torch.full((cap,), -7, dtype=torch.int64)
+        m = min(cap, listed.numel())
+        ids[:m], cnts[:m] = listed[:m], full[listed[:m]]
+        w = np.zeros(tf.SCRATCH_WORDS, np.int64)
+        w[tf.SCR_OCCUPIED] = listed.numel()
+        w[tf.SCR_TOTAL] = int(full.sum())
+        w[tf.SCR_ZEROS] = int((cnts[:m] == 0).sum())
+        w[tf.SCR_HASHES] = 5
+        return ids, cnts, w
+    return run, listed.numel()
+
+
+@pytest.mark.parametrize('capacity', [1, 64, 10 ** 5])
+@pytest.mark.parametrize('field', CELLS_FIELDS)
+def test_collect_cells_draws_a_short_list_again(field, capacity):
+    """The occupied-cells wrapper launches again at the reported length
+    when the list was too short for it, and then returns nonzero() of
+    the counts."""
+    lam = torch.from_numpy(_cells_fields()[field])
+    full = tf.poisson_threefry_plain(rng.key(11), lam)
+    run, listed = _kernel_lists(full, lam)
+    stats = {}
+    ids, counts, N = tf._collect_cells(run, capacity, stats)
+    ref = torch.nonzero(full).reshape(-1)
+    assert torch.equal(ids, ref) and torch.equal(counts, full[ref])
+    assert N == int(full.sum())
+    relaunched = listed > capacity
+    assert stats == dict(hashes=5, runs=2 if relaunched else 1,
+                         capacity=listed if relaunched else capacity)
+
+
+def test_poisson_cells_drop_rejection_cells_that_draw_zero():
+    """The kernel lists a rejection cell before its count is known; the
+    wrapper drops one whose count comes out 0 (key 31 draws 0 at cell
+    2344 of a lam = 10 field)."""
+    lam = torch.full((3000,), 10.0)
+    lam[::5] = 0.5
+    key = rng.key(31)
+    full = tf.poisson_threefry_plain(key, lam)
+    assert int(full[2344]) == 0 and (full[lam >= 10] == 0).sum() >= 1
+    run, listed = _kernel_lists(full, lam)
+    ids, counts, N = tf._collect_cells(run, listed, None)
+    ref = torch.nonzero(full).reshape(-1)
+    assert 2344 not in ids.tolist() and listed > ref.numel()
+    assert torch.equal(ids, ref) and torch.equal(counts, full[ref])
+    assert N == int(full.sum()) and (counts != 0).all()
+    assert all(torch.equal(a, b) for a, b in
+               zip(tf.poisson_cells_plain(key, lam)[:2], (ids, counts)))
+
+
+@pytest.mark.parametrize('dtype', ['f4', 'f8'])
+def test_poisson_cells_equal_jax(dtype):
+    """ids, counts and N equal the nonzero cells of JAX's
+    ``random.poisson`` (what the JAX mock repeats), in every branch."""
+    lam = poisson_lams(dtype)
+    k = jkey(13)
+    ref = np.asarray(jax.random.poisson(k, jnp.asarray(lam)))
+    ids, counts, N = tf.poisson_cells(raw(k), torch.from_numpy(lam),
+                                      expected=float(np.nansum(lam)))
+    nz = np.flatnonzero(ref)
+    np.testing.assert_array_equal(ids.numpy(), nz)
+    np.testing.assert_array_equal(counts.numpy(), ref[nz])
+    assert N == int(ref.sum())
+
+
+def test_poisson_cells_table_exhausted_raises(monkeypatch):
+    monkeypatch.setattr(tf, 'KNUTH_TABLE', 3)
+    with pytest.raises(tf.PoissonTableExhausted):
+        tf.poisson_cells_plain(rng.key(1), torch.full((100,), 9.0))
+
+
+def test_poisson_cells_dispatch_and_refuse_cpu_tensors():
+    key = rng.key(4)
+    lam = torch.rand(200, generator=torch.Generator().manual_seed(2)) * 3
+    before = tf.poisson_cells_cuda.launches
+    got = tf.poisson_cells(key, lam, float(lam.sum()))
+    ref = tf.poisson_cells_plain(key, lam)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], ref[:2]))
+    assert got[2] == ref[2] and tf.poisson_cells_cuda.launches == before
+    with pytest.raises(ValueError):
+        tf.poisson_cells_cuda(key, lam, float(lam.sum()))
+    with pytest.raises(ValueError):
+        tf.poisson_screen_check(device='cpu')

@@ -7,17 +7,22 @@ Run from the repository root with no arguments::
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
-drives two paths through the user entry points:
+drives three paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
-  multipoles;
+  multipoles; then FFTCorr and ProjectedFFTPower once on its mesh;
 - the lognormal path, the repo's FFTPower benchmark flow
   (``benchmarks/test_fftpower.py`` at its ``desi_like`` scale):
   LogNormalCatalog(LinearPower(Planck15, 0.55, 'EisensteinHu'),
   bias=2, seed=42) at BoxSize 5000, Nmesh 1024, nbar 1e7 / 5000^3,
   then FFTPower(mode='2d', kmin=0.001, Nmu=10) on its compensated CIC
   mesh;
+- the convpower path, the repo's ConvolvedFFTPower benchmark flow
+  (``benchmarks/test_convpower.py`` at ``desi_like``): data and 10x
+  randoms UniformCatalogs (seeds 42, 84) at BoxSize 5000 with NZ = nbar,
+  FKPCatalog(...).to_mesh(Nmesh=1024, resampler='tsc') in f8, then
+  ConvolvedFFTPower(poles=[0, 2, 4], dk=0.005);
 
 and LinearMesh at the same scale against its exact expectation. Every
 check is an ``assert`` or a raise, so any failure exits non-zero.
@@ -39,9 +44,11 @@ import time
 import numpy as np
 import torch
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
+# published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W);
+# F64 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 # Integer issue on compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput): IADD3, LOP3 and SHF go to the ALU
 # pipe and IMAD to the FMA pipe, each 64 results per clock per SM, and
@@ -219,7 +226,7 @@ def kernel_device_ms(fn, names, reps=10):
     return out
 
 
-def time_rank(n, D=65):
+def time_rank(n, D=65, plain_reps=2):
     """Rank pass times at the main path's shape (n particles, 2 LSD
     passes of 65 digits at 512^3): the kernel alone (CUDA events around
     the C call into preallocated outputs, the status words' clearing
@@ -245,7 +252,8 @@ def time_rank(n, D=65):
     ms = cuda_ms(launch, reps=20)
     wrapper_ms = cuda_ms(lambda: pass_rank_hist_cuda(d, D), reps=20)
     split = kernel_device_ms(launch, ('rank_lookback_kernel', 'Memset'))
-    plain_ms = cuda_ms(lambda: pass_rank_hist_plain(d, D), reps=2)
+    plain_ms = cuda_ms(lambda: pass_rank_hist_plain(d, D), reps=plain_reps,
+                       warmup=min(1, plain_reps - 1))
     lib_ms = cuda_ms(lambda: torch.argsort(d, stable=True), reps=10)
     b_ms, b_by = bound(n * 4 + n * 4 + D * 4, 0, F32_FLOPS)
     emit({'phase': 'rank_timing', 'n': n, 'D': D, 'kernels_ms': ms,
@@ -258,8 +266,9 @@ def time_rank(n, D=65):
 
 
 def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
-                 slack=2.0, check_order=False):
-    """Kernel vs plain deposit on the mxu payload of one catalog. With
+                 slack=2.0, check_order=False, stripes=None):
+    """Kernel vs plain deposit on the mxu payload of one catalog, or on
+    its first ``stripes`` x-stripes (a sub-block of the blocks). With
     ``check_order``, the payload bucketed by the radix rank passes must
     equal the one bucketed by a stable ``torch.argsort``. Returns (mxu
     plan, payload, geometry, max |kernel - plain|, deposit launch
@@ -283,21 +292,24 @@ def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
     geom = dict(resampler=resampler, rb=plan['rb'], cb=plan['cb'],
                 n0l=int(shape[0]), p0=int(period[0]), N1=int(shape[1]),
                 N2=int(shape[2]), origin=origin)
-    got = deposit_blocks_cuda(sx, sy, sz, sm, **geom)
-    ref = deposit_blocks_plain(sx, sy, sz, sm, ck=plan['ck'], **geom)
+    sub = (sx, sy, sz, sm) if stripes is None else \
+        tuple(a[:stripes].contiguous() for a in (sx, sy, sz, sm))
+    got = deposit_blocks_cuda(*sub, **geom)
+    ref = deposit_blocks_plain(*sub, ck=plan['ck'], **geom)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     tol = (1e-12 if sm.dtype == torch.float64 else 1e-5) * scale
-    total, mass_in = float(got.double().sum()), float(sm.double().sum())
+    total, mass_in = float(got.double().sum()), float(sub[3].double().sum())
     lplan = deposit_plan(got.shape[2], got.shape[3], got.element_size())
     blocks = list(got.shape)
-    del got, ref
+    del got, ref, sub
     emit({'phase': 'deposit_check', 'case': label, 'max_abs_err': err,
           'max_abs_block': scale, 'tol': tol, 'blocks': blocks,
           'cluster': lplan['nz'], 'z_cells_per_cta': lplan['zc'],
           'ragged': lplan['ragged'], 'blocks_sum': total,
-          'payload_mass': mass_in, 'radix_equals_argsort': check_order})
+          'payload_mass': mass_in, 'radix_equals_argsort': check_order,
+          'stripes_checked': stripes or blocks[0]})
     assert np.isfinite(err) and err <= tol, \
         "deposit %s: max |kernel - plain| %g > %g" % (label, err, tol)
     # every window sums to one: the blocks hold the payload's mass
@@ -320,9 +332,6 @@ def check_deposit(cat, nmesh):
     (PCS f4: 2 CTAs, CIC f8: 2, PCS f8: 3); rows that are not 16-byte
     aligned (CIC f4 at 250^3, TSC f8 at 130^3); and 1e6 particles in
     four cells, for atomic contention. Returns the main-path record."""
-    from nbodykit_tpu_torch.ops.paint_cuda import (deposit_blocks_cuda,
-                                                   deposit_blocks_plain)
-    from nbodykit_tpu_torch.ops.window import window_support
     full = (nmesh,) * 3
     pos = cat['Position'] * (nmesh / float(cat.attrs['BoxSize'][0]))
     mass = torch.ones(pos.shape[0], dtype=torch.float32, device='cuda')
@@ -368,29 +377,39 @@ def check_deposit(cat, nmesh):
     deposit_case('cic 32^3 n=1e6 in 4 cells f8 mesh', clumped, w.double(),
                  (32,) * 3, (32,) * 3, 0, 'cic', slack=17.0)
 
+    return time_deposit(payload, geom, plan, err)
+
+
+def time_deposit(payload, geom, plan, err, plain=True):
+    """The deposit kernel's time on one payload (10 launches), its plain
+    version's (one call, when ``plain``) and the bound of the work:
+    every slot's mass read, the positions of the occupied slots read,
+    the blocks written once; 2 flops for each of the s^3 terms of an
+    occupied slot, at the peak of the mesh dtype."""
+    from nbodykit_tpu_torch.ops.paint_cuda import (deposit_blocks_cuda,
+                                                   deposit_blocks_plain)
+    from nbodykit_tpu_torch.ops.window import window_support
     sx, sy, sz, sm = payload
     ms = cuda_ms(lambda: deposit_blocks_cuda(sx, sy, sz, sm, **geom),
                  reps=10)
-    plain_ms = cuda_ms(lambda: deposit_blocks_plain(sx, sy, sz, sm,
-                                                    ck=plan['ck'], **geom),
-                       reps=1, warmup=0)
-    s = window_support('cic')
+    plain_ms = cuda_ms(lambda: deposit_blocks_plain(
+        sx, sy, sz, sm, ck=plan['ck'], **geom), reps=1, warmup=0) \
+        if plain else None
+    s = window_support(geom['resampler'])
     M = (plan['rb'] + s - 1) * (plan['cb'] + s - 1)
     T, nty, K = sx.shape
-    # every slot's mass is read; the positions only of occupied slots
-    # (mass != 0), which are all the kernel and the function need
+    N2 = geom['N2']
     occupied = int((sm != 0).sum())
     nbytes = T * nty * K * sm.element_size() \
         + occupied * 3 * sx.element_size() \
-        + T * nty * M * nmesh * sm.element_size()
-    # the deposit's own arithmetic: 2 flops per term for the s^3 terms
-    # of each occupied slot
-    flops = occupied * 2 * s ** 3
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        + T * nty * M * N2 * sm.element_size()
+    peak = F64_FLOPS if sm.dtype == torch.float64 else F32_FLOPS
+    b_ms, b_by = bound(nbytes, occupied * 2 * s ** 3, peak)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err,
-                at='cic %d^3 blocks %s payload %s, %d slots occupied' % (
-                    nmesh, [T, nty, M, nmesh], [T, nty, K], occupied))
+                bound_by=b_by, max_abs_err=err, share_of_bound=b_ms / ms,
+                at='%s %s %d^3 blocks %s payload %s, %d slots occupied' % (
+                    geom['resampler'], str(sm.dtype)[6:], N2,
+                    [T, nty, M, N2], [T, nty, K], occupied))
 
 
 def launch_counters():
@@ -1054,7 +1073,7 @@ def lognormal_path():
 
 
 class StageTimes(object):
-    """``mockmaker.stage_timer``: one CUDA-event window per stage,
+    """``utils.stage_timer``: one CUDA-event window per stage,
     the stream drained before and after it."""
 
     def __init__(self):
@@ -1074,19 +1093,19 @@ class StageTimes(object):
 
 def lognormal_stages(cat):
     """The lognormal path's stages: LN_REPS LogNormalCatalog builds with
-    ``mockmaker.stage_timer`` set, so each stage of the real build is
+    ``utils.stage_timer`` set, so each stage of the real build is
     one CUDA-event window, and LN_REPS runs of the Algorithm's steps
     (paint, r2c, 3-D power, binning), one window each."""
-    from nbodykit_tpu_torch import mockmaker as mm
+    from nbodykit_tpu_torch import utils
     from nbodykit_tpu_torch.algorithms.fftpower import (FFTPower,
                                                         project_to_basis)
     times = StageTimes()
-    mm.stage_timer = times
+    utils.stage_timer = times
     try:
         for _ in range(LN_REPS):
             lognormal_catalog()
     finally:
-        mm.stage_timer = None
+        utils.stage_timer = None
 
     def step(name, fn):
         with times(name):
@@ -1106,6 +1125,207 @@ def lognormal_stages(cat):
     summary = {k: {'median': float(np.median(v)), 'min': min(v),
                    'max': max(v)} for k, v in times.ms.items()}
     emit({'phase': 'lognormal_stages', 'reps': LN_REPS, 'ms': summary})
+
+
+# the convpower path: benchmarks/test_convpower.py at desi_like, data and
+# randoms (10 nbar) from seeds 42 and 84
+CP_BOX, CP_NMESH, CP_N, CP_DK, CP_POLES = 5000.0, 1024, 1e7, 0.005, [0, 2, 4]
+
+
+def convpower_data():
+    """The benchmark's Data phase: the data and randoms UniformCatalogs,
+    their NZ columns from numpy, the FKPCatalog and its TSC mesh in f8
+    (the bounding box from the randoms). Each step is a stage of
+    ``utils.stage_timer``."""
+    from nbodykit_tpu_torch.algorithms.convpower import FKPCatalog
+    from nbodykit_tpu_torch.source.catalog import UniformCatalog
+    from nbodykit_tpu_torch.utils import stage
+    nbar = CP_N / CP_BOX ** 3
+    with stage('draws'):
+        data = UniformCatalog(nbar=nbar, BoxSize=CP_BOX, seed=42)
+        randoms = UniformCatalog(nbar=10 * nbar, BoxSize=CP_BOX, seed=84)
+    with stage('nz_columns'):
+        data['NZ'] = nbar * np.ones(data.size)
+        randoms['NZ'] = nbar * np.ones(randoms.size)
+    with stage('fkp_catalog_and_bbox'):
+        return FKPCatalog(data, randoms).to_mesh(Nmesh=CP_NMESH,
+                                                 resampler='tsc')
+
+
+def convpower_algorithm(mesh):
+    """The benchmark's Algorithm phase."""
+    from nbodykit_tpu_torch.algorithms.convpower import ConvolvedFFTPower
+    return ConvolvedFFTPower(mesh, poles=CP_POLES, dk=CP_DK)
+
+
+def convpower_path():
+    """The ConvolvedFFTPower benchmark flow at full width: Data and
+    Algorithm once with every kernel's launches counted and the peak
+    memory of each; the gates on the result (data and randoms are
+    independent Poisson samples, so the field is noise: P0 at the shot
+    noise, P2 and P4 at 0, where the exact TSC shot-noise compensation
+    leaves the noise flat); then one warm-up and LN_REPS timed calls of
+    each phase."""
+    with counted_launches() as launches:
+        torch.cuda.reset_peak_memory_stats()
+        mesh = convpower_data()
+        torch.cuda.synchronize()
+        peak_data = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = convpower_algorithm(mesh)
+        torch.cuda.synchronize()
+        peak_alg = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+    # two paints: the deposit twice, two rank passes each (alphabet
+    # 16513); four catalog draws
+    assert launches['paint_deposit'] == 2, launches
+    assert launches['radix_rank'] == 4, launches
+    assert launches['threefry_fill'] >= 4, launches
+
+    fkp = mesh.source
+    Nd, Nr = len(fkp['data']), len(fkp['randoms'])
+    alpha = r.attrs['alpha']
+    assert abs(alpha / (Nd / Nr) - 1) <= 1e-3, (alpha, Nd, Nr)
+    norms = r.attrs['data.norm'], r.attrs['randoms.norm']
+    assert abs(norms[0] / norms[1] - 1) <= 0.01, norms
+    poles = r.poles
+    k, modes = poles['k'], poles['modes']
+    nbins = len(poles['k'])
+    assert nbins == len(np.arange(0, np.pi * CP_NMESH /
+                                  mesh.attrs['BoxSize'].max()
+                                  + CP_DK / 2, CP_DK)) - 1, nbins
+    for ell in CP_POLES:
+        assert np.isfinite(poles['power_%d' % ell][modes > 0]).all()
+    shot = r.attrs['shotnoise']
+    sel = (modes > 0) & (k > 0.02) & (k < 0.1)
+    wts = modes[sel]
+    ratio = {ell: float(np.sum(wts * poles['power_%d' % ell][sel].real)
+                        / np.sum(wts) / shot) for ell in CP_POLES}
+    assert abs(ratio[0] - 1) < 0.02, "P0/shotnoise = %r" % ratio[0]
+    assert abs(ratio[2]) < 0.02 and abs(ratio[4]) < 0.02, ratio
+    del r
+
+    # the results are dropped as they come: a second catalog pair would
+    # take 8 GB beside the Algorithm's peak
+    convpower_data()
+    t_data = spread(convpower_data, LN_REPS)[1]
+    convpower_algorithm(mesh)
+    t_alg = spread(lambda: convpower_algorithm(mesh), LN_REPS)[1]
+    emit({'phase': 'convpower_1024', 'nmesh': CP_NMESH,
+          'box': mesh.attrs['BoxSize'].tolist(),
+          'box_center': mesh.attrs['BoxCenter'].tolist(),
+          'N_data': Nd, 'N_randoms': Nr, 'alpha': alpha,
+          'alpha_over_ratio_minus_1': alpha / (Nd / Nr) - 1,
+          'norms': norms, 'shotnoise': shot, 'nbins_k': nbins,
+          'bins_in_ratio': int(sel.sum()), 'modes_in_ratio': int(wts.sum()),
+          'P_over_shot_mean_0.02_0.1': ratio,
+          'peak_gb_data': peak_data / 1e9,
+          'peak_gb_algorithm': peak_alg / 1e9,
+          'peak_gb_reserved': reserved / 1e9,
+          'launches': launches, 'reps': LN_REPS,
+          'data_ms': t_data, 'algorithm_ms': t_alg})
+    return mesh, launches
+
+
+def convpower_kernels(mesh):
+    """The kernels at the convpower path's shapes: the mxu paint of the
+    data against the index_add_ paint; the deposit against its plain
+    version on the data's whole payload and on 16 x-stripes of the
+    randoms' (TSC, f8, the cluster branch), each bucketed by the radix
+    passes and equal to argsort's bucketing; the deposit's times on both
+    whole payloads (the plain version on the data's and on the 16
+    stripes) and the rank pass's at the randoms' n and digit."""
+    from nbodykit_tpu_torch import set_options
+    full = (CP_NMESH,) * 3
+    dmesh = mesh['data']
+    a = dmesh.to_real_field(normalize=False).value
+    with set_options(paint_method='scatter'):
+        b = dmesh.to_real_field(normalize=False).value
+    diff = float((a - b).abs().max())
+    fmax = float(a.abs().max())
+    del a, b
+    emit({'phase': 'convpower_kernels', 'check': 'data paint mxu vs '
+          'index_add_', 'max_abs': diff, 'field_max': fmax,
+          'tol': 1e-5 * fmax})
+    assert diff <= 1e-5 * fmax, (diff, fmax)
+
+    recs = {}
+    for name, stripes in (('data', None), ('randoms', 16)):
+        sm = mesh[name]
+        src = sm.source
+        pos = src[sm.position] * torch.as_tensor(
+            sm.pm.Nmesh / sm.pm.BoxSize, dtype=torch.float64, device='cuda')
+        mass = src[sm.weight].to(torch.float64)
+        plan, payload, geom, err, lplan = deposit_case(
+            'tsc %d^3 f8 convpower %s n=%d' % (CP_NMESH, name, len(src)),
+            pos, mass, full, full, 0, 'tsc', check_order=True,
+            stripes=stripes)
+        del pos, mass
+        assert lplan['nz'] > 1, "the convpower deposit did not take " \
+            "the cluster branch"
+        recs[name] = time_deposit(payload, geom, plan, err,
+                                  plain=stripes is None)
+        if stripes:
+            sub = tuple(a[:stripes].contiguous() for a in payload)
+            recs['%s_%d_stripes' % (name, stripes)] = time_deposit(
+                sub, geom, plan, err)
+            del sub
+        del payload
+        torch.cuda.empty_cache()
+    rank = time_rank(len(mesh.source['randoms']), D=129, plain_reps=1)
+    emit({'phase': 'convpower_kernels', 'deposit': recs, 'rank': rank})
+    return recs, rank
+
+
+def convpower_stages(mesh):
+    """LN_REPS runs of Data and Algorithm with ``utils.stage_timer``
+    set: the draws, NZ columns, FKP catalog and bounding box; the data
+    and randoms paints, each multipole's FFT loop (multipole_0: the two
+    transforms of the density and their compensation) and every call of
+    the binning."""
+    from nbodykit_tpu_torch import utils
+    times = StageTimes()
+    utils.stage_timer = times
+    try:
+        for _ in range(LN_REPS):
+            convpower_data()
+            convpower_algorithm(mesh)
+    finally:
+        utils.stage_timer = None
+    summary = {k: {'median': float(np.median(v)), 'min': min(v),
+                   'max': max(v), 'windows': len(v)}
+               for k, v in times.ms.items()}
+    emit({'phase': 'convpower_stages', 'reps': LN_REPS, 'ms': summary})
+
+
+def other_fft_algorithms(cat, nmesh):
+    """FFTCorr(mode='1d') and ProjectedFFTPower(axes=(0, 1)) once on
+    the main path's compensated CIC mesh. The catalog is uniform, so
+    both see shot noise only, which the exact CIC shot-noise
+    compensation leaves flat at 1/N per mode: xi(0) = (Nmesh^3 - 1) / N
+    and xi = 0 elsewhere; the projected power at Lx Ly / N."""
+    from nbodykit_tpu_torch.algorithms import FFTCorr, ProjectedFFTPower
+    mesh = cat.to_mesh(Nmesh=nmesh, resampler='cic', compensated=True)
+    N = len(cat)
+    box = cat.attrs['BoxSize']
+    xi, xi_ms = timed(lambda: FFTCorr(mesh, mode='1d'))
+    corr = xi.corr['corr']
+    xi0 = float(corr[0]) * N / (nmesh ** 3 - 1)
+    xi_off = float(np.abs(corr[1:]).max())
+    emit({'phase': 'fftcorr_512', 'ms': xi_ms, 'nbins': len(corr),
+          'xi0_over_expected': xi0, 'max_abs_xi_r_gt_0': xi_off,
+          'gates': {'xi0': 0.01, 'xi_r_gt_0': 0.01}})
+    assert np.isfinite(corr).all()
+    assert abs(xi0 - 1) < 0.01 and xi_off < 0.01, (xi0, xi_off)
+    pp, pp_ms = timed(lambda: ProjectedFFTPower(mesh, axes=(0, 1)))
+    P, modes = pp.power['power'].real, pp.power['modes']
+    expect = float(box[0] * box[1]) / N
+    ratio = float(np.sum(modes * P) / np.sum(modes) / expect)
+    emit({'phase': 'projected_fftpower_512', 'ms': pp_ms,
+          'nbins': len(P), 'modes': int(modes.sum()),
+          'P_over_area_over_N': ratio, 'gate': 0.02})
+    assert np.isfinite(P[modes > 0]).all()
+    assert abs(ratio - 1) < 0.02, ratio
 
 
 def main():
@@ -1148,6 +1368,7 @@ def main():
     launches = {k: cat_launches[k] + run_launches[k] for k in cat_launches}
     paint_breakdown(cat, nmesh)
     profile_main_path(run)
+    other_fft_algorithms(cat, nmesh)
     del cat, run
     torch.cuda.empty_cache()
 
@@ -1164,10 +1385,21 @@ def main():
     del ln_cat, ln_run
     torch.cuda.empty_cache()
     tf_rec = time_threefry(LN_NMESH ** 3, hash_opcodes)
+    torch.cuda.empty_cache()
+
+    cp_mesh, cp_launches = convpower_path()
+    convpower_stages(cp_mesh)
+    profile_main_path(lambda: convpower_algorithm(cp_mesh),
+                      'convpower_1024')
+    cp_dep, cp_rank = convpower_kernels(cp_mesh)
+    del cp_mesh
+    torch.cuda.empty_cache()
+
+    paths = ('main_512', 'lognormal_1024', 'convpower_1024')
 
     def counted(name):
-        by_path = {'main_512': launches[name],
-                   'lognormal_1024': ln_launches[name]}
+        by_path = dict(zip(paths, (launches[name], ln_launches[name],
+                                   cp_launches[name])))
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -1179,7 +1411,7 @@ def main():
             launches=sum(m['launches'] for m in modes.values()),
             launches_by_path={p: sum(m['launches_by_path'][p]
                                      for m in modes.values())
-                              for p in ('main_512', 'lognormal_1024')},
+                              for p in paths},
             launches_by_mode={k: m['launches'] for k, m in modes.items()})
     rng_src = 'nbodykit_tpu_torch/csrc/threefry.cu'
     rng_replaces = 'jax.random threefry2x32 / poisson (XLA; no Pallas kernel)'
@@ -1187,11 +1419,13 @@ def main():
         dict(name='radix_rank', route='cuda',
              source='nbodykit_tpu_torch/csrc/radix_rank.cu',
              replaces='nbodykit_tpu/ops/radix_pallas.py:30',
-             **counted('radix_rank'), **rank_rec),
+             **counted('radix_rank'), **rank_rec,
+             at_convpower_1024=cp_rank),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
              replaces='nbodykit_tpu/ops/paint_pallas.py:37',
-             **counted('paint_deposit'), **dep_rec),
+             **counted('paint_deposit'), **dep_rec,
+             at_convpower_1024=cp_dep),
         dict(name='threefry_fill', route='cuda', source=rng_src,
              replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),
         dict(name='poisson_threefry', route='cuda', source=rng_src,

@@ -1,3 +1,8 @@
 """Algorithms (counterpart of ``nbodykit_tpu/algorithms``)."""
 
-from .fftpower import FFTBase, FFTPower, project_to_basis  # noqa: F401
+from .convpower import (ConvolvedFFTPower, FKPCatalog,  # noqa: F401
+                        FKPCatalogMesh, FKPWeightFromNbar, get_real_Ylm)
+from .fftcorr import FFTCorr  # noqa: F401
+from .fftpower import (FFTBase, FFTPower, ProjectedFFTPower,  # noqa: F401
+                       project_to_basis)
+from .zhist import RedshiftHistogram, scotts_bin_width  # noqa: F401

@@ -236,16 +236,37 @@ def _edges_from_centers(fx, xmax, fine):
     return edges, fx
 
 
-def _find_unique_edges(pm, xmax):
-    """Bin edges hitting each unique |k| of the complex layout (the dk=0
-    mode), enumerated on the host with numpy: on a cubic mesh through the
-    exact integer lattice |i|^2, otherwise through quantized floats."""
+def _lattice_axes(pm, kind):
+    """Integer frequencies along each mesh axis and the per-axis
+    physical unit: for ``'complex'`` the wave-vector lattice (the last
+    axis its hermitian-compressed non-negative half), for ``'real'`` the
+    minimum-image separations of a correlation field."""
     Nmesh = np.asarray(pm.Nmesh, dtype=int)
     Box = np.asarray(pm.BoxSize, dtype='f8')
-    units = 2 * np.pi / Box
-    axes = [(np.arange(n // 2 + 1) if ax == 2
-             else np.fft.fftfreq(n, 1.0 / n)).astype('i8')
-            for ax, n in enumerate(int(n) for n in Nmesh)]
+    axes, units = [], []
+    for ax, n in enumerate(Nmesh):
+        n = int(n)
+        if kind == 'complex':
+            units.append(2 * np.pi / Box[ax])
+            freq = (np.arange(n // 2 + 1) if ax == 2
+                    else np.fft.fftfreq(n, 1.0 / n))
+        elif kind == 'real':
+            units.append(Box[ax] / n)
+            freq = np.fft.fftfreq(n, 1.0 / n)
+        else:
+            raise ValueError("kind must be 'complex' or 'real'")
+        axes.append(freq.astype('i8'))
+    return axes, np.asarray(units)
+
+
+def _find_unique_edges(pm, xmax, kind='complex'):
+    """Bin edges hitting each unique coordinate modulus (the dk=0 / dr=0
+    mode) of the complex layout's |k| or, with ``kind='real'``, of the
+    separations |r|, enumerated on the host with numpy: on a cubic mesh
+    through the exact integer lattice |i|^2, otherwise through quantized
+    floats."""
+    axes, units = _lattice_axes(pm, kind)
+    Nmesh = np.asarray(pm.Nmesh, dtype=int)
     cubic = (Nmesh == Nmesh[0]).all() and np.allclose(units, units[0])
 
     if cubic:
@@ -444,3 +465,119 @@ class FFTPower(FFTBase):
         self.power = BinnedStatistic.from_state(state['power'])
         self.poles = BinnedStatistic.from_state(state['poles']) \
             if state['poles'] is not None else None
+
+
+class ProjectedFFTPower(FFTBase):
+    """Power spectrum of the field projected onto ``axes`` (a 2-D map
+    or a 1-D line): the sum over the dropped axes, the rfft of the map
+    and the binning by ``bincount``, all on the field's device; only the
+    (nbins,) sums reach the host. Result in :attr:`power`."""
+
+    logger = logging.getLogger('ProjectedFFTPower')
+
+    def __init__(self, first, Nmesh=None, BoxSize=None, second=None,
+                 axes=(0, 1), dk=None, kmin=0.):
+        FFTBase.__init__(self, first, second, Nmesh, BoxSize)
+        if len(axes) not in (1, 2):
+            raise ValueError("axes must have length 1 or 2")
+        if dk is None:
+            dk = 2 * np.pi / self.attrs['BoxSize'].min()
+        self.attrs['dk'] = dk
+        self.attrs['kmin'] = kmin
+        self.attrs['axes'] = list(axes)
+        self.run()
+
+    def _map_geometry(self):
+        """Host constants of the projected map's rfft spectrum: (|k|,
+        half-spectrum weights, bin edges, bin ids), each of the
+        spectrum's (small) shape."""
+        axes = list(self.attrs['axes'])
+        dims = [int(self.attrs['Nmesh'][i]) for i in axes]
+        lens = [float(self.attrs['BoxSize'][i]) for i in axes]
+        nd = len(dims)
+
+        spec_shape = tuple(dims[:-1]) + (dims[-1] // 2 + 1,)
+        kk = np.zeros(spec_shape, dtype='f8')
+        for j in range(nd):
+            kfun = 2 * np.pi / lens[j]
+            if j == nd - 1:
+                freq = np.arange(spec_shape[-1], dtype='f8')
+            else:
+                freq = np.fft.fftfreq(dims[j], d=1.0 / dims[j])
+            bshape = [1] * nd
+            bshape[j] = freq.size
+            kk = kk + (freq * kfun).reshape(bshape) ** 2
+        kmag = np.sqrt(kk)
+
+        # the rfft keeps the non-negative half of the last axis: every
+        # plane but iz = 0 (and the Nyquist plane of an even N) stands
+        # for a conjugate pair and counts twice
+        wgt = np.full(spec_shape, 2.0)
+        wgt[..., 0] = 1.0
+        if dims[-1] % 2 == 0:
+            wgt[..., -1] = 1.0
+
+        kedges = np.arange(
+            self.attrs['kmin'],
+            np.pi * min(dims) / max(lens) + self.attrs['dk'] / 2,
+            self.attrs['dk'])
+        binid = np.digitize(kmag.reshape(-1), kedges)
+        return kmag, wgt, kedges, binid
+
+    def run(self):
+        axes = list(self.attrs['axes'])
+        Nmesh = self.attrs['Nmesh']
+        dropped = tuple(i for i in range(3) if i not in axes)
+        # the sum keeps the survivors in index order; permute to the
+        # requested axis order
+        survivors = sorted(axes)
+        perm = tuple(survivors.index(a) for a in axes)
+        inv_norm = 1.0 / float(Nmesh.prod())
+
+        kmag, wgt, kedges, binid = self._map_geometry()
+        nb = len(kedges) + 1
+
+        f1 = self.first.compute(Nmesh=Nmesh, mode='real')
+        distinct = self.first is not self.second
+        f2 = self.second.compute(Nmesh=Nmesh, mode='real') \
+            if distinct else f1
+        dev = f1.value.device
+
+        def spectrum(v):
+            m = v.sum(dim=dropped).permute(perm)
+            return torch.fft.rfftn(m) * inv_norm
+
+        s1 = spectrum(f1.value)
+        s2 = spectrum(f2.value) if distinct else s1
+        spec = (s1 * torch.conj(s2)).reshape(-1)
+        spec[0] = 0.0                                  # clear DC
+        wgt_t = torch.as_tensor(wgt.reshape(-1), device=dev)
+        kw_t = torch.as_tensor((wgt * kmag).reshape(-1), device=dev)
+        bin_t = torch.as_tensor(binid, device=dev)
+        sums = [torch.bincount(bin_t, weights=w, minlength=nb)
+                for w in (kw_t, wgt_t, spec.real * wgt_t,
+                          spec.imag * wgt_t)]
+        ksum, nsum, psum_re, psum_im = torch.stack(sums).cpu().numpy()
+
+        area = float(np.prod([self.attrs['BoxSize'][i] for i in axes]))
+        power = np.empty(len(kedges) - 1, dtype=[
+            ('k', 'f8'), ('power', 'c16'), ('modes', 'f8')])
+        with np.errstate(invalid='ignore', divide='ignore'):
+            inner = slice(1, -1)
+            power['k'] = (ksum / nsum)[inner]
+            power['power'] = ((psum_re + 1j * psum_im) / nsum)[inner] \
+                * area
+            power['modes'] = nsum[inner]
+
+        self.edges = kedges
+        self.power = BinnedStatistic(['k'], [kedges], power,
+                                     fields_to_sum=['modes'], **self.attrs)
+
+    def __getstate__(self):
+        return dict(edges=self.edges, power=self.power.data,
+                    attrs=self.attrs)
+
+    def __setstate__(self, state):
+        self.attrs = state['attrs']
+        self.edges = state['edges']
+        self.power = BinnedStatistic(['k'], [self.edges], state['power'])

@@ -3,7 +3,9 @@ of ``nbodykit_tpu/base/catalog.py``).
 
 A column is a tensor on the catalog's ``device``. Hardcolumns declared
 with the ``column`` decorator are computed on first access and cached;
-``attrs`` carries the metadata.
+``attrs`` carries the metadata. A slice, mask or index selection gives
+an ArrayCatalog of the selected rows; :meth:`view` a shallow view whose
+new columns stay off the base.
 """
 
 import logging
@@ -61,8 +63,7 @@ class CatalogSourceBase(object):
 
     def __getitem__(self, sel):
         if not isinstance(sel, str):
-            raise KeyError("column selection by %r is not ported yet"
-                           % (sel,))
+            return self._select(sel)
         if sel in self._columns:
             return self._columns[sel]
         if sel in self._cache:
@@ -77,6 +78,37 @@ class CatalogSourceBase(object):
 
     def __setitem__(self, col, value):
         self._columns[col] = self._promote(value, col=col)
+
+    def __delitem__(self, col):
+        if col in self._columns:
+            del self._columns[col]
+        elif col in self.hardcolumns:
+            raise ValueError("cannot delete hardcolumn '%s'" % col)
+        else:
+            raise KeyError(col)
+
+    def _select(self, sel):
+        """An ArrayCatalog of the rows that a slice, a boolean mask or
+        an index array (numpy, list or tensor) selects, every column
+        sliced on the catalog's device."""
+        from ..source.catalog.array import ArrayCatalog
+        if isinstance(sel, (np.ndarray, list)):
+            sel = torch.as_tensor(np.asarray(sel), device=self.device)
+        if not isinstance(sel, (slice, torch.Tensor)):
+            raise KeyError("invalid catalog selection %r" % (sel,))
+        data = {col: self[col][sel] for col in self.columns}
+        return ArrayCatalog(data, device=self.device, **self.attrs)
+
+    def view(self, type=None):
+        """A re-typed view sharing the column tensors; the column dicts
+        are copied, so a column set on the view stays off the base."""
+        obj = object.__new__(type or self.__class__)
+        obj.__dict__.update(self.__dict__)
+        obj._columns = dict(self._columns)
+        obj._cache = dict(self._cache)
+        obj._size = len(self)
+        obj.base = self
+        return obj
 
     def _promote(self, value, col=None):
         """Coerce a column value to a tensor of length len(self) on the

@@ -3,8 +3,11 @@
     from nbodykit_tpu_torch.lab import *
 """
 
-from . import cosmology, option_scope, set_options  # noqa: F401
-from .algorithms import FFTBase, FFTPower, project_to_basis  # noqa: F401
+from . import cosmology, option_scope, set_options, transform  # noqa: F401
+from .algorithms import (ConvolvedFFTPower, FFTBase, FFTCorr,  # noqa: F401
+                         FFTPower, FKPCatalog, FKPCatalogMesh,
+                         FKPWeightFromNbar, ProjectedFFTPower,
+                         RedshiftHistogram, project_to_basis)
 from .base.catalog import CatalogSource  # noqa: F401
 from .base.mesh import Field, FieldMesh, MeshSource  # noqa: F401
 from .binned_statistic import BinnedStatistic  # noqa: F401
@@ -13,5 +16,7 @@ from .convert import (catalog_from_numpy, field_from_numpy,  # noqa: F401
 from .cosmology import LinearPower  # noqa: F401
 from .pmesh import ParticleMesh  # noqa: F401
 from .source.catalog import (ArrayCatalog, LogNormalCatalog,  # noqa: F401
-                             RandomCatalog, UniformCatalog)
-from .source.mesh import ArrayMesh, CatalogMesh, LinearMesh  # noqa: F401
+                             MultipleSpeciesCatalog, RandomCatalog,
+                             UniformCatalog)
+from .source.mesh import (ArrayMesh, CatalogMesh, LinearMesh,  # noqa: F401
+                          MultipleSpeciesCatalogMesh)

@@ -14,30 +14,16 @@ Poisson draw yields the occupied cells alone (the kernel's occupied-cells
 mode): no count mesh is made.
 """
 
-import contextlib
-
 import numpy as np
 import torch
 
 from .base.mesh import Field
 from .ops import threefry_cuda
 from .rng import key as make_key, split, uniform
+from .utils import stage
 
 # ky rows per step of the slab loops over a complex field
 _SLAB_ROWS = 64
-
-# A callable name -> context manager that is entered around each stage
-# of a lognormal mock's build (white noise, power, the c2r of delta,
-# lambda, Poisson, points, displacement, Zel'dovich update); None times
-# nothing. chip_smoke.py sets it to CUDA-event windows.
-stage_timer = None
-
-
-def stage(name):
-    """The context of stage ``name`` under :data:`stage_timer`."""
-    if stage_timer is None:
-        return contextlib.nullcontext()
-    return stage_timer(name)
 
 
 def _k_slabs(pm):

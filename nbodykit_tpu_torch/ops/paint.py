@@ -28,6 +28,9 @@ from .window import window_base, window_support, window_weights
 # cap on the one-hot Z expansion of one piece (bytes); it sizes the
 # mxu paint's pieces exactly as in the JAX package
 ZCHUNK_BYTES = 1 << 28
+# tile blocks per group of the fold (bytes): its temporaries are a few
+# times this, beside the mesh
+FOLD_CHUNK_BYTES = 1 << 30
 
 
 def _out_dtype(pos, mass, out):
@@ -201,34 +204,48 @@ def mxu_fold(blocks, plan, full):
     block: y tiles into stripes (interior columns by reshape, halo
     columns by a cb-shifted add, the periodic y images wrapped), the
     stripes into the x-padded mesh, then the x unpad (periodic images
-    folded when the block is the full mesh, dropped for slab blocks).
-    Every cell sums the same operands in the same order as the JAX
-    stripe scan."""
+    folded in place when the block is the full mesh, dropped for slab
+    blocks). Stripes are folded in groups of about FOLD_CHUNK_BYTES of
+    blocks, so the temporaries stay small beside the mesh. Every cell
+    sums the same operands in the same order as the JAX stripe scan
+    (a padded-mesh cell takes at most two stripe terms onto zero, so the
+    group order does not change it)."""
     s, rb, cb = plan['s'], plan['rb'], plan['cb']
     n0l, N1, N2, nty = plan['n0l'], plan['N1'], plan['N2'], plan['nty']
     T = plan['ntx'] + 1
     rbh, cbh = rb + s - 1, cb + s - 1
     P1 = nty * cb + s - 1
-    blocks = blocks.reshape(T, nty, rbh, cbh, N2).permute(0, 2, 1, 3, 4)
-    interior = blocks[:, :, :, :cb].reshape(T, rbh, nty * cb, N2)
-    halo = F.pad(blocks[:, :, :, cb:], (0, 0, 0, cb - (s - 1)))
-    halo = halo.reshape(T, rbh, nty * cb, N2)
-    slab = F.pad(interior, (0, 0, 0, s - 1))
-    slab = slab + F.pad(halo, (0, 0, cb, 0))[:, :, :P1]
-    slab = slab[:, :, :N1] + F.pad(slab[:, :, N1:], (0, 0, 0, 2 * N1 - P1))
+    blocks = blocks.reshape(T, nty, rbh, cbh, N2)
+    stripe_bytes = blocks[0].numel() * blocks.element_size()
+    group = max(1, FOLD_CHUNK_BYTES // max(1, stripe_bytes))
     # stripe t covers padded rows [t*rb, t*rb + rbh): its first rb rows
     # are its own, the last s-1 overlap the next stripe's first rows
-    mesh_pad = torch.zeros(((T + 1) * rb, N1, N2), dtype=slab.dtype,
-                           device=slab.device)
-    mesh_pad[:T * rb].view(T, rb, N1, N2).add_(slab[:, :rb])
-    mesh_pad[rb:].view(T, rb, N1, N2)[:, :s - 1].add_(slab[:, rb:])
+    mesh_pad = torch.zeros(((T + 1) * rb, N1, N2), dtype=blocks.dtype,
+                           device=blocks.device)
+    for t0 in range(0, T, group):
+        b = blocks[t0:t0 + group].permute(0, 2, 1, 3, 4)
+        g = b.shape[0]
+        interior = b[:, :, :, :cb].reshape(g, rbh, nty * cb, N2)
+        halo = F.pad(b[:, :, :, cb:], (0, 0, 0, cb - (s - 1)))
+        halo = halo.reshape(g, rbh, nty * cb, N2)
+        slab = F.pad(interior, (0, 0, 0, s - 1))
+        del interior
+        slab = slab + F.pad(halo, (0, 0, cb, 0))[:, :, :P1]
+        del halo
+        slab = slab[:, :, :N1] + F.pad(slab[:, :, N1:],
+                                       (0, 0, 0, 2 * N1 - P1))
+        mesh_pad[t0 * rb:(t0 + g) * rb].view(g, rb, N1, N2).add_(
+            slab[:, :rb])
+        mesh_pad[(t0 + 1) * rb:(t0 + g + 1) * rb].view(
+            g, rb, N1, N2)[:, :s - 1].add_(slab[:, rb:])
+        del slab
     mesh_pad = mesh_pad[:T * rb + s - 1]
     block = mesh_pad[rb:rb + n0l]
     if full:
-        head = mesh_pad[:rb]          # true rows [-rb, 0) -> wrap + n0l
-        block = block + F.pad(head, (0, 0, 0, 0, n0l - rb, 0))
-        tail = mesh_pad[rb + n0l:]    # true rows >= n0l -> wrap - n0l
-        block = block + F.pad(tail, (0, 0, 0, 0, 0, n0l - tail.shape[0]))
+        # true rows [-rb, 0) wrap to the end, rows >= n0l to the start
+        block[n0l - rb:].add_(mesh_pad[:rb])
+        tail = mesh_pad[rb + n0l:]
+        block[:tail.shape[0]].add_(tail)
     return block
 
 
@@ -270,6 +287,7 @@ def paint_local_mxu(pos, mass, shape, resampler='cic', period=None,
                             rb=plan['rb'], cb=plan['cb'], n0l=n0l,
                             p0=plan['p0'], N1=N1, N2=N2, origin=origin,
                             ck=plan['ck'])
+    del sx, sy, sz, sm
     block = mxu_fold(blocks, plan, full=(n0l == plan['p0']))
     if out is not None:
         block = out + block

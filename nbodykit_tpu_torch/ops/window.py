@@ -78,16 +78,15 @@ def compensation_transfer(resampler, interlaced):
     ``v`` by prod_i C(w_i), with ``w`` the circular frequencies
     k_i * BoxSize_i / Nmesh_i in [-pi, pi). Interlaced: the pure
     Jing-05 eq.18 sinc^p; otherwise the eq.20 first-order
-    aliasing-corrected forms (nnb always takes the plain sinc)."""
+    aliasing-corrected forms (nnb always takes the plain sinc).
+    ``transfer(w, v, inplace=True)`` divides ``v`` itself."""
     p = window_support(resampler)
     if resampler == 'nnb':
         interlaced = True
 
     if interlaced:
-        def transfer(w, v):
-            for i in range(3):
-                v = v / _sinc(0.5 * w[i]) ** p
-            return v
+        def C(wi):
+            return _sinc(0.5 * wi) ** p
     else:
         if resampler == 'cic':
             def C(wi):
@@ -102,9 +101,9 @@ def compensation_transfer(resampler, interlaced):
                 return (1.0 - 4.0 / 3.0 * s2 + 2.0 / 5.0 * s2 ** 2
                         - 4.0 / 315.0 * s2 ** 3) ** 0.5
 
-        def transfer(w, v):
-            for i in range(3):
-                v = v / C(w[i])
-            return v
+    def transfer(w, v, inplace=False):
+        for i in range(3):
+            v = v.div_(C(w[i])) if inplace else v / C(w[i])
+        return v
 
     return transfer

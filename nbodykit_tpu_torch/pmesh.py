@@ -22,6 +22,9 @@ from .ops.paint import paint_local, paint_local_mxu, readout_local
 from .ops.radix_cuda import raise_on_bad_digits
 from .utils import torch_dtype
 
+# elements of one slab of the slab-by-slab transform
+_SLAB_ELEMENTS = 1 << 25
+
 
 def _triplet(x, dtype):
     a = np.empty(3, dtype=dtype)
@@ -111,6 +114,41 @@ class ParticleMesh(object):
         c = torch.fft.rfftn(real, dim=(0, 1, 2))
         c.mul_(scale)
         return c.permute(1, 0, 2).contiguous()
+
+    def c2c(self, real):
+        """Full complex-to-complex forward FFT of a real (or complex)
+        field, forward-normalized (divides by Nmesh^3), in the
+        transposed (N1, N0, N2) layout (the JAX package's
+        ``dist_fftn_c2c`` times 1/Ntot)."""
+        return self.forward_slabs(lambda a, b: real[a:b], full=True).permute(
+            1, 0, 2).contiguous()
+
+    def forward_slabs(self, slab, full=False):
+        """The forward-normalized transform, in the natural (N0, N1, nz)
+        layout, of the real field whose rows [a, b) along axis 0 are
+        ``slab(a, b)``: the r2c half spectrum, or with ``full`` the c2c
+        spectrum. The field is never whole: each x-slab's 2-D transform
+        is written into the output, then the x-axis transform runs over
+        y-slabs of it in place, so the peak is the output and a slab.
+        ``permute(1, 0, 2)`` of the result is the transposed layout, as
+        a view."""
+        N0, N1, N2 = self.shape_real
+        nz = N2 if full else N2 // 2 + 1
+        out = torch.empty((N0, N1, nz), dtype=self.complex_dtype,
+                          device=self.device)
+        rows = max(1, _SLAB_ELEMENTS // (N1 * N2))
+        for a in range(0, N0, rows):
+            x = slab(a, min(a + rows, N0))
+            if full:
+                torch.fft.fft2(x.to(self.complex_dtype), dim=(1, 2),
+                               out=out[a:a + rows])
+            else:
+                torch.fft.rfft2(x, dim=(1, 2), out=out[a:a + rows])
+            del x
+        rows = max(1, _SLAB_ELEMENTS // (N0 * nz))
+        for b in range(0, N1, rows):
+            out[:, b:b + rows] = torch.fft.fft(out[:, b:b + rows], dim=0)
+        return out.mul_(1.0 / self.Ntot)
 
     def c2r(self, cplx):
         """Inverse of :meth:`r2c` (unnormalized inverse, since the

@@ -7,9 +7,24 @@ keeps the JAX package's format, so a result saved by either package
 loads in the other.
 """
 
+import contextlib
 import json
 
 import numpy as np
+
+# A callable name -> context manager entered around each named stage of
+# a long call (the lognormal mock's build in ``mockmaker`` and
+# ``LogNormalCatalog``; the paints, the multipole loop and the binning
+# of ``ConvolvedFFTPower``); None times nothing. chip_smoke.py sets it
+# to CUDA-event windows.
+stage_timer = None
+
+
+def stage(name):
+    """The context of stage ``name`` under :data:`stage_timer`."""
+    if stage_timer is None:
+        return contextlib.nullcontext()
+    return stage_timer(name)
 
 
 def working_dtype(dt='f8'):

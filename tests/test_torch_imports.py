@@ -54,7 +54,13 @@ def test_no_jax_import_in_source(path):
 def test_import_loads_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import nbodykit_tpu_torch, nbodykit_tpu_torch.lab, "
-            "nbodykit_tpu_torch._build, nbodykit_tpu_torch.convert; "
+            "nbodykit_tpu_torch._build, nbodykit_tpu_torch.convert, "
+            "nbodykit_tpu_torch.transform, "
+            "nbodykit_tpu_torch.algorithms.convpower, "
+            "nbodykit_tpu_torch.algorithms.fftcorr, "
+            "nbodykit_tpu_torch.algorithms.zhist, "
+            "nbodykit_tpu_torch.source.catalog.species, "
+            "nbodykit_tpu_torch.source.mesh.species; "
             "added = set(sys.modules) - before; "
             "bad = sorted(m for m in added if m == 'jax' or "
             "m.startswith('jax.') or m == 'nbodykit_tpu' or "
@@ -71,7 +77,7 @@ def test_entry_points_refuse_cpu_without_asking():
                                         LinearMesh, LogNormalCatalog,
                                         ParticleMesh, UniformCatalog,
                                         catalog_from_numpy)
-    from nbodykit_tpu_torch import rng
+    from nbodykit_tpu_torch import rng, transform
     from nbodykit_tpu_torch.ops.threefry_cuda import threefry_fill
     from nbodykit_tpu_torch.rng import DistributedRNG
     if torch.cuda.is_available():
@@ -91,13 +97,47 @@ def test_entry_points_refuse_cpu_without_asking():
                      lambda: rng.uniform(rng.key(1), (4,)),
                      lambda: rng.normal(rng.key(1), (4,)),
                      lambda: rng.poisson(rng.key(1), np.ones(4)),
-                     lambda: threefry_fill(rng.key(1), 0, 4, 'bits32')):
+                     lambda: threefry_fill(rng.key(1), 0, 4, 'bits32'),
+                     lambda: transform.StackColumns(np.zeros(3)),
+                     lambda: transform.ConstantArray(1.0, 3),
+                     lambda: transform.SkyToUnitSphere(np.zeros(3),
+                                                       np.zeros(3)),
+                     lambda: transform.CartesianToEquatorial(
+                         np.zeros((3, 3))),
+                     lambda: transform.VectorProjection(np.ones((3, 3)),
+                                                        [0, 0, 1])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
         # asking for the CPU, per call or by option, works
         assert ParticleMesh(8, 1.0, device='cpu').device.type == 'cpu'
     with set_options(device='cpu'):
         assert ParticleMesh(8, 1.0).device.type == 'cpu'
+
+
+def test_survey_entry_points_follow_their_catalogs():
+    """The survey classes run where their catalogs are, so a catalog
+    made without CUDA must have asked for the CPU; MultipleSpeciesCatalog
+    refuses species on different devices."""
+    from nbodykit_tpu_torch import set_options
+    from nbodykit_tpu_torch.lab import (ArrayCatalog, ConvolvedFFTPower,
+                                        FKPCatalog, MultipleSpeciesCatalog)
+    cols = {'Position': np.random.RandomState(0).uniform(0, 10, (50, 3)),
+            'NZ': np.full(50, 0.05)}
+    if not torch.cuda.is_available():
+        with set_options(device=None):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                FKPCatalog(ArrayCatalog(cols), ArrayCatalog(cols))
+    data = ArrayCatalog(cols, device='cpu')
+    fkp = FKPCatalog(data, ArrayCatalog(cols, device='cpu'))
+    assert fkp.device.type == 'cpu'
+    r = ConvolvedFFTPower(fkp.to_mesh(Nmesh=8), poles=[0], dk=0.2)
+    assert np.isfinite(r.poles['power_0'][r.poles['modes'] > 0]).all()
+
+    class Elsewhere(object):
+        device = torch.device('meta')
+        attrs = {}
+    with pytest.raises(ValueError, match='different devices'):
+        MultipleSpeciesCatalog(['a', 'b'], data, Elsewhere())
 
 
 def test_auto_options_resolve_by_device():

@@ -33,6 +33,7 @@ from nbodykit_tpu.source.mesh.linear import LinearMesh as JaxLinearMesh
 from nbodykit_tpu.utils import as_numpy
 from nbodykit_tpu_torch import cosmology as tcosmo
 from nbodykit_tpu_torch import mockmaker as tmock
+from nbodykit_tpu_torch import utils as tutils
 from nbodykit_tpu_torch import rng
 from nbodykit_tpu_torch.algorithms.fftpower import FFTPower
 from nbodykit_tpu_torch.pmesh import ParticleMesh
@@ -306,7 +307,7 @@ def test_poisson_sample_to_points_f8():
 
 
 def test_lognormal_stage_timer_wraps_each_stage(catalogs_f8, monkeypatch):
-    """With ``mockmaker.stage_timer`` set, a LogNormalCatalog build
+    """With ``utils.stage_timer`` set, a LogNormalCatalog build
     enters each of its stages once, in order, and builds the same
     catalog as without it."""
     seen = []
@@ -316,7 +317,7 @@ def test_lognormal_stage_timer_wraps_each_stage(catalogs_f8, monkeypatch):
         seen.append(name)
         yield
 
-    monkeypatch.setattr(tmock, 'stage_timer', timer)
+    monkeypatch.setattr(tutils, 'stage_timer', timer)
     _, ref = catalogs_f8
     cat = LogNormalCatalog(_plin(tcosmo), nbar=NBAR, BoxSize=BOX,
                            Nmesh=NMESH, bias=2.0, seed=SEED, dtype='f8')

@@ -147,3 +147,31 @@ def test_mxu_scatter_fallback_on_tiny_mesh():
     ref = jpaint.paint_local_mxu(jnp.asarray(pos), jnp.asarray(mass), shape,
                                  deposit='xla', **kw)
     _close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize('resampler,shape,period,origin',
+                         [('tsc', (24, 24, 24), (24, 24, 24), 0),
+                          ('pcs', (12, 20, 16), (30, 20, 16), 7)])
+def test_mxu_fold_in_stripe_groups_is_bit_identical(resampler, shape,
+                                                     period, origin,
+                                                     monkeypatch):
+    """The fold taken a few stripes at a time (as it is at 1024^3, where
+    the blocks are 13.5 GB) gives the one-group fold bit for bit, on
+    the full mesh and on a slab block."""
+    pos, mass = _catalog(3000, period, seed=8, weighted=True)
+    pos, mass = torch.as_tensor(pos), torch.as_tensor(mass)
+    plan = tpaint.mxu_plan(3000, shape, resampler, period, 8)
+    sx, sy, sz, sm, over = tpaint.mxu_payload(pos, mass, plan, resampler,
+                                              origin, 'argsort')
+    assert int(over) == 0
+    blocks = deposit_blocks_plain(
+        sx, sy, sz, sm, resampler=resampler, rb=plan['rb'], cb=plan['cb'],
+        n0l=shape[0], p0=period[0], N1=shape[1], N2=shape[2],
+        origin=origin, ck=plan['ck'])
+    full = shape[0] == period[0]
+    one = tpaint.mxu_fold(blocks, plan, full)
+    stripe = blocks[0].numel() * blocks.element_size()
+    for group in (1, 2, 5):
+        monkeypatch.setattr(tpaint, 'FOLD_CHUNK_BYTES', group * stripe)
+        got = tpaint.mxu_fold(blocks, plan, full)
+        assert torch.equal(got, one), group

@@ -49,6 +49,32 @@ def test_r2c_c2r_layout_and_values(dtype, rtol):
                                rtol=0, atol=rtol * np.abs(x).max())
 
 
+@pytest.mark.parametrize('dtype,rtol', [('f8', 1e-12), ('f4', 1e-5)])
+def test_c2c_and_slab_transforms_match_jax(dtype, rtol, monkeypatch):
+    """``c2c`` is the JAX package's ``dist_fftn_c2c`` times 1/Ntot in
+    the transposed (N1, N0, N2) layout; ``forward_slabs`` gives r2c's
+    spectrum in the natural layout, with slabs of one row and of
+    several."""
+    from nbodykit_tpu.parallel.dfft import dist_fftn_c2c
+    from nbodykit_tpu_torch import pmesh as tpmesh
+    jpm, tpm = _pms(dtype)
+    x = np.random.RandomState(1).normal(size=NMESH).astype(dtype)
+    cdt = jnp.complex128 if dtype == 'f8' else jnp.complex64
+    ref = as_numpy(dist_fftn_c2c(jnp.asarray(x).astype(cdt))
+                   * (1.0 / jpm.Ntot))
+    got = tpm.c2c(torch.as_tensor(x))
+    assert tuple(got.shape) == (12, 16, 10) == ref.shape
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=rtol * scale)
+    half = tpm.r2c(torch.as_tensor(x))
+    for rows in (1, 5, 10 ** 6):
+        monkeypatch.setattr(tpmesh, '_SLAB_ELEMENTS', rows * 12 * 10)
+        nat = tpm.forward_slabs(lambda a, b: torch.as_tensor(x)[a:b])
+        np.testing.assert_allclose(nat.permute(1, 0, 2).numpy(),
+                                   half.numpy(), rtol=0,
+                                   atol=rtol * scale)
+
+
 @pytest.mark.parametrize('dtype', ['f4', 'f8'])
 def test_coordinate_arrays_equal(dtype):
     jpm, tpm = _pms(dtype)

@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
-drives three paths through the user entry points:
+drives five paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
@@ -23,6 +23,13 @@ drives three paths through the user entry points:
   randoms UniformCatalogs (seeds 42, 84) at BoxSize 5000 with NZ = nbar,
   FKPCatalog(...).to_mesh(Nmesh=1024, resampler='tsc') in f8, then
   ConvolvedFFTPower(poles=[0, 2, 4], dk=0.005);
+- the FOF path, the repo's FOF benchmark flow (``benchmarks/test_fof.py``
+  at ``desi_like``): the lognormal path's catalog, FOF(linking_length=0.2,
+  nmin=20).to_halos(1e12, Planck15, 0.0) and the halo positions on the
+  host, then populate(Zheng07Model, seed=42) once;
+- the FFTRecon path: that catalog as data, ~1e8 uniform randoms (seed
+  84), FFTRecon(Nmesh=512, bias=2, f=0.77, R=15, scheme='LGS') and
+  FFTPower(mode='1d') of the reconstructed field;
 
 and LinearMesh at the same scale against its exact expectation. Every
 check is an ``assert`` or a raise, so any failure exits non-zero.
@@ -226,21 +233,24 @@ def kernel_device_ms(fn, names, reps=10):
     return out
 
 
-def time_rank(n, D=65, plain_reps=2):
+def time_rank(n, D=65, plain_reps=2, digits=None):
     """Rank pass times at the main path's shape (n particles, 2 LSD
-    passes of 65 digits at 512^3): the kernel alone (CUDA events around
-    the C call into preallocated outputs, the status words' clearing
-    included, and the kernel's device time from the profiler), the
-    wrapper (checks and allocation), the plain version and
-    ``torch.argsort``."""
+    passes of 65 digits at 512^3), on random digits or on ``digits``:
+    the kernel alone (CUDA events around the C call into preallocated
+    outputs, the status words' clearing included, and the kernel's
+    device time from the profiler), the wrapper (checks and
+    allocation), the plain version and ``torch.argsort``."""
     from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
                                                    pass_rank_hist_plain,
                                                    rank_pass_launch,
                                                    rank_plan)
-    gen = torch.Generator(device='cuda')
-    gen.manual_seed(11)
-    d = torch.randint(0, D, (n,), generator=gen, device='cuda',
-                      dtype=torch.int32)
+    if digits is None:
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(11)
+        d = torch.randint(0, D, (n,), generator=gen, device='cuda',
+                          dtype=torch.int32)
+    else:
+        d = digits.to(torch.int32).contiguous()
     rank = torch.empty_like(d)
     hist = torch.empty(D, dtype=torch.int32, device='cuda')
     plan = rank_plan(n, D)
@@ -414,13 +424,15 @@ def time_deposit(payload, geom, plan, err, plain=True):
 
 def launch_counters():
     from nbodykit_tpu_torch.ops import threefry_cuda as tf
+    from nbodykit_tpu_torch.ops.fof_cuda import fof_sweep_cuda
     from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_cuda
     from nbodykit_tpu_torch.ops.radix_cuda import pass_rank_hist_cuda
     return {'radix_rank': pass_rank_hist_cuda,
             'paint_deposit': deposit_blocks_cuda,
             'threefry_fill': tf.threefry_fill_cuda,
             'poisson_threefry': tf.poisson_threefry_cuda,
-            'poisson_cells': tf.poisson_cells_cuda}
+            'poisson_cells': tf.poisson_cells_cuda,
+            'fof_sweep': fof_sweep_cuda}
 
 
 @contextlib.contextmanager
@@ -1005,7 +1017,7 @@ def lognormal_path():
     # every kernel, the Poisson draw in its occupied-cells mode: the full
     # count mesh is not made on this path
     for k, v in launches.items():
-        assert v >= 1 or k == 'poisson_threefry', \
+        assert v >= 1 or k in ('poisson_threefry', 'fof_sweep'), \
             "%s was not launched on the lognormal path" % k
     assert launches['poisson_threefry'] == 0, launches
 
@@ -1327,6 +1339,281 @@ def other_fft_algorithms(cat, nmesh):
     assert np.isfinite(P[modes > 0]).all()
     assert abs(ratio - 1) < 0.02, ratio
 
+# the FOF path: benchmarks/test_fof.py at desi_like, on the lognormal
+# path's catalog; then the FFTRecon path on that catalog with 10x
+# uniform randoms (seed 84) at Nmesh 512
+FOF_LL, FOF_NMIN, FOF_MASS = 0.2, 20, 1e12
+RC_NMESH = 512
+
+
+def fof_algorithm(cat):
+    """The benchmark's Algorithm phase: FOF, its halos, and the halo
+    positions on the host."""
+    from nbodykit_tpu_torch.cosmology import Planck15
+    from nbodykit_tpu_torch.lab import FOF
+    fof = FOF(cat, linking_length=FOF_LL, nmin=FOF_NMIN)
+    halos = fof.to_halos(FOF_MASS, Planck15, 0.0)
+    return fof, halos, halos['Position'].cpu().numpy()
+
+
+def fof_path():
+    """The FOF benchmark flow at full width: Data (LogNormalCatalog) and
+    Algorithm (FOF, to_halos, positions to the host) once with every
+    kernel's launches counted and the peak memory of each; the gates;
+    then one warm-up and LN_REPS timed calls of each phase."""
+    with counted_launches() as data_launches:
+        torch.cuda.reset_peak_memory_stats()
+        cat = lognormal_catalog()
+        torch.cuda.synchronize()
+        peak_data = torch.cuda.max_memory_allocated()
+    with counted_launches() as alg_launches:
+        torch.cuda.reset_peak_memory_stats()
+        fof, halos, hpos = fof_algorithm(cat)
+        torch.cuda.synchronize()
+        peak_alg = torch.cuda.max_memory_allocated()
+    from nbodykit_tpu_torch.ops.radix import digit_plan
+    launches = {k: data_launches[k] + alg_launches[k] for k in alg_launches}
+    # the grid's LSD rank passes (4 at desi_like) and one sweep kernel per
+    # sweep; the algorithm paints nothing
+    ncell = int(np.floor(LN_BOX / fof._ll))
+    passes = digit_plan(ncell ** 3 + 1)[0]
+    assert alg_launches['radix_rank'] == passes, (alg_launches, passes)
+    assert alg_launches['fof_sweep'] == fof.sweeps >= 1, \
+        (alg_launches, fof.sweeps)
+    assert alg_launches['paint_deposit'] == 0, alg_launches
+
+    # the halo columns
+    N = len(cat)
+    feats = fof.find_features()
+    length = feats['Length']
+    lh = length[1:]
+    cm = feats['CMPosition'][1:]
+    assert int(length.sum()) == N
+    assert len(lh) == fof._halo_count == len(halos) >= 1
+    assert bool((lh[1:] <= lh[:-1]).all()) and int(lh.min()) >= FOF_NMIN
+    assert bool((cm >= 0).all()) and bool((cm < LN_BOX).all())
+    assert np.isfinite(hpos).all() and hpos.shape == (len(halos), 3)
+    assert torch.equal(halos['Mass'], lh.to(torch.float64) * FOF_MASS)
+    cat_gate = fof_catalog_gate(cat, fof, feats)
+    del feats
+
+    sweep = fof_sweep_checks(cat, fof)
+    from nbodykit_tpu_torch.hod import Zheng07Model
+    galaxies = len(halos.populate(Zheng07Model, seed=42))
+
+    def data():
+        return lognormal_catalog()
+
+    def algorithm():
+        return fof_algorithm(cat)
+    data()
+    t_data = spread(data, LN_REPS)[1]
+    algorithm()
+    t_alg = spread(algorithm, LN_REPS)[1]
+    emit({'phase': 'fof_1024', 'box': LN_BOX, 'N': N,
+          'linking_length_abs': fof._ll, 'nmin': FOF_NMIN,
+          'sweeps': fof.sweeps, 'halos': len(halos),
+          'largest_halo': int(lh[0]), 'smallest_halo': int(lh[-1]),
+          'in_halos': int(lh.sum()), 'galaxies_zheng07_seed42': galaxies,
+          'fof_catalog_vs_cpu': cat_gate,
+          'peak_gb_data': peak_data / 1e9,
+          'peak_gb_algorithm': peak_alg / 1e9,
+          'launches': launches, 'launches_algorithm': alg_launches,
+          'reps': LN_REPS, 'data_ms': t_data, 'algorithm_ms': t_alg})
+    return cat, launches, sweep
+
+
+def fof_catalog_gate(cat, fof, feats):
+    """fof_catalog on the card against the same function on CPU copies:
+    Length exactly; the halos' CMPosition (minimum image) and CMVelocity
+    to 1e-5 of the column's largest magnitude (CUDA's index_add_ sums in
+    another order than the CPU's). Label 0, the particles in no halo, is
+    left out of the centre-of-mass check: it spans the box, and its f32
+    sum of 1e7 offsets depends on the order."""
+    from nbodykit_tpu_torch.algorithms.fof import fof_catalog
+    from nbodykit_tpu_torch.source.catalog.array import ArrayCatalog
+    src = ArrayCatalog({'Position': cat['Position'].cpu(),
+                        'Velocity': cat['Velocity'].cpu()}, device='cpu')
+    ref = fof_catalog(src, fof.labels.cpu(), fof._halo_count + 1,
+                      fof.attrs['BoxSize'])
+    assert torch.equal(ref['Length'], feats['Length'].cpu())
+    d = (feats['CMPosition'][1:].cpu() - ref['CMPosition'][1:]).double()
+    d = torch.minimum(d.abs(), LN_BOX - d.abs())
+    pos_err = float(d.max())
+    vel_err = float((feats['CMVelocity'][1:].cpu()
+                     - ref['CMVelocity'][1:]).abs().max())
+    vmax = float(ref['CMVelocity'][1:].abs().max())
+    assert pos_err <= 1e-5 * LN_BOX, pos_err
+    assert vel_err <= 1e-5 * vmax, (vel_err, vmax)
+    return {'cm_position_max_abs': pos_err, 'cm_velocity_max_abs': vel_err,
+            'cm_velocity_max': vmax, 'tol_rel': 1e-5}
+
+
+def fof_sweep_checks(cat, fof):
+    """The sweep kernel against its plain version, bit for bit, on the
+    flow's 1e7 particles at the first sweep and at the fixpoint (where
+    a sweep changes nothing); the grid's radix order against argsort's
+    and the FOF labels of an argsort-ordered run; the kernel's time
+    beside its byte bound; the rank pass on the grid's first LSD digits
+    and the whole 4-pass key order against ``torch.argsort``."""
+    from nbodykit_tpu_torch.algorithms.fof import (_fof_labels,
+                                                   size_ordered_labels)
+    from nbodykit_tpu_torch.ops.devicehash import (DeviceGridHash,
+                                                   fof_fixpoint)
+    from nbodykit_tpu_torch.ops.fof_cuda import (fof_sweep_cuda,
+                                                 fof_sweep_plain,
+                                                 sweep_bytes)
+    from nbodykit_tpu_torch.ops.radix import digit_plan, stable_key_order
+    pos = cat['Position']
+    box, ll = fof.attrs['BoxSize'], fof._ll
+    grid = DeviceGridHash(pos, box, ll)
+    fix, sweeps, ci_s = fof_fixpoint(grid, ll)
+    assert sweeps == fof.sweeps, (sweeps, fof.sweeps)
+    n = pos.shape[0]
+    args = (grid.pos_s, ci_s, grid.flat_s, grid.valid_s)
+    geo = (grid.offsets, grid.ncell_np, grid.box_np, ll ** 2, True)
+    lab0 = torch.arange(n, dtype=torch.int32, device='cuda')
+    rec = {}
+    for name, lab in (('first_sweep', lab0), ('fixpoint', fix)):
+        k = fof_sweep_cuda(*args, lab, *geo)
+        p, plain_ms = timed(lambda: fof_sweep_plain(*args, lab, *geo))
+        diff = int((k != p).sum())
+        assert diff == 0, "%s: %d labels differ from the plain " \
+            "version" % (name, diff)
+        rec[name] = dict(
+            ms=cuda_ms(lambda: fof_sweep_cuda(*args, lab, *geo), reps=10),
+            plain_ms=plain_ms, changed=int((k != lab).sum()))
+    assert rec['fixpoint']['changed'] == 0
+    kmax = int(torch.unique_consecutive(grid.flat_s,
+                                        return_counts=True)[1].max())
+    b_ms, b_by = bound(sweep_bytes(n, pos.element_size(),
+                                   grid.flat_s.element_size()), 0, F32_FLOPS)
+
+    # the cell order: radix (the default on the card) against argsort
+    order_a = DeviceGridHash(pos, box, ll, order='argsort').order
+    assert torch.equal(order_a, grid.order)
+    labels_a, nh = size_ordered_labels(
+        _fof_labels(pos, box, ll, order='argsort'), FOF_NMIN)
+    assert torch.equal(labels_a, fof.labels) and nh == fof._halo_count
+    D = grid.ncells_tot + 1
+    passes, base = digit_plan(D)
+    keys = grid._flatten(grid.cell_of(pos)).contiguous()
+    rank = time_rank(n, base, plain_reps=1, digits=keys % base)
+    order_ms = cuda_ms(lambda: stable_key_order(keys, D), reps=5)
+    argsort_ms = cuda_ms(lambda: torch.argsort(keys, stable=True), reps=5)
+    out = dict(ms=rec['first_sweep']['ms'], plain_ms=rec['first_sweep']
+               ['plain_ms'], library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=0, at_fixpoint=rec['fixpoint'],
+               first_sweep_changed=rec['first_sweep']['changed'],
+               kmax=kmax, ncell=[int(c) for c in grid.ncell_np],
+               offsets=len(grid.offsets),
+               at='f32 n=%d, %d^3 cells, kmax %d' % (
+                   n, int(grid.ncell_np[0]), kmax))
+    emit({'phase': 'fof_kernels', 'sweep': out, 'sweeps': sweeps,
+          'radix_vs_argsort_labels': 'equal',
+          'key_order': {'alphabet': D, 'passes': passes, 'base': base,
+                        'radix_4_pass_ms': order_ms,
+                        'argsort_stable_ms': argsort_ms,
+                        'rank_pass_first_digit': rank}})
+    return out, rank
+
+
+def fof_stages(cat):
+    """LN_REPS runs of the FOF Algorithm with ``utils.stage_timer`` set:
+    the grid (keys, 4 rank passes, gathers), the sweeps to the fixpoint,
+    the size-ordered relabel, fof_catalog and to_halos."""
+    from nbodykit_tpu_torch import utils
+    times = StageTimes()
+    utils.stage_timer = times
+    try:
+        for _ in range(LN_REPS):
+            fof_algorithm(cat)
+    finally:
+        utils.stage_timer = None
+    summary = {k: {'median': float(np.median(v)), 'min': min(v),
+                   'max': max(v), 'windows': len(v)}
+               for k, v in times.ms.items()}
+    emit({'phase': 'fof_stages', 'reps': LN_REPS, 'ms': summary})
+
+
+def fftrecon_run(data, randoms):
+    """FFTRecon (LGS, bias 2, f 0.77, R 15) at RC_NMESH and FFTPower
+    (mode '1d') of the reconstructed field."""
+    from nbodykit_tpu_torch.lab import FFTPower, FFTRecon, FieldMesh
+    recon = FFTRecon(data, randoms, Nmesh=RC_NMESH, bias=2.0, f=0.77, R=15,
+                     scheme='LGS')
+    field = recon.compute()
+    return recon, field, FFTPower(FieldMesh(field), mode='1d')
+
+
+def fftrecon_path(data):
+    """The FFTRecon flow on the FOF path's catalog with ~1e8 uniform
+    randoms: once with launches counted and the peak memory; the gates
+    (mean of the field at 0, finite P(k), and the mxu paints against
+    the index_add_ paints, below); then one warm-up and LN_REPS timed
+    calls.
+
+    The paints are held to 1e-5 of the field's maximum at the run's own
+    displacements: the displacements of an index_add_-painted data
+    field within 1e-5 of their maximum, then the three paints of each
+    method on the same shifts. Two whole runs differ by more: the
+    shifted positions are f4 (as in the JAX package) at up to 5000
+    Mpc/h, where one ulp is 4.9e-4 Mpc/h (5e-5 of a 512^3 cell), so a
+    displacement that differs in its last bit moves a particle by a
+    whole position ulp; the whole-run difference is printed, not
+    gated."""
+    from nbodykit_tpu_torch import set_options
+    from nbodykit_tpu_torch.source.catalog import UniformCatalog
+    randoms = UniformCatalog(nbar=10 * LN_N / LN_BOX ** 3, BoxSize=LN_BOX,
+                             seed=84)
+    randoms['Position']
+    with counted_launches() as launches:
+        torch.cuda.reset_peak_memory_stats()
+        recon, field, p = fftrecon_run(data, randoms)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    # three paints (data, shifted randoms, shifted data), their buckets
+    # ordered by rank passes (two each at 512^3)
+    assert launches['paint_deposit'] == 3, launches
+    assert launches['radix_rank'] >= 3, launches
+    value = field.value
+    mean = float(value.double().mean())
+    fmax = float(value.abs().max())
+    assert abs(mean) <= 1e-4, "reconstructed field mean %r" % mean
+    s_d, s_r = recon._compute_s()
+    with set_options(paint_method='scatter'):
+        plain = fftrecon_run(data, randoms)[1].value
+        s_d2, s_r2 = recon._compute_s()
+        shifted = recon._helper_paint(s_d, s_r).value
+    whole_diff = float((plain - value).abs().max())
+    s_max = float(torch.maximum(s_d.abs().max(), s_r.abs().max()))
+    s_diff = float(torch.maximum((s_d - s_d2).abs().max(),
+                                 (s_r - s_r2).abs().max()))
+    del plain, s_d2, s_r2
+    assert s_diff <= 1e-5 * s_max, \
+        "displacements, mxu vs index_add_ data paint: %g > 1e-5 * %g" % (
+            s_diff, s_max)
+    mxu = recon._helper_paint(s_d, s_r).value
+    diff = float((shifted - mxu).abs().max())
+    del shifted, mxu, s_d, s_r
+    assert diff <= 1e-5 * fmax, \
+        "mxu vs index_add_ paints: %g > 1e-5 * %g" % (diff, fmax)
+    P, modes = p.power['power'].real, p.power['modes']
+    assert np.isfinite(P[modes > 0]).all()
+    del recon, field, value, p
+    torch.cuda.empty_cache()
+    fftrecon_run(data, randoms)
+    t = spread(lambda: fftrecon_run(data, randoms), LN_REPS)[1]
+    emit({'phase': 'fftrecon_512', 'nmesh': RC_NMESH, 'N_data': len(data),
+          'N_randoms': len(randoms), 'field_mean': mean, 'field_max': fmax,
+          'mxu_vs_scatter_paints_max_abs': diff,
+          'displacement_max_abs_diff': s_diff, 'displacement_max': s_max,
+          'whole_run_vs_scatter_max_abs': whole_diff,
+          'nbins_k': int(len(P)),
+          'peak_gb': peak / 1e9, 'launches': launches, 'reps': LN_REPS,
+          'ms': t})
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1395,11 +1682,20 @@ def main():
     del cp_mesh
     torch.cuda.empty_cache()
 
-    paths = ('main_512', 'lognormal_1024', 'convpower_1024')
+    fof_cat, fof_launches, (sweep_rec, fof_rank) = fof_path()
+    fof_stages(fof_cat)
+    profile_main_path(lambda: fof_algorithm(fof_cat), 'fof_1024')
+    rc_launches = fftrecon_path(fof_cat)
+    del fof_cat
+    torch.cuda.empty_cache()
+
+    paths = ('main_512', 'lognormal_1024', 'convpower_1024', 'fof_1024',
+             'fftrecon_512')
 
     def counted(name):
         by_path = dict(zip(paths, (launches[name], ln_launches[name],
-                                   cp_launches[name])))
+                                   cp_launches[name], fof_launches[name],
+                                   rc_launches[name])))
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -1420,7 +1716,7 @@ def main():
              source='nbodykit_tpu_torch/csrc/radix_rank.cu',
              replaces='nbodykit_tpu/ops/radix_pallas.py:30',
              **counted('radix_rank'), **rank_rec,
-             at_convpower_1024=cp_rank),
+             at_convpower_1024=cp_rank, at_fof_1024=fof_rank),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
              replaces='nbodykit_tpu/ops/paint_pallas.py:37',
@@ -1431,6 +1727,11 @@ def main():
         dict(name='poisson_threefry', route='cuda', source=rng_src,
              replaces=rng_replaces, **poisson_counted(),
              **pois_modes['occupied_cells'], modes=pois_modes),
+        dict(name='fof_sweep', route='cuda',
+             source='nbodykit_tpu_torch/csrc/fof_sweep.cu',
+             replaces='nbodykit_tpu/ops/devicehash.py:190 neighbor_min '
+                      '(XLA while_loop of gathers; no Pallas kernel)',
+             **counted('fof_sweep'), **sweep_rec),
     ]
     for kern in kernels:
         kern['share_of_bound'] = kern['bound_ms'] / kern['ms']

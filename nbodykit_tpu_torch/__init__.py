@@ -18,6 +18,8 @@ tensor and uses the kernel's plain PyTorch version only for a CPU
 tensor.
 """
 
+import logging
+import time
 from contextlib import contextmanager
 
 __version__ = "0.1.0"
@@ -122,3 +124,51 @@ def resolve_paint(device):
     return {'paint_method': method, 'paint_order': order,
             'paint_bucket_slack': _global_options['paint_bucket_slack'],
             'paint_chunk_size': _global_options['paint_chunk_size']}
+
+
+# ---------------------------------------------------------------------------
+# logging (the JAX package's ``setup_logging`` and ``timer``)
+# ---------------------------------------------------------------------------
+
+_logging_handler = None
+
+
+def setup_logging(log_level="info"):
+    """Send log records to stderr stamped with the wall-clock time
+    elapsed since this call, as ``[ elapsed ] level name: msg``."""
+    levels = {
+        "info": logging.INFO,
+        "debug": logging.DEBUG,
+        "warning": logging.WARNING,
+        "error": logging.ERROR,
+    }
+
+    logger = logging.getLogger()
+    t0 = time.time()
+
+    class Formatter(logging.Formatter):
+        def format(self, record):
+            s1 = ('[ %09.2f ] ' % (time.time() - t0))
+            return s1 + logging.Formatter.format(self, record)
+
+    fmt = Formatter(fmt='%(levelname)s %(name)s: %(message)s')
+
+    global _logging_handler
+    if _logging_handler is None:
+        _logging_handler = logging.StreamHandler()
+        logger.addHandler(_logging_handler)
+
+    _logging_handler.setFormatter(fmt)
+    logger.setLevel(levels[log_level])
+
+
+@contextmanager
+def timer(name, logger=None):
+    """Log the wall-clock time of the enclosed block as
+    ``"<name>: <seconds> s"`` (to ``logger``, else the ``timer``
+    logger). The time is the host's: work queued on a CUDA device is
+    counted only as far as the block waits for it."""
+    t0 = time.time()
+    yield
+    msg = "%s: %.3f s" % (name, time.time() - t0)
+    (logger or logging.getLogger('timer')).info(msg)

@@ -48,7 +48,17 @@ class Field(object):
 
     def apply(self, func, kind=None):
         """Apply ``func(coords, value) -> value`` now, with the
-        coordinate arrays implied by ``kind``."""
+        coordinate arrays implied by ``kind``. A :class:`MeshFilter`
+        brings its own kind, and a field in the other mode than the
+        filter's is transformed first (where the JAX package raises on
+        the mismatched coordinates)."""
+        if isinstance(func, MeshFilter):
+            if func.mode == 'complex' and self.kind == 'real':
+                return self.r2c().apply(func, kind)
+            if func.mode == 'real' and self.kind == 'complex':
+                return self.c2r().apply(func, kind)
+            if kind is None:
+                kind = func.kind
         if kind is None:
             kind = 'wavenumber' if self.kind == 'complex' else 'relative'
         coords = _coords_for(self.pm, self.kind, kind)
@@ -92,6 +102,22 @@ def _coords_for(pm, field_kind, coord_kind):
                      "(relative|index)" % coord_kind)
 
 
+class MeshFilter(object):
+    """Base class of named mesh filters: a subclass declares the
+    coordinate ``kind`` and field ``mode`` it works in and implements
+    ``filter(coords, value)``, so :meth:`MeshSource.apply` and
+    :meth:`Field.apply` need not be told them."""
+
+    kind = None
+    mode = None
+
+    def filter(self, coords, value):
+        raise NotImplementedError
+
+    def __call__(self, coords, value):
+        return self.filter(coords, value)
+
+
 class MeshSource(object):
     """Base class: a recipe for a 3-D field on one device. Subclasses
     implement ``to_real_field()`` or ``to_complex_field()``; users call
@@ -118,7 +144,11 @@ class MeshSource(object):
     def apply(self, func, kind='wavenumber', mode='complex'):
         """A *view* of this mesh with ``func(coords, value)`` appended to
         the action queue; it runs on the ``mode``-space field with
-        ``kind`` coordinates."""
+        ``kind`` coordinates. A :class:`MeshFilter` carries its own kind
+        and mode."""
+        if isinstance(func, MeshFilter):
+            kind = func.kind if func.kind is not None else kind
+            mode = func.mode if func.mode is not None else mode
         view = copy.copy(self)
         view.attrs = self.attrs.copy()
         view._actions = self._actions + [(mode, func, kind)]

@@ -38,6 +38,16 @@ def _invert_perm(dest):
     return order
 
 
+def digit_plan(D, radix=1024):
+    """(passes, base) of the LSD order of keys in [0, D): one pass of
+    base D when D <= ``radix``, else k = ceil(log_radix(D)) passes of
+    base ceil(D^(1/k))."""
+    if D <= radix:
+        return 1, int(D)
+    npasses = int(np.ceil(np.log(D) / np.log(radix)))
+    return npasses, int(np.ceil(D ** (1.0 / npasses)))
+
+
 def stable_key_order(key, D, radix=1024):
     """Permutation ``order`` (int64) with ``key[order]`` stably sorted,
     for keys in [0, D). One counting pass when D <= ``radix``, else
@@ -46,10 +56,9 @@ def stable_key_order(key, D, radix=1024):
     if n == 0:
         return torch.zeros(0, dtype=torch.int64, device=key.device)
     key = key.to(torch.int32)
-    if D <= radix:
+    npasses, R = digit_plan(D, radix)
+    if npasses == 1:
         return _invert_perm(stable_digit_dest(key, D))
-    npasses = int(np.ceil(np.log(D) / np.log(radix)))
-    R = int(np.ceil(D ** (1.0 / npasses)))
     order = None
     f = 1
     for _ in range(npasses):

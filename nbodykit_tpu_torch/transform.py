@@ -4,8 +4,7 @@
 Columns are tensors; a numpy or list input is moved to the device of
 the first tensor argument, else to the entry points' device (``cuda``
 unless the CPU is asked for). The sky conventions are the JAX
-package's. The ``Halo*`` transforms need ``source/catalog/halos.py``,
-which is not ported.
+package's.
 """
 
 import numpy as np
@@ -170,3 +169,29 @@ def VectorProjection(vector, direction):
         (direction ** 2).sum(dim=-1, keepdim=True))
     amp = (vector * direction).sum(dim=-1, keepdim=True)
     return amp * direction
+
+
+# halo properties, analytic (the JAX package's counterparts of the
+# reference's halotools transforms)
+
+def HaloRadius(mass, cosmo, redshift, mdef='vir'):
+    """Spherical-overdensity radius (Mpc/h) of halo masses (M_sun/h)."""
+    from .source.catalog.halos import as_column, halo_mass_definition
+    mass = _tensor(mass, _device(mass))
+    rho = as_column(halo_mass_definition(mdef, cosmo, redshift),
+                    mass.device)
+    return (3.0 * mass / (4 * np.pi * rho)) ** (1.0 / 3)
+
+
+def HaloConcentration(mass, cosmo, redshift, mdef='vir'):
+    """The Dutton & Maccio 2014 concentration-mass relation."""
+    from .source.catalog.halos import concentration
+    return concentration(_tensor(mass, _device(mass)), redshift)
+
+
+def HaloVelocityDispersion(mass, cosmo, redshift, mdef='vir'):
+    """Virial velocity dispersion in km/s: sigma^2 ~ G M / (2 R)."""
+    G = 4.302e-9  # Mpc (km/s)^2 / M_sun (with h's cancelling)
+    mass = _tensor(mass, _device(mass))
+    R = HaloRadius(mass, cosmo, redshift, mdef)
+    return torch.sqrt(G * mass / (2.0 * R))

@@ -59,6 +59,9 @@ def test_import_loads_no_jax():
             "nbodykit_tpu_torch.algorithms.convpower, "
             "nbodykit_tpu_torch.algorithms.fftcorr, "
             "nbodykit_tpu_torch.algorithms.zhist, "
+            "nbodykit_tpu_torch.algorithms.fof, "
+            "nbodykit_tpu_torch.algorithms.fftrecon, "
+            "nbodykit_tpu_torch.hod, nbodykit_tpu_torch.meshtools, "
             "nbodykit_tpu_torch.source.catalog.species, "
             "nbodykit_tpu_torch.source.mesh.species; "
             "added = set(sys.modules) - before; "
@@ -78,6 +81,8 @@ def test_entry_points_refuse_cpu_without_asking():
                                         ParticleMesh, UniformCatalog,
                                         catalog_from_numpy)
     from nbodykit_tpu_torch import rng, transform
+    from nbodykit_tpu_torch.algorithms.fof import _fof_labels
+    from nbodykit_tpu_torch.lab import FFTRecon, FOF
     from nbodykit_tpu_torch.ops.threefry_cuda import threefry_fill
     from nbodykit_tpu_torch.rng import DistributedRNG
     if torch.cuda.is_available():
@@ -105,7 +110,15 @@ def test_entry_points_refuse_cpu_without_asking():
                      lambda: transform.CartesianToEquatorial(
                          np.zeros((3, 3))),
                      lambda: transform.VectorProjection(np.ones((3, 3)),
-                                                        [0, 0, 1])):
+                                                        [0, 0, 1]),
+                     lambda: transform.HaloRadius(np.ones(3) * 1e12, None,
+                                                  0.0),
+                     lambda: FOF(ArrayCatalog({'Position': np.zeros((3, 3))},
+                                              BoxSize=1.0), 0.2, 2),
+                     lambda: _fof_labels(np.zeros((3, 3)), np.ones(3), 0.1),
+                     lambda: FFTRecon(UniformCatalog(1e-3, 100.0, seed=1),
+                                      UniformCatalog(1e-3, 100.0, seed=2),
+                                      Nmesh=8)):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
         # asking for the CPU, per call or by option, works
@@ -150,11 +163,78 @@ def test_auto_options_resolve_by_device():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
+    from nbodykit_tpu_torch.ops.fof_cuda import fof_sweep_cuda
     from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_cuda
     from nbodykit_tpu_torch.ops.radix_cuda import pass_rank_hist_cuda
+    n = 4
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        fof_sweep_cuda(torch.zeros((n, 3)), torch.zeros((n, 3),
+                                                         dtype=torch.int32),
+                       torch.zeros(n, dtype=torch.int32),
+                       torch.ones(n, dtype=torch.bool),
+                       torch.arange(n, dtype=torch.int32), [(0, 0, 0)],
+                       [1, 1, 1], [1.0, 1.0, 1.0], 0.01, True)
     with pytest.raises(ValueError):
         pass_rank_hist_cuda(torch.zeros(8, dtype=torch.int32), 4)
     z = torch.zeros((1, 1, 8))
     with pytest.raises(ValueError):
         deposit_blocks_cuda(z, z, z, z, resampler='cic', rb=2, cb=2, n0l=8,
                             p0=8, N1=8, N2=8, origin=0)
+
+
+def _port_module(name):
+    """The port's counterpart of JAX-package module ``name``, if any."""
+    import importlib.util
+    port = 'nbodykit_tpu_torch' + name[len('nbodykit_tpu'):]
+    try:
+        return importlib.util.find_spec(port) is not None
+    except ModuleNotFoundError:
+        return False
+
+
+def test_lab_exports_every_ported_name():
+    """Every name of the JAX package's ``lab`` whose module has a
+    counterpart in the port is exported by the port's ``lab``."""
+    import types
+    import nbodykit_tpu.lab as jlab
+    import nbodykit_tpu_torch.lab as tlab
+    missing, checked = [], 0
+    for name in dir(jlab):
+        if name.startswith('_'):
+            continue
+        obj = getattr(jlab, name)
+        module = obj.__name__ if isinstance(obj, types.ModuleType) \
+            else getattr(obj, '__module__', None)
+        if not module or not module.startswith('nbodykit_tpu'):
+            continue
+        if not _port_module(module):
+            continue
+        checked += 1
+        if not hasattr(tlab, name):
+            missing.append('%s (%s)' % (name, module))
+    assert not missing, "the port's lab lacks %s" % missing
+    for name in ('Planck15', 'FKPPower', 'FOF', 'HaloCatalog', 'FFTRecon',
+                 'TopHat', 'setup_logging', 'timer', 'meshtools'):
+        assert hasattr(tlab, name), name
+    assert checked >= 50, checked
+    assert tlab.FKPPower is tlab.ConvolvedFFTPower
+
+
+def test_lab_star_import_runs_the_benchmark_idiom():
+    ns = {}
+    exec("from nbodykit_tpu_torch.lab import *\n"
+         "plin = LinearPower(Planck15, 0.55, 'EisensteinHu')\n"
+         "names = (FKPPower, FOF, HaloCatalog, FFTRecon, TopHat)", ns)
+    assert float(ns['plin'](np.array([0.1]))[0]) > 0
+
+
+def test_timer_logs_its_block(caplog):
+    import logging
+    from nbodykit_tpu_torch import setup_logging, timer
+    setup_logging('info')
+    with caplog.at_level(logging.INFO, logger='timer'):
+        with timer('phase'):
+            pass
+    assert any(r.getMessage().startswith('phase: ') and
+               r.getMessage().endswith(' s') for r in caplog.records)
+    setup_logging('warning')

@@ -1,10 +1,12 @@
 """Launch geometry of the port's Hopper kernels, checked without a
 card: the deposit's tile, cluster and shared-memory plan
 (``ops/paint_cuda.deposit_plan``), the rank pass's chunk, CTA and
-scratch plan (``ops/radix_cuda.rank_plan``) and the Poisson draw's
-tiles, alignment shift, scratch and list capacity
-(``ops/threefry_cuda.poisson_plan``, ``cell_capacity``), against the
-limits of the H100 and the constants compiled into ``csrc/*.cu``."""
+scratch plan (``ops/radix_cuda.rank_plan``) and the LSD digits of the
+keys it orders (``ops/radix.digit_plan``), the Poisson draw's tiles,
+alignment shift, scratch and list capacity
+(``ops/threefry_cuda.poisson_plan``, ``cell_capacity``) and the FOF
+sweep's byte count (``ops/fof_cuda.sweep_bytes``), against the limits
+of the H100 and the constants compiled into ``csrc/*.cu``."""
 
 import os
 import re
@@ -12,7 +14,7 @@ import re
 import pytest
 
 from nbodykit_tpu_torch import kernel_variants
-from nbodykit_tpu_torch.ops import paint_cuda, radix_cuda
+from nbodykit_tpu_torch.ops import fof_cuda, paint_cuda, radix, radix_cuda
 from nbodykit_tpu_torch.ops import threefry_cuda
 from nbodykit_tpu_torch.ops.paint import mxu_plan
 from nbodykit_tpu_torch.ops.window import RESAMPLERS
@@ -128,6 +130,29 @@ def test_plans_match_the_kernel_sources():
     for name in ('SCR_ITERS', 'SCR_OVERFLOW', 'SCR_HASHES', 'SCR_TOTAL',
                  'SCR_OCCUPIED', 'SCR_ZEROS', 'SCR_TICKET'):
         assert _define('threefry.cu', name) == getattr(threefry_cuda, name)
+    assert _define('fof_sweep.cu', 'MAX_OFFSETS') == fof_cuda.MAX_OFFSETS
+
+
+# (alphabet, passes, base): the 512^3 and 1024^3 paint buckets, the
+# convpower paint (16513), the FOF grid at desi_like (1077^3 cells and
+# the sentinel), and the edges of one and two passes
+DIGITS = [(1, 1, 1), (1024, 1, 1024), (1025, 2, 33), (16513, 2, 129),
+          (1077 ** 3 + 1, 4, 189), (2 ** 31 - 1, 4, 216)]
+
+
+@pytest.mark.parametrize('D,passes,base', DIGITS)
+def test_digit_plan(D, passes, base):
+    assert radix.digit_plan(D) == (passes, base)
+    assert base ** passes >= D and base <= radix_cuda.MAX_DIGITS
+    if passes > 1:
+        assert (base - 1) ** passes < D
+
+
+@pytest.mark.parametrize('n', [1, 10002365])
+def test_sweep_bytes(n):
+    # f4 positions with int32 ids: 37 bytes a query; f8 with int64: 53
+    assert fof_cuda.sweep_bytes(n, 4, 4) == 37 * n
+    assert fof_cuda.sweep_bytes(n, 8, 8) == 53 * n
 
 
 POISSON_N = [1, 3, 16383, 16384, 16385, 2 ** 20 + 3, 1024 ** 3]

@@ -1,6 +1,7 @@
-"""The survey column transforms and RedshiftHistogram through the PyTorch
-port and the JAX package on the same numpy columns, to 1e-10 relative
-(f8) and 1e-5 (f4 columns)."""
+"""The survey column transforms, the halo property transforms and
+RedshiftHistogram through the PyTorch port and the JAX package on the
+same numpy columns, to 1e-10 relative (f8; 1e-12 for the halo
+properties) and 1e-5 (f4 columns)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -148,3 +149,19 @@ def test_redshift_histogram_matches_jax(bins):
     assert scotts_bin_width(z) == pytest.approx(
         3.5 * z.std() / len(z) ** (1 / 3.))
     assert scotts_bin_width(np.ones(5)) == 0.1
+
+
+@pytest.mark.parametrize('mdef', ['vir', '200m', '500c'])
+@pytest.mark.parametrize('redshift', [0.0, 0.7, 'per-object'])
+def test_halo_transforms_match_jax(mdef, redshift):
+    rng = np.random.RandomState(4)
+    mass = 10 ** rng.uniform(11, 15, 300)
+    if redshift == 'per-object':
+        redshift = rng.uniform(0, 2, 300)
+    for name in ('HaloRadius', 'HaloConcentration',
+                 'HaloVelocityDispersion'):
+        got = getattr(tt, name)(torch.as_tensor(mass), tcosmo.Planck15,
+                                redshift, mdef=mdef)
+        assert got.device.type == 'cpu' and got.dtype == torch.float64
+        _close(got, getattr(jt, name)(mass, jcosmo.Planck15, redshift,
+                                      mdef=mdef), 1e-12)

@@ -423,8 +423,8 @@ def time_deposit(payload, geom, plan, err, plain=True):
 
 
 def launch_counters():
+    from nbodykit_tpu_torch.ops import fof_cuda as fc
     from nbodykit_tpu_torch.ops import threefry_cuda as tf
-    from nbodykit_tpu_torch.ops.fof_cuda import fof_sweep_cuda
     from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_cuda
     from nbodykit_tpu_torch.ops.radix_cuda import pass_rank_hist_cuda
     return {'radix_rank': pass_rank_hist_cuda,
@@ -432,13 +432,22 @@ def launch_counters():
             'threefry_fill': tf.threefry_fill_cuda,
             'poisson_threefry': tf.poisson_threefry_cuda,
             'poisson_cells': tf.poisson_cells_cuda,
-            'fof_sweep': fof_sweep_cuda}
+            'fof_sweep_search': fc.fof_sweep_cuda,
+            'fof_sweep_links': fc.fof_links_sweep_cuda,
+            'fof_link_count': fc.fof_link_count_cuda,
+            'fof_link_fill': fc.fof_link_fill_cuda}
+
+
+# the FOF's kernels: no other path launches them
+FOF_KERNELS = ('fof_sweep', 'fof_sweep_search', 'fof_sweep_links',
+               'fof_link_count', 'fof_link_fill')
 
 
 @contextlib.contextmanager
 def counted_launches():
     """Every kernel's launch count set to 0 on entry; the dict yielded
-    holds the counts on exit, after a synchronize."""
+    holds the counts on exit, after a synchronize, and ``fof_sweep``,
+    the sweep kernel's launches in either mode."""
     counters = launch_counters()
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -447,6 +456,7 @@ def counted_launches():
     yield out
     torch.cuda.synchronize()
     out.update({k: fn.launches for k, fn in counters.items()})
+    out['fof_sweep'] = out['fof_sweep_search'] + out['fof_sweep_links']
 
 
 def main_path(cat, nmesh):
@@ -1017,7 +1027,7 @@ def lognormal_path():
     # every kernel, the Poisson draw in its occupied-cells mode: the full
     # count mesh is not made on this path
     for k, v in launches.items():
-        assert v >= 1 or k in ('poisson_threefry', 'fof_sweep'), \
+        assert v >= 1 or k == 'poisson_threefry' or k in FOF_KERNELS, \
             "%s was not launched on the lognormal path" % k
     assert launches['poisson_threefry'] == 0, launches
 
@@ -1380,6 +1390,11 @@ def fof_path():
     assert alg_launches['radix_rank'] == passes, (alg_launches, passes)
     assert alg_launches['fof_sweep'] == fof.sweeps >= 1, \
         (alg_launches, fof.sweeps)
+    # the flow's list fits: links mode, one link count and one fill
+    assert fof.sweep_mode == 'links', (fof.sweep_mode, fof.links)
+    assert alg_launches['fof_sweep_links'] == fof.sweeps, alg_launches
+    assert alg_launches['fof_link_count'] == 1, alg_launches
+    assert alg_launches['fof_link_fill'] == 1, alg_launches
     assert alg_launches['paint_deposit'] == 0, alg_launches
 
     # the halo columns
@@ -1412,7 +1427,8 @@ def fof_path():
     t_alg = spread(algorithm, LN_REPS)[1]
     emit({'phase': 'fof_1024', 'box': LN_BOX, 'N': N,
           'linking_length_abs': fof._ll, 'nmin': FOF_NMIN,
-          'sweeps': fof.sweeps, 'halos': len(halos),
+          'sweeps': fof.sweeps, 'sweep_mode': fof.sweep_mode,
+          'links': fof.links, 'halos': len(halos),
           'largest_halo': int(lh[0]), 'smallest_halo': int(lh[-1]),
           'in_halos': int(lh.sum()), 'galaxies_zheng07_seed42': galaxies,
           'fof_catalog_vs_cpu': cat_gate,
@@ -1449,47 +1465,208 @@ def fof_catalog_gate(cat, fof, feats):
             'cm_velocity_max': vmax, 'tol_rel': 1e-5}
 
 
+def fof_mode_checks(label, pos, box, ll):
+    """Both sweep modes on one catalog's grid: the link count and fill
+    kernels against their plain versions; each mode's fixpoint (the
+    search sweep kernel, or the links sweep kernel over the list, to no
+    change) giving the labels and sweeps of ``fof_fixpoint`` (which must
+    take the links mode) and the roots of an argsort-ordered run; the
+    search and links sweep kernels against ``fof_sweep_plain`` at the
+    first sweep and at the fixpoint, all bit for bit. Times: each kernel
+    (CUDA events), its plain version (one call), each mode's fixpoint
+    (events, and its kernels' device time from the profiler), beside the
+    byte bounds. Returns {mode or kernel: record}."""
+    from nbodykit_tpu_torch.ops import fof_cuda as fc
+    from nbodykit_tpu_torch.ops import devicehash as dh
+    from nbodykit_tpu_torch.ops.devicehash import (DeviceGridHash,
+                                                   fof_fixpoint,
+                                                   local_fof_labels,
+                                                   roots_in_slot_order,
+                                                   sweep_to_fixpoint)
+    t0 = time.perf_counter()
+    n = pos.shape[0]
+    grid = DeviceGridHash(pos, box, ll)
+    cols = grid.columns()
+    ci_s = grid.cell_of(grid.pos_s).contiguous()
+    args = (grid.pos_s, ci_s, grid.flat_s, grid.valid_s)
+    geo = grid.geometry(ll ** 2)
+    pb, kb = pos.element_size(), grid.flat_s.element_size()
+
+    # the link kernels against the plain link list
+    counts = fc.fof_link_count_cuda(*args, cols, *geo)
+    pc, count_plain_ms = timed(lambda: fc.fof_link_count_plain(*args, *geo))
+    nd = int((counts != pc).sum())
+    assert nd == 0, "%s: %d link counts differ" % (label, nd)
+    row = torch.zeros(n + 1, dtype=torch.int64, device='cuda')
+    torch.cumsum(counts, 0, out=row[1:])
+    E = int(row[-1])
+    links = fc.fof_link_fill_cuda(*args, cols, row, *geo, nlinks=E)
+    pl, fill_plain_ms = timed(lambda: fc.fof_link_fill_plain(*args, row,
+                                                             *geo))
+    assert torch.equal(links, pl), "%s: the link lists differ" % label
+    del pc, pl
+
+    # each mode's fixpoint on its sweep kernel
+    def links_mode():
+        return sweep_to_fixpoint(
+            lambda lab: fc.fof_links_sweep_cuda(row, links, lab), n,
+            pos.device)
+
+    def search_mode():
+        return sweep_to_fixpoint(
+            lambda lab: fc.fof_sweep_cuda(*args, lab, *geo, cols=cols), n,
+            pos.device)
+    st = {}
+    fixlab, sweeps, _ = fof_fixpoint(grid, ll, stats=st)
+    assert st == {'sweep_mode': 'links', 'links': E}, (label, st, E)
+    roots = local_fof_labels(pos, None, box, ll, order='argsort')
+    assert torch.equal(local_fof_labels(pos, None, box, ll), roots), label
+    for mode, run in (('links', links_mode), ('search', search_mode)):
+        lab, got = run()
+        assert torch.equal(lab, fixlab) and got == sweeps, (label, mode,
+                                                            got, sweeps)
+        assert torch.equal(roots_in_slot_order(grid, lab), roots), \
+            (label, mode)
+    del roots
+
+    count_ms = cuda_ms(lambda: fc.fof_link_count_cuda(*args, cols, *geo),
+                       reps=5)
+    fill_ms = cuda_ms(lambda: fc.fof_link_fill_cuda(*args, cols, row, *geo,
+                                                    nlinks=E), reps=5)
+
+    # the sweeps of both modes against the plain sweep
+    lab0 = torch.arange(n, dtype=torch.int32, device='cuda')
+    at = {}
+    for name, lab in (('first_sweep', lab0), ('fixpoint', fixlab)):
+        p, plain_ms = timed(lambda: fc.fof_sweep_plain(*args, lab, *geo))
+        s = fc.fof_sweep_cuda(*args, lab, *geo, cols=cols)
+        c = fc.fof_links_sweep_cuda(row, links, lab)
+        pcsr, csr_plain_ms = timed(
+            lambda: fc.fof_links_sweep_plain(row, links, lab))
+        for mode, got in (('search', s), ('links', c), ('links_plain',
+                                                        pcsr)):
+            nd = int((got != p).sum())
+            assert nd == 0, "%s %s %s: %d labels differ from the plain " \
+                "sweep" % (label, name, mode, nd)
+        at[name] = dict(
+            search_ms=cuda_ms(lambda: fc.fof_sweep_cuda(*args, lab, *geo,
+                                                        cols=cols), reps=5),
+            links_ms=cuda_ms(lambda: fc.fof_links_sweep_cuda(row, links,
+                                                             lab), reps=20),
+            plain_ms=plain_ms, links_plain_ms=csr_plain_ms,
+            changed=int((p != lab).sum()))
+    assert at['fixpoint']['changed'] == 0 < at['first_sweep']['changed']
+    kmax = int(torch.unique_consecutive(grid.flat_s,
+                                        return_counts=True)[1].max())
+
+    def rec(ms, plain_ms, nbytes, **extra):
+        b_ms, b_by = bound(nbytes, 0, F32_FLOPS)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                    bound_by=b_by, max_abs_err=0, share_of_bound=b_ms / ms,
+                    **extra)
+    where = '%s f%d n=%d, %s cells, kmax %d, E=%d' % (
+        label, 8 * pb, n, 'x'.join(str(int(c)) for c in grid.ncell_np),
+        kmax, E)
+    out = {
+        'fof_link_count': rec(count_ms, count_plain_ms,
+                              fc.link_count_bytes(n, pb, kb, grid.ncell_np),
+                              at=where),
+        'fof_link_fill': rec(fill_ms, fill_plain_ms,
+                             fc.link_fill_bytes(n, E, pb, kb, grid.ncell_np),
+                             at=where),
+        'links': rec(at['first_sweep']['links_ms'],
+                     at['first_sweep']['links_plain_ms'],
+                     fc.links_sweep_bytes(n, E),
+                     at_fixpoint_ms=at['fixpoint']['links_ms'],
+                     sweep_plain_ms=at['first_sweep']['plain_ms'],
+                     at=where + ', CSR min'),
+        'search': rec(at['first_sweep']['search_ms'],
+                      at['first_sweep']['plain_ms'],
+                      fc.sweep_bytes(n, pb, kb)
+                      + fc.column_bytes(grid.ncell_np),
+                      at_fixpoint_ms=at['fixpoint']['search_ms'],
+                      at=where + ', column search'),
+    }
+    # each mode's whole fixpoint against n (29 + 8 S) bytes
+    fb_ms, _ = bound(fc.fixpoint_bytes(n, sweeps, pb, kb), 0, F32_FLOPS)
+    names = ('fof_search_kernel', 'fof_link_count_kernel',
+             'fof_link_fill_kernel', 'fof_links_sweep_kernel')
+    fixpoint = {}
+    # links: fof_fixpoint as the FOF runs it, the count and fill included
+    for mode, run in (('links', lambda: fof_fixpoint(grid, ll)),
+                      ('search', search_mode)):
+        wall = cuda_ms(run, reps=3)
+        dev = kernel_device_ms(run, names, reps=3)
+        kern = sum(dev.values())
+        fixpoint[mode] = dict(ms=wall, kernels_ms=kern,
+                              kernels_device_ms=dev, bound_ms=fb_ms,
+                              share_of_bound=fb_ms / kern if kern else None)
+    # the mode rule's host cost: fits() as the fixpoint calls it, the
+    # cudaMemGetInfo it makes, and the allocator statistics it reads when
+    # the card's free memory falls short
+    need = 4 * E + dh.FIXPOINT_LABEL_BYTES * n
+    free = torch.cuda.mem_get_info(pos.device)[0]
+
+    def host_us(fn, reps=50):
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e6
+    mode_rule = dict(need_bytes=need, card_free_bytes=free,
+                     reads_allocator_stats=need > free,
+                     fits_us=host_us(lambda: dh.fits(need, pos.device)),
+                     mem_get_info_us=host_us(
+                         lambda: torch.cuda.mem_get_info(pos.device)),
+                     memory_stats_us=host_us(
+                         lambda: torch.cuda.memory_stats(pos.device)))
+    # the statistics branch: one byte past the card's free memory fits
+    # while torch holds an unused block
+    cached = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    assert dh.fits(free + 1, pos.device) == (cached >= 1), (free, cached)
+    summary = dict(
+        n=n, ncell=[int(c) for c in grid.ncell_np], kmax=kmax, links=E,
+        mode_rule=mode_rule,
+        links_per_particle=E / n, sweeps=sweeps,
+        first_sweep_changed=at['first_sweep']['changed'],
+        column_table_entries=int(cols.numel()),
+        fixpoint_bound_bytes=fc.fixpoint_bytes(n, sweeps, pb, kb),
+        fixpoint=fixpoint,
+        kernels={k: {kk: v[kk] for kk in ('ms', 'plain_ms', 'bound_ms',
+                                          'share_of_bound')}
+                 for k, v in out.items()})
+    emit({'phase': 'fof_modes', 'case': label, **summary,
+          'check_s': time.perf_counter() - t0})
+    out['summary'] = summary
+    return out
+
+
 def fof_sweep_checks(cat, fof):
-    """The sweep kernel against its plain version, bit for bit, on the
-    flow's 1e7 particles at the first sweep and at the fixpoint (where
-    a sweep changes nothing); the grid's radix order against argsort's
-    and the FOF labels of an argsort-ordered run; the kernel's time
-    beside its byte bound; the rank pass on the grid's first LSD digits
-    and the whole 4-pass key order against ``torch.argsort``."""
+    """The FOF kernels on the flow's 1e7 particles and on a clustered
+    2e6 (``fof_mode_checks``), the flow's mode checks against the FOF
+    run (its sweeps); the grid's radix order against argsort's and the
+    FOF labels of an argsort-ordered run; the rank pass on the grid's
+    first LSD digits and the whole 4-pass key order against
+    ``torch.argsort``. Returns ({kernel: record}, rank record)."""
     from nbodykit_tpu_torch.algorithms.fof import (_fof_labels,
                                                    size_ordered_labels)
-    from nbodykit_tpu_torch.ops.devicehash import (DeviceGridHash,
-                                                   fof_fixpoint)
-    from nbodykit_tpu_torch.ops.fof_cuda import (fof_sweep_cuda,
-                                                 fof_sweep_plain,
-                                                 sweep_bytes)
+    from nbodykit_tpu_torch.kernel_variants import clustered_catalog
+    from nbodykit_tpu_torch.ops.devicehash import DeviceGridHash
     from nbodykit_tpu_torch.ops.radix import digit_plan, stable_key_order
     pos = cat['Position']
     box, ll = fof.attrs['BoxSize'], fof._ll
-    grid = DeviceGridHash(pos, box, ll)
-    fix, sweeps, ci_s = fof_fixpoint(grid, ll)
-    assert sweeps == fof.sweeps, (sweeps, fof.sweeps)
-    n = pos.shape[0]
-    args = (grid.pos_s, ci_s, grid.flat_s, grid.valid_s)
-    geo = (grid.offsets, grid.ncell_np, grid.box_np, ll ** 2, True)
-    lab0 = torch.arange(n, dtype=torch.int32, device='cuda')
-    rec = {}
-    for name, lab in (('first_sweep', lab0), ('fixpoint', fix)):
-        k = fof_sweep_cuda(*args, lab, *geo)
-        p, plain_ms = timed(lambda: fof_sweep_plain(*args, lab, *geo))
-        diff = int((k != p).sum())
-        assert diff == 0, "%s: %d labels differ from the plain " \
-            "version" % (name, diff)
-        rec[name] = dict(
-            ms=cuda_ms(lambda: fof_sweep_cuda(*args, lab, *geo), reps=10),
-            plain_ms=plain_ms, changed=int((k != lab).sum()))
-    assert rec['fixpoint']['changed'] == 0
-    kmax = int(torch.unique_consecutive(grid.flat_s,
-                                        return_counts=True)[1].max())
-    b_ms, b_by = bound(sweep_bytes(n, pos.element_size(),
-                                   grid.flat_s.element_size()), 0, F32_FLOPS)
+    flow = fof_mode_checks('fof_1024', pos, box, ll)
+    assert flow['summary']['sweeps'] == fof.sweeps, \
+        (flow['summary']['sweeps'], fof.sweeps)
+    assert flow['summary']['links'] == fof.links
+    cpos, cll = clustered_catalog()
+    clustered = fof_mode_checks('clustered_2e6', cpos, np.full(3, 1000.0),
+                                cll)
+    del cpos
+    torch.cuda.empty_cache()
 
     # the cell order: radix (the default on the card) against argsort
+    grid = DeviceGridHash(pos, box, ll)
+    n = pos.shape[0]
     order_a = DeviceGridHash(pos, box, ll, order='argsort').order
     assert torch.equal(order_a, grid.order)
     labels_a, nh = size_ordered_labels(
@@ -1501,21 +1678,30 @@ def fof_sweep_checks(cat, fof):
     rank = time_rank(n, base, plain_reps=1, digits=keys % base)
     order_ms = cuda_ms(lambda: stable_key_order(keys, D), reps=5)
     argsort_ms = cuda_ms(lambda: torch.argsort(keys, stable=True), reps=5)
-    out = dict(ms=rec['first_sweep']['ms'], plain_ms=rec['first_sweep']
-               ['plain_ms'], library_ms=None, bound_ms=b_ms, bound_by=b_by,
-               max_abs_err=0, at_fixpoint=rec['fixpoint'],
-               first_sweep_changed=rec['first_sweep']['changed'],
-               kmax=kmax, ncell=[int(c) for c in grid.ncell_np],
-               offsets=len(grid.offsets),
-               at='f32 n=%d, %d^3 cells, kmax %d' % (
-                   n, int(grid.ncell_np[0]), kmax))
-    emit({'phase': 'fof_kernels', 'sweep': out, 'sweeps': sweeps,
+    at_clustered = {k: clustered[k] for k in ('fof_link_count',
+                                              'fof_link_fill')}
+    modes = {m: dict(flow[m], at_clustered_2e6=clustered[m])
+             for m in ('links', 'search')}
+    recs = {
+        # the flow takes the links mode: its row is that mode's sweep
+        'fof_sweep': dict(flow['links'], modes=modes,
+                          fixpoint=flow['summary']['fixpoint'],
+                          fixpoint_clustered_2e6=clustered['summary']
+                          ['fixpoint']),
+        'fof_link_count': dict(flow['fof_link_count'],
+                               at_clustered_2e6=at_clustered
+                               ['fof_link_count']),
+        'fof_link_fill': dict(flow['fof_link_fill'],
+                              at_clustered_2e6=at_clustered['fof_link_fill']),
+    }
+    emit({'phase': 'fof_kernels', 'sweeps': fof.sweeps,
+          'sweep_mode': fof.sweep_mode, 'links': fof.links,
           'radix_vs_argsort_labels': 'equal',
           'key_order': {'alphabet': D, 'passes': passes, 'base': base,
                         'radix_4_pass_ms': order_ms,
                         'argsort_stable_ms': argsort_ms,
                         'rank_pass_first_digit': rank}})
-    return out, rank
+    return recs, rank
 
 
 def fof_stages(cat):
@@ -1682,7 +1868,7 @@ def main():
     del cp_mesh
     torch.cuda.empty_cache()
 
-    fof_cat, fof_launches, (sweep_rec, fof_rank) = fof_path()
+    fof_cat, fof_launches, (fof_recs, fof_rank) = fof_path()
     fof_stages(fof_cat)
     profile_main_path(lambda: fof_algorithm(fof_cat), 'fof_1024')
     rc_launches = fftrecon_path(fof_cat)
@@ -1709,6 +1895,16 @@ def main():
                                      for m in modes.values())
                               for p in paths},
             launches_by_mode={k: m['launches'] for k, m in modes.items()})
+    def fof_sweep_counted():
+        # one row, two modes: the links mode on the FOF path
+        by_mode = {'links': counted('fof_sweep_links'),
+                   'search': counted('fof_sweep_search')}
+        return dict(counted('fof_sweep'),
+                    launches_by_mode={k: m['launches']
+                                      for k, m in by_mode.items()})
+    fof_src = 'nbodykit_tpu_torch/csrc/fof_sweep.cu'
+    fof_replaces = ('nbodykit_tpu/ops/devicehash.py:190 neighbor_min (XLA '
+                    'while_loop of gathers; no Pallas kernel)')
     rng_src = 'nbodykit_tpu_torch/csrc/threefry.cu'
     rng_replaces = 'jax.random threefry2x32 / poisson (XLA; no Pallas kernel)'
     kernels = [
@@ -1727,11 +1923,15 @@ def main():
         dict(name='poisson_threefry', route='cuda', source=rng_src,
              replaces=rng_replaces, **poisson_counted(),
              **pois_modes['occupied_cells'], modes=pois_modes),
-        dict(name='fof_sweep', route='cuda',
-             source='nbodykit_tpu_torch/csrc/fof_sweep.cu',
-             replaces='nbodykit_tpu/ops/devicehash.py:190 neighbor_min '
-                      '(XLA while_loop of gathers; no Pallas kernel)',
-             **counted('fof_sweep'), **sweep_rec),
+        dict(name='fof_sweep', route='cuda', source=fof_src,
+             replaces=fof_replaces, **fof_sweep_counted(),
+             **fof_recs['fof_sweep']),
+        dict(name='fof_link_count', route='cuda', source=fof_src,
+             replaces=fof_replaces, **counted('fof_link_count'),
+             **fof_recs['fof_link_count']),
+        dict(name='fof_link_fill', route='cuda', source=fof_src,
+             replaces=fof_replaces, **counted('fof_link_fill'),
+             **fof_recs['fof_link_fill']),
     ]
     for kern in kernels:
         kern['share_of_bound'] = kern['bound_ms'] / kern['ms']

@@ -7,8 +7,11 @@ for the multi-GPU port).
    kernel on the card).
 2. Labels start as the sorted indices; each sweep takes, for every
    particle, the least label within the linking length over the 27
-   neighbour cells (the ``fof_sweep`` CUDA kernel on the card), then
-   jumps pointers twice, until nothing changes.
+   neighbour cells, then jumps pointers twice, until nothing changes.
+   The linked pairs are listed once and each sweep is a min over the
+   list (``links`` mode), or, when the list does not fit the device's
+   free memory, each sweep searches the neighbour cells (``search``
+   mode): CUDA kernels on the card (``ops/fof_cuda.py``).
 3. Groups are relabelled by descending size on the device (label 0:
    below ``nmin``), and the halo columns (Length, periodic CMPosition,
    CMVelocity) are segment sums over the labels.
@@ -30,7 +33,8 @@ def _fof_labels(pos, BoxSize, ll, periodic=True, order='auto', stats=None):
     BoxSize : (3,) floats; ll : the linking length. Returns (N,) int32:
     the index of one member of each particle's group (its first in cell
     order), in input order. ``order`` picks the cell-order engine
-    ('auto', 'radix', 'argsort'); ``stats`` receives the sweep count."""
+    ('auto', 'radix', 'argsort'); ``stats`` receives the sweep count,
+    the sweeps' mode and the number of links."""
     from ..ops.devicehash import local_fof_labels
     box = np.asarray(BoxSize, dtype='f8')
     return local_fof_labels(pos, None, box, float(ll), periodic=periodic,
@@ -65,7 +69,10 @@ class FOF(object):
 
     Attributes: ``labels``, (N,) int64 halo label per particle, 0 for
     particles in no group of ``nmin`` or more, halos by descending size
-    (label 1 is the largest); ``sweeps``, the sweeps to the fixpoint.
+    (label 1 is the largest); ``sweeps``, the sweeps to the fixpoint;
+    ``sweep_mode``, the sweeps' mode ('links', or 'search' where the
+    link list would not fit the device's free memory); ``links``, the
+    number of linked pairs.
     """
 
     logger = logging.getLogger('FOF')
@@ -102,6 +109,8 @@ class FOF(object):
                             self._ll, periodic=self.attrs['periodic'],
                             stats=stats)
         self.sweeps = stats['sweeps']
+        self.sweep_mode = stats['sweep_mode']
+        self.links = stats['links']
         with stage('fof_relabel'):
             labels, self._halo_count = size_ordered_labels(
                 roots, self.attrs['nmin'])

@@ -1,5 +1,5 @@
-// One min-label sweep of the grid-hash friends-of-friends, for Hopper
-// (sm_90a).
+// The min-label sweeps of the grid-hash friends-of-friends, for Hopper
+// (sm_90a): a column table, a link list built once, and two sweep modes.
 //
 // Computes neighbor_min of nbodykit_tpu/ops/devicehash.py:190-194 (the
 // body that local_fof_labels folds over DeviceGridHash.fold, :148-168),
@@ -11,156 +11,407 @@
 //              neighbour cells of i, r2(i, j) <= ll2})   if valid[i]
 //     out[i] = labels[i]                                 otherwise
 //
-// What bounds it on the H100: bytes, counted as the inputs read once (the
-// sorted positions, cell coordinates, cell ids, valid flags and labels)
-// and the labels written once, 37 bytes a particle at f32 with int32 ids.
-// The work depends on the data: each query runs one binary search into
-// the sorted cell ids per neighbour offset (~24 dependent loads at 1e7
-// particles) and reads every particle of the neighbour cell, so the time
-// goes to latency, not to bandwidth.
+// The column table. A column is a cell's (a, b) pair; c is the third
+// coordinate. cols[a * nc1 + b] is the first sorted slot of column (a, b)
+// (searchsorted of (a * nc1 + b) * nc2, built once per FOF in torch), and
+// cols[nc0 * nc1] the first dead slot. At 1077^3 cells it holds 1.16e6
+// int32 entries, 4.6 MB: it stays in the 50 MB L2. Inside a column the
+// ids are sorted by c, so the neighbour cells along c of one (da, db) pair
+// are one or two runs of consecutive cells (two where c wraps), each one
+// contiguous range of slots. A query therefore reads 9 columns (two
+// L2-resident loads each) and one short binary search per run inside the
+// column (~8.6 particles a column at 1e7 particles), against 27 searches
+// of ~24 dependent loads into all n ids in the first form of this kernel.
+// The columns go one after another. Advancing their table loads and
+// searches side by side, 3 or 9 at a time, so that a query waits for one
+// column's chain of dependent loads, not nine, was slower on the H100: 9
+// lanes take 62 registers against 32, and the occupancy lost costs more
+// latency hiding than the lanes give (kernel_variants.py fof_sweep).
 //
-// Design (the first, simple form): one thread per sorted query. The
-// queries are in cell order, so a dense cell's queries sit in one warp and
-// share the neighbour cells' cache lines. Per offset the thread finds the
-// first slot of the neighbour cell with a lower-bound search and walks the
-// cell's slots while the id matches; that visits the same slots as the
-// JAX package's (start, count) from a lower- and an upper-bound search.
-// The labels read are the sweep's input labels and the result goes to a
-// separate array (a Jacobi sweep), so each sweep equals its plain version
-// exactly; pointer jumping and the convergence test stay in torch.
+// The cells visited are the deduplicated set of ops/gridhash.py
+// neighbor_offsets: per axis the sorted distinct cells of c + d for the
+// offsets d in [dlo, dhi] (wrapped when periodic: all cells when the
+// offsets cover the axis; dropped when open and out of the grid, the JAX
+// package's oob offset). Columns are visited in increasing (a, b) order
+// and runs in increasing c, so the slots j of a query come in increasing
+// order: the link list is sorted within each row, as the plain version's.
+//
+// Four kernels, one thread per sorted query each:
+//  - fof_search_kernel: the search-mode sweep, the column lookups and the
+//    pair test in every sweep. Bound by latency (the dependent loads of
+//    the column searches); its byte bound is the inputs read once and the
+//    labels written once, 37 bytes a particle at f32 with int32 ids.
+//  - fof_link_count_kernel, once per FOF: the same traversal, counting
+//    the linked j != i of each valid query (r2 <= ll2). Latency-bound as
+//    the search sweep; bytes: the inputs once and 4 a count.
+//  - fof_link_fill_kernel, once per FOF: the same traversal again,
+//    writing each query's linked j (int32) at its CSR row offset (int64,
+//    the torch cumsum of the counts). Invalid queries have no links.
+//  - fof_links_sweep_kernel: the links-mode sweep, out[i] = min(labels[i],
+//    min labels[links[k]] over the row). Bound by bytes: the row offsets,
+//    labels and output, 16 bytes a particle, and 4 bytes a link (plus the
+//    label it gathers), no search at all.
+// The caller (ops/devicehash.py fof_fixpoint) counts the links, then
+// takes the links mode when the list fits the card's free memory beside
+// the fixpoint's label arrays, and the search mode otherwise.
+//
+// Every sweep reads the sweep's input labels and writes a separate array
+// (a Jacobi sweep), so each equals the plain version exactly in either
+// mode; pointer jumping and the convergence test stay in torch.
 //
 // Float arithmetic: the cell coordinates come from torch, so the only
 // float operations here are the plain version's, in its order and in the
 // positions' type: d = p_j - p_i; d - rint(d / box) * box (round half to
 // even, an IEEE divide); r2 = (dx*dx + dy*dy) + dz*dz. _build.py compiles
 // with -fmad=false, so no multiply and add are fused and a pair whose r2
-// sits within an ulp of ll2 links as it does in the plain version.
+// sits within an ulp of ll2 links as it does in the plain version. The
+// count and the fill run the same code, so they agree on every pair.
 //
 // Built by nbodykit_tpu_torch/_build.py into a shared library with a plain
-// C interface; nbk_fof_sweep returns the launch's cudaError_t.
+// C interface; each nbk_* entry point returns the launch's cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define SWEEP_THREADS 256
-#define MAX_OFFSETS 27
 
 template <typename F>
-struct SweepParams {
-  int noff;
-  int off[MAX_OFFSETS][3];
+struct Geo {
+  int dlo[3], dhi[3];  // the offsets along each axis: [dlo, dhi]
   int ncell[3];
   F box[3];
   F ll2;
   int periodic;
 };
 
+// The sorted distinct cells of one axis seen from cell c: at most two
+// runs [lo, hi] of consecutive cells, in increasing order.
+struct Runs {
+  int lo0, hi0, lo1, hi1;
+  int m;
+};
+
+__device__ __forceinline__ Runs axis_runs(int c, int n, int dlo, int dhi,
+                                          int periodic) {
+  Runs r;
+  const int lo = c + dlo, hi = c + dhi;
+  r.m = 1;
+  r.lo1 = r.hi1 = 0;
+  if (!periodic) {
+    r.lo0 = lo < 0 ? 0 : lo;
+    r.hi0 = hi >= n ? n - 1 : hi;
+  } else if (hi - lo + 1 >= n) {  // the offsets cover the axis
+    r.lo0 = 0;
+    r.hi0 = n - 1;
+  } else if (lo < 0) {  // wraps below 0: [0, hi], then [lo + n, n - 1]
+    r.m = 2;
+    r.lo0 = 0;
+    r.hi0 = hi;
+    r.lo1 = lo + n;
+    r.hi1 = n - 1;
+  } else if (hi >= n) {  // wraps above n - 1: [0, hi - n], then [lo, n - 1]
+    r.m = 2;
+    r.lo0 = 0;
+    r.hi0 = hi - n;
+    r.lo1 = lo;
+    r.hi1 = n - 1;
+  } else {
+    r.lo0 = lo;
+    r.hi0 = hi;
+  }
+  return r;
+}
+
+// The same cells one by one: v[0] < v[1] < v[2], the first m of them.
+struct Cells {
+  int v[3];
+  int m;
+};
+
+__device__ __forceinline__ Cells axis_cells(int c, int n, int dlo, int dhi,
+                                            int periodic) {
+  const Runs r = axis_runs(c, n, dlo, dhi, periodic);
+  const int len0 = r.hi0 - r.lo0 + 1;
+  Cells o;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+    o.v[t] = t < len0 ? r.lo0 + t : r.lo1 + t - len0;
+  o.m = len0 + (r.m == 2 ? r.hi1 - r.lo1 + 1 : 0);
+  return o;
+}
+
 __device__ __forceinline__ float round_even(float x) { return rintf(x); }
 __device__ __forceinline__ double round_even(double x) { return rint(x); }
 
-__device__ __forceinline__ int wrap(int x, int n) {
-  return x < 0 ? x + n : (x >= n ? x - n : x);
+// Visits the slots j >= s of one run of cells (keys up to khi) in the
+// linking length of the query at (px, py, pz); returns the first slot
+// past the run. Past a column's last slot come larger keys (the next
+// column's, then the dead slots' sentinel), so the walk stops there.
+template <typename F, typename K, typename Visit>
+__device__ __forceinline__ int walk(const Geo<F>& g,
+                                    const F* __restrict__ pos,
+                                    const K* __restrict__ flat, int s, int n,
+                                    K khi, F px, F py, F pz, Visit& visit) {
+  int j = s;
+  for (; j < n && flat[j] <= khi; ++j) {
+    const size_t j3 = (size_t)3 * j;
+    F dx = pos[j3] - px, dy = pos[j3 + 1] - py, dz = pos[j3 + 2] - pz;
+    if (g.periodic) {
+      dx = dx - round_even(dx / g.box[0]) * g.box[0];
+      dy = dy - round_even(dy / g.box[1]) * g.box[1];
+      dz = dz - round_even(dz / g.box[2]) * g.box[2];
+    }
+    const F r2 = (dx * dx + dy * dy) + dz * dz;
+    if (r2 <= g.ll2) visit(j);
+  }
+  return j;
+}
+
+// The first slot in [lo, hi) whose key is not below key (hi if none).
+template <typename K>
+__device__ __forceinline__ int lower_bound(const K* __restrict__ flat,
+                                           int lo, int hi, K key) {
+  while (lo < hi) {
+    const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+    if (flat[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Calls visit(j) for every slot j of a neighbour cell of query i within
+// the linking length, in increasing j. The (up to 9) columns go one after
+// another in increasing (a, b) order: two column-table loads, a search
+// inside the column for the first run along c and a walk over it; where
+// c wraps, a search from there for the second run and a walk over it.
+template <typename F, typename K, typename Visit>
+__device__ __forceinline__ void for_each_link(
+    const Geo<F>& g, const F* __restrict__ pos, const int* __restrict__ ci,
+    const K* __restrict__ flat, const int* __restrict__ cols, int i, int n,
+    Visit& visit) {
+  const size_t i3 = (size_t)3 * i;
+  const F px = pos[i3], py = pos[i3 + 1], pz = pos[i3 + 2];
+  const Cells ca = axis_cells(ci[i3], g.ncell[0], g.dlo[0], g.dhi[0],
+                              g.periodic);
+  const Cells cb = axis_cells(ci[i3 + 1], g.ncell[1], g.dlo[1], g.dhi[1],
+                              g.periodic);
+  const Runs rc = axis_runs(ci[i3 + 2], g.ncell[2], g.dlo[2], g.dhi[2],
+                            g.periodic);
+  const int nc1 = g.ncell[1];
+  const K nc2 = (K)g.ncell[2];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    const int ka = q / 3, kb = q % 3;
+    if (ka >= ca.m || kb >= cb.m) continue;
+    const int col = ca.v[ka] * nc1 + cb.v[kb];
+    const K base = (K)col * nc2;
+    const int end = cols[col + 1];
+    const int lo = lower_bound<K>(flat, cols[col], end, base + (K)rc.lo0);
+    const int j = walk<F, K>(g, pos, flat, lo, n, base + (K)rc.hi0, px, py,
+                             pz, visit);
+    if (rc.m == 2)
+      walk<F, K>(g, pos, flat, lower_bound<K>(flat, j, end, base + (K)rc.lo1),
+                 n, base + (K)rc.hi1, px, py, pz, visit);
+  }
+}
+
+struct MinLabel {
+  const int* __restrict__ labels;
+  int best;
+  __device__ __forceinline__ void operator()(int j) {
+    const int l = labels[j];
+    best = l < best ? l : best;
+  }
+};
+
+struct CountLinks {
+  int i, count;
+  __device__ __forceinline__ void operator()(int j) { count += j != i; }
+};
+
+struct FillLinks {
+  int i;
+  int* __restrict__ links;
+  long long k, end;
+  __device__ __forceinline__ void operator()(int j) {
+    if (j != i && k < end) links[k++] = j;
+  }
+};
+
+template <typename F, typename K>
+__global__ void __launch_bounds__(SWEEP_THREADS)
+fof_search_kernel(const F* __restrict__ pos, const int* __restrict__ ci,
+                  const K* __restrict__ flat,
+                  const unsigned char* __restrict__ valid,
+                  const int* __restrict__ cols,
+                  const int* __restrict__ labels, int* __restrict__ out,
+                  int n, const Geo<F> g) {
+  const int i = blockIdx.x * SWEEP_THREADS + threadIdx.x;
+  if (i >= n) return;
+  MinLabel v{labels, labels[i]};
+  if (valid[i]) for_each_link<F, K>(g, pos, ci, flat, cols, i, n, v);
+  out[i] = v.best;
 }
 
 template <typename F, typename K>
 __global__ void __launch_bounds__(SWEEP_THREADS)
-fof_sweep_kernel(const F* __restrict__ pos, const int* __restrict__ ci,
-                 const K* __restrict__ flat,
-                 const unsigned char* __restrict__ valid,
-                 const int* __restrict__ labels, int* __restrict__ out, int n,
-                 const SweepParams<F> p) {
+fof_link_count_kernel(const F* __restrict__ pos, const int* __restrict__ ci,
+                      const K* __restrict__ flat,
+                      const unsigned char* __restrict__ valid,
+                      const int* __restrict__ cols, int* __restrict__ counts,
+                      int n, const Geo<F> g) {
+  const int i = blockIdx.x * SWEEP_THREADS + threadIdx.x;
+  if (i >= n) return;
+  CountLinks v{i, 0};
+  if (valid[i]) for_each_link<F, K>(g, pos, ci, flat, cols, i, n, v);
+  counts[i] = v.count;
+}
+
+template <typename F, typename K>
+__global__ void __launch_bounds__(SWEEP_THREADS)
+fof_link_fill_kernel(const F* __restrict__ pos, const int* __restrict__ ci,
+                     const K* __restrict__ flat,
+                     const unsigned char* __restrict__ valid,
+                     const int* __restrict__ cols,
+                     const long long* __restrict__ row,
+                     int* __restrict__ links, int n, const Geo<F> g) {
+  const int i = blockIdx.x * SWEEP_THREADS + threadIdx.x;
+  if (i >= n) return;
+  FillLinks v{i, links, row[i], row[i + 1]};
+  if (valid[i] && v.k < v.end)
+    for_each_link<F, K>(g, pos, ci, flat, cols, i, n, v);
+}
+
+__global__ void __launch_bounds__(SWEEP_THREADS)
+fof_links_sweep_kernel(const long long* __restrict__ row,
+                       const int* __restrict__ links,
+                       const int* __restrict__ labels, int* __restrict__ out,
+                       int n) {
   const int i = blockIdx.x * SWEEP_THREADS + threadIdx.x;
   if (i >= n) return;
   int best = labels[i];
-  if (!valid[i]) {
-    out[i] = best;
-    return;
-  }
-  const size_t i3 = (size_t)3 * i;
-  const F px = pos[i3], py = pos[i3 + 1], pz = pos[i3 + 2];
-  const int c0 = ci[i3], c1 = ci[i3 + 1], c2 = ci[i3 + 2];
-  const K nc1 = (K)p.ncell[1], nc2 = (K)p.ncell[2];
-  for (int o = 0; o < p.noff; ++o) {
-    int a = c0 + p.off[o][0], b = c1 + p.off[o][1], c = c2 + p.off[o][2];
-    if (p.periodic) {
-      a = wrap(a, p.ncell[0]);
-      b = wrap(b, p.ncell[1]);
-      c = wrap(c, p.ncell[2]);
-    } else if (a < 0 || a >= p.ncell[0] || b < 0 || b >= p.ncell[1] ||
-               c < 0 || c >= p.ncell[2]) {
-      continue;  // the JAX package's oob offset: no candidate
-    }
-    const K key = ((K)a * nc1 + (K)b) * nc2 + (K)c;
-    int lo = 0, hi = n;
-    while (lo < hi) {
-      const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
-      if (flat[mid] < key) lo = mid + 1; else hi = mid;
-    }
-    for (int j = lo; j < n && flat[j] == key; ++j) {
-      const size_t j3 = (size_t)3 * j;
-      F dx = pos[j3] - px, dy = pos[j3 + 1] - py, dz = pos[j3 + 2] - pz;
-      if (p.periodic) {
-        dx = dx - round_even(dx / p.box[0]) * p.box[0];
-        dy = dy - round_even(dy / p.box[1]) * p.box[1];
-        dz = dz - round_even(dz / p.box[2]) * p.box[2];
-      }
-      const F r2 = (dx * dx + dy * dy) + dz * dz;
-      if (r2 <= p.ll2) {
-        const int l = labels[j];
-        best = l < best ? l : best;
-      }
-    }
+  const long long end = row[i + 1];
+  for (long long k = row[i]; k < end; ++k) {
+    const int l = labels[links[k]];
+    best = l < best ? l : best;
   }
   out[i] = best;
 }
 
+// what a launch of the traversal kernels computes
+enum { SEARCH = 0, COUNT = 1, FILL = 2 };
+
 template <typename F, typename K>
-static int launch(const void* pos, const int* ci, const void* flat,
-                  const unsigned char* valid, const int* labels, int* out,
-                  int n, const int* offs, int noff, const int* ncell,
+static int launch(int what, const void* pos, const int* ci, const void* flat,
+                  const unsigned char* valid, const int* cols,
+                  const int* labels, int* out, const long long* row, int n,
+                  const int* dlo, const int* dhi, const int* ncell,
                   const double* box, double ll2, int periodic,
                   cudaStream_t s) {
-  SweepParams<F> p;
-  p.noff = noff;
-  for (int o = 0; o < noff; ++o)
-    for (int k = 0; k < 3; ++k) p.off[o][k] = offs[3 * o + k];
+  Geo<F> g;
   for (int k = 0; k < 3; ++k) {
-    p.ncell[k] = ncell[k];
-    p.box[k] = (F)box[k];  // the JAX package's jnp.asarray(box, pos.dtype)
+    g.dlo[k] = dlo[k];
+    g.dhi[k] = dhi[k];
+    g.ncell[k] = ncell[k];
+    g.box[k] = (F)box[k];  // the JAX package's jnp.asarray(box, pos.dtype)
   }
-  p.ll2 = (F)ll2;
-  p.periodic = periodic;
+  g.ll2 = (F)ll2;
+  g.periodic = periodic;
   const int blocks = (n + SWEEP_THREADS - 1) / SWEEP_THREADS;
-  fof_sweep_kernel<F, K><<<blocks, SWEEP_THREADS, 0, s>>>(
-      (const F*)pos, ci, (const K*)flat, valid, labels, out, n, p);
+  const F* p = (const F*)pos;
+  const K* f = (const K*)flat;
+  if (what == SEARCH)
+    fof_search_kernel<F, K><<<blocks, SWEEP_THREADS, 0, s>>>(
+        p, ci, f, valid, cols, labels, out, n, g);
+  else if (what == COUNT)
+    fof_link_count_kernel<F, K><<<blocks, SWEEP_THREADS, 0, s>>>(
+        p, ci, f, valid, cols, out, n, g);
+  else
+    fof_link_fill_kernel<F, K><<<blocks, SWEEP_THREADS, 0, s>>>(
+        p, ci, f, valid, cols, row, out, n, g);
   return (int)cudaGetLastError();
 }
 
-extern "C" int nbk_fof_sweep(const void* pos, const int* ci, const void* flat,
-                             const unsigned char* valid, const int* labels,
-                             int* out, long long n, int pos_bytes,
-                             int key_bytes, const int* offs, int noff,
-                             const int* ncell, const double* box, double ll2,
-                             int periodic, void* stream) {
+static int dispatch(int what, const void* pos, const int* ci,
+                    const void* flat, const unsigned char* valid,
+                    const int* cols, const int* labels, int* out,
+                    const long long* row, long long n, int pos_bytes,
+                    int key_bytes, const int* dlo, const int* dhi,
+                    const int* ncell, const double* box, double ll2,
+                    int periodic, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return 0;
-  if (n >= (1LL << 31) || noff < 1 || noff > MAX_OFFSETS)
-    return (int)cudaErrorInvalidValue;
+  if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 3; ++k)
+    if (dlo[k] < -1 || dlo[k] > 0 || dhi[k] < 0 || dhi[k] > 1 ||
+        ncell[k] < 1)
+      return (int)cudaErrorInvalidValue;
   const int m = (int)n;
   if (pos_bytes == 4 && key_bytes == 4)
-    return launch<float, int>(pos, ci, flat, valid, labels, out, m, offs,
-                              noff, ncell, box, ll2, periodic, s);
+    return launch<float, int>(what, pos, ci, flat, valid, cols, labels, out,
+                              row, m, dlo, dhi, ncell, box, ll2, periodic, s);
   if (pos_bytes == 4 && key_bytes == 8)
-    return launch<float, long long>(pos, ci, flat, valid, labels, out, m,
-                                    offs, noff, ncell, box, ll2, periodic, s);
+    return launch<float, long long>(what, pos, ci, flat, valid, cols, labels,
+                                    out, row, m, dlo, dhi, ncell, box, ll2,
+                                    periodic, s);
   if (pos_bytes == 8 && key_bytes == 4)
-    return launch<double, int>(pos, ci, flat, valid, labels, out, m, offs,
-                               noff, ncell, box, ll2, periodic, s);
+    return launch<double, int>(what, pos, ci, flat, valid, cols, labels,
+                               out, row, m, dlo, dhi, ncell, box, ll2,
+                               periodic, s);
   if (pos_bytes == 8 && key_bytes == 8)
-    return launch<double, long long>(pos, ci, flat, valid, labels, out, m,
-                                     offs, noff, ncell, box, ll2, periodic,
-                                     s);
+    return launch<double, long long>(what, pos, ci, flat, valid, cols,
+                                     labels, out, row, m, dlo, dhi, ncell,
+                                     box, ll2, periodic, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int nbk_fof_sweep(const void* pos, const int* ci, const void* flat,
+                             const unsigned char* valid, const int* cols,
+                             const int* labels, int* out, long long n,
+                             int pos_bytes, int key_bytes, const int* dlo,
+                             const int* dhi, const int* ncell,
+                             const double* box, double ll2, int periodic,
+                             void* stream) {
+  return dispatch(SEARCH, pos, ci, flat, valid, cols, labels, out, nullptr,
+                  n, pos_bytes, key_bytes, dlo, dhi, ncell, box, ll2,
+                  periodic, stream);
+}
+
+extern "C" int nbk_fof_link_count(const void* pos, const int* ci,
+                                  const void* flat,
+                                  const unsigned char* valid,
+                                  const int* cols, int* counts, long long n,
+                                  int pos_bytes, int key_bytes,
+                                  const int* dlo, const int* dhi,
+                                  const int* ncell, const double* box,
+                                  double ll2, int periodic, void* stream) {
+  return dispatch(COUNT, pos, ci, flat, valid, cols, nullptr, counts,
+                  nullptr, n, pos_bytes, key_bytes, dlo, dhi, ncell, box,
+                  ll2, periodic, stream);
+}
+
+extern "C" int nbk_fof_link_fill(const void* pos, const int* ci,
+                                 const void* flat,
+                                 const unsigned char* valid, const int* cols,
+                                 const long long* row, int* links,
+                                 long long n, int pos_bytes, int key_bytes,
+                                 const int* dlo, const int* dhi,
+                                 const int* ncell, const double* box,
+                                 double ll2, int periodic, void* stream) {
+  return dispatch(FILL, pos, ci, flat, valid, cols, nullptr, links, row, n,
+                  pos_bytes, key_bytes, dlo, dhi, ncell, box, ll2, periodic,
+                  stream);
+}
+
+extern "C" int nbk_fof_links_sweep(const long long* row, const int* links,
+                                   const int* labels, int* out, long long n,
+                                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return 0;
+  if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int m = (int)n;
+  fof_links_sweep_kernel<<<(m + SWEEP_THREADS - 1) / SWEEP_THREADS,
+                           SWEEP_THREADS, 0, s>>>(row, links, labels, out, m);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* nbk_error_string(int e) {

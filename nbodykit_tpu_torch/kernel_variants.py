@@ -6,12 +6,15 @@ back by a text substitution. The variants are built with the same
 beside the kernel as built at the main path's shapes: the rank pass on
 9,998,863 int32 digits of alphabet 65, the deposit on the CIC payload
 of ``UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42)`` at 512^3, the
-Poisson draw (both output modes) on the lognormal path's 1024^3 lam.
-Run from the repository root on a CUDA machine::
+Poisson draw (both output modes) on the lognormal path's 1024^3 lam,
+the FOF's link count, link fill and search sweep on the FOF flow's grid
+and on a clustered 2e6 catalog. Run from the repository root on a CUDA
+machine::
 
     python -m nbodykit_tpu_torch.kernel_variants [kernel ...]
 
-(kernels: radix_rank, paint_deposit, poisson, pipes; default all). It
+(kernels: radix_rank, paint_deposit, poisson, fof_sweep, pipes; default
+all). It
 prints one JSON line per timing: the mean CUDA-event time of 20
 launches into preallocated outputs, the kernels in turn (as built,
 each variant, as built again), and whether the variant's result
@@ -60,6 +63,63 @@ SCALAR_IO = [
      '    __stcs(p + v, (long long)c[v]);')]
 VEC4_ASSERT = ('static_assert(POISSON_VEC == 4, "load_cells and store_counts '
                'move 4 cells");')
+
+# the FOF traversal's loop over the neighbour columns, one at a time
+FOF_COLUMN_LOOP = '''  for (int q = 0; q < 9; ++q) {
+    const int ka = q / 3, kb = q % 3;
+    if (ka >= ca.m || kb >= cb.m) continue;
+    const int col = ca.v[ka] * nc1 + cb.v[kb];
+    const K base = (K)col * nc2;
+    const int end = cols[col + 1];
+    const int lo = lower_bound<K>(flat, cols[col], end, base + (K)rc.lo0);
+    const int j = walk<F, K>(g, pos, flat, lo, n, base + (K)rc.hi0, px, py,
+                             pz, visit);
+    if (rc.m == 2)
+      walk<F, K>(g, pos, flat, lower_bound<K>(flat, j, end, base + (K)rc.lo1),
+                 n, base + (K)rc.hi1, px, py, pz, visit);
+  }'''
+
+
+def fof_columns_side_by_side(lanes):
+    """The same loop with ``lanes`` columns' table loads and first
+    searches advancing in lockstep, then their walks in turn."""
+    return '''  for (int q0 = 0; q0 < 9; q0 += LANES) {
+    int col[LANES], lo[LANES], hi[LANES];
+#pragma unroll
+    for (int t = 0; t < LANES; ++t) {
+      const int ka = (q0 + t) / 3, kb = (q0 + t) % 3;
+      col[t] = ka < ca.m && kb < cb.m ? ca.v[ka] * nc1 + cb.v[kb] : -1;
+      const int c = col[t] < 0 ? 0 : col[t];
+      lo[t] = cols[c];
+      hi[t] = col[t] < 0 ? lo[t] : cols[c + 1];
+    }
+    bool more = true;
+    while (more) {
+      more = false;
+#pragma unroll
+      for (int t = 0; t < LANES; ++t) {
+        if (lo[t] < hi[t]) {
+          const int mid = (int)(((unsigned)lo[t] + (unsigned)hi[t]) >> 1);
+          if (flat[mid] < (K)col[t] * nc2 + (K)rc.lo0) lo[t] = mid + 1;
+          else hi[t] = mid;
+          more |= lo[t] < hi[t];
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < LANES; ++t) {
+      if (col[t] < 0) continue;
+      const K base = (K)col[t] * nc2;
+      const int j = walk<F, K>(g, pos, flat, lo[t], n, base + (K)rc.hi0, px,
+                               py, pz, visit);
+      if (rc.m == 2)
+        walk<F, K>(g, pos, flat,
+                   lower_bound<K>(flat, j, cols[col[t] + 1],
+                                  base + (K)rc.lo1),
+                   n, base + (K)rc.hi1, px, py, pz, visit);
+    }
+  }'''.replace('LANES', str(int(lanes)))
+
 
 # name: (source, [(text, replacement)], what the substitution takes back)
 VARIANTS = {
@@ -119,6 +179,16 @@ VARIANTS = {
     'poisson_256_threads': ('threefry', [
         ('#define POISSON_THREADS 1024', '#define POISSON_THREADS 256')],
         'CTAs of 256 threads and tiles of 4096 cells'),
+    # probes of a step not taken: the neighbour columns' searches side by
+    # side (slower on the H100; the kernel takes one column at a time)
+    'fof_nine_columns_side_by_side': ('fof_sweep', [
+        (FOF_COLUMN_LOOP, fof_columns_side_by_side(9))],
+        'the 9 neighbour columns\' table loads and searches side by side, '
+        'not one column after another'),
+    'fof_three_columns_side_by_side': ('fof_sweep', [
+        (FOF_COLUMN_LOOP, fof_columns_side_by_side(3))],
+        'the neighbour columns\' table loads and searches three at a time '
+        '(one row of the table), not one column after another'),
     # a probe, not a design: what the ordered look-back costs (its list is
     # out of raster order, so it does not match)
     'poisson_unordered_bases': ('threefry', [
@@ -252,6 +322,90 @@ def _lognormal_lam():
     delta = pm.c2r(delta_k.value)
     del delta_k
     return mockmaker.lognormal_lambda(delta, pm, nbar, 2.0), nbar * box ** 3
+
+
+def clustered_catalog(n=2 * 10 ** 6, box=1000.0, blobs=10 ** 4, seed=42):
+    """(positions on the card, linking length) of a clustered FOF case:
+    half uniform, half in ``blobs`` Gaussian blobs of 0.6 ll, ll = 0.2
+    of the mean separation; f32, from numpy's RandomState(seed)."""
+    import numpy as np
+    ll = 0.2 * box / n ** (1. / 3)
+    rng = np.random.RandomState(seed)
+    centres = rng.uniform(0, box, (blobs, 3))
+    half = n // 2
+    pos = np.concatenate([
+        centres[rng.randint(blobs, size=half)]
+        + rng.normal(scale=0.6 * ll, size=(half, 3)),
+        rng.uniform(0, box, (n - half, 3))])
+    pos = np.mod(pos, box).astype('f4')
+    return torch.as_tensor(pos, device='cuda'), ll
+
+
+def _fof_grids():
+    """(label, grid, ll) of the FOF flow (``benchmarks/test_fof.py`` at
+    desi_like: the lognormal catalog at BoxSize 5000, Nmesh 1024, nbar
+    1e7 / 5000^3, bias 2, seed 42; ll 0.2 of the mean separation) and
+    of :func:`clustered_catalog`."""
+    from . import cosmology
+    from .ops.devicehash import DeviceGridHash
+    from .source.catalog import LogNormalCatalog
+    box, n = 5000.0, 1e7
+    cat = LogNormalCatalog(
+        cosmology.LinearPower(cosmology.Planck15, 0.55, 'EisensteinHu'),
+        nbar=n / box ** 3, BoxSize=box, Nmesh=1024, bias=2.0, seed=42)
+    ll = 0.2 * box / len(cat) ** (1. / 3)
+    out = [('fof_1024', DeviceGridHash(cat['Position'], box, ll), ll)]
+    del cat
+    pos, ll = clustered_catalog()
+    out.append(('clustered_2e6', DeviceGridHash(pos, 1000.0, ll), ll))
+    return out
+
+
+def _fof_cases():
+    """(label, run, same) of the FOF's link count, link fill and
+    search-mode sweep on each grid of :func:`_fof_grids`, into
+    preallocated outputs."""
+    from .ops import fof_cuda as fc
+    cases = []
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, grid, ll in _fof_grids():
+        ci_s = grid.cell_of(grid.pos_s).contiguous()
+        args = (grid.pos_s, ci_s, grid.flat_s, grid.valid_s, grid.columns())
+        geo = grid.geometry(ll ** 2)
+        n = ci_s.shape[0]
+        counts = fc.fof_link_count_cuda(*args, *geo)
+        row = torch.zeros(n + 1, dtype=torch.int64, device='cuda')
+        torch.cumsum(counts, 0, out=row[1:])
+        links = fc.fof_link_fill_cuda(*args, row, *geo)
+        labels = torch.arange(n, dtype=torch.int32, device='cuda')
+        swept = fc.fof_sweep_cuda(*args[:4], labels, *geo, cols=args[4])
+        dlo, dhi = fc.axis_offsets(grid.offsets)
+        ints = ctypes.c_int * 3
+        tail = (n, 4, grid.flat_s.element_size(), ints(*dlo), ints(*dhi),
+                ints(*[int(v) for v in grid.ncell_np]),
+                (ctypes.c_double * 3)(*grid.box_np), ll ** 2, 1, stream)
+        ptrs = [t.data_ptr() for t in args]
+        for name, extra, ref in (
+                ('nbk_fof_link_count', [counts], counts),
+                ('nbk_fof_link_fill', [row, links], links),
+                ('nbk_fof_sweep', [labels, swept], swept)):
+            out = torch.empty_like(ref)
+            p = ptrs + [t.data_ptr() for t in extra[:-1]] + [out.data_ptr()]
+
+            # the closure holds the tensors behind the pointers
+            def run(lib, name=name, p=p, tail=tail, keep=(args, extra)):
+                fn = getattr(lib, name)
+                fn.argtypes = ([ctypes.c_void_p] * len(p)
+                               + [ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int] + [ctypes.c_void_p] * 4
+                               + [ctypes.c_double, ctypes.c_int,
+                                  ctypes.c_void_p])
+                return lambda: _build.check('fof_sweep', fn(*p, *tail))
+
+            def same(out=out, ref=ref):
+                return bool(torch.equal(out, ref))
+            cases.append(('%s %s' % (name[4:], label), run, same))
+    return cases
 
 
 def _poisson_cases():
@@ -436,6 +590,8 @@ def _cases(kernel):
     if kernel == 'radix_rank':
         run, same = _rank_case()
         return [('radix_rank', run, same)]
+    if kernel == 'fof_sweep':
+        return _fof_cases()
     run, same = _deposit_case()
     return [('paint_deposit', run, same)]
 
@@ -445,7 +601,7 @@ def main(argv=()):
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
     which = list(argv) or ['radix_rank', 'paint_deposit', 'poisson',
-                           'pipes']
+                           'fof_sweep', 'pipes']
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -454,7 +610,7 @@ def main(argv=()):
                       'nvidia_smi': smi}), flush=True)
     _build.build_all()
     source = {'radix_rank': 'radix_rank', 'paint_deposit': 'paint_deposit',
-              'poisson': 'threefry'}
+              'poisson': 'threefry', 'fof_sweep': 'fof_sweep'}
     names = sorted(n for n in VARIANTS if VARIANTS[n][0] in
                    [source[k] for k in which if k in source])
     libs = _build_variants(names)

@@ -10,18 +10,26 @@ kernel on the card, ``argsort(stable=True)`` on the CPU, one permutation
 either way. Grids of 2**31 - 1 cells or more take int64 ids and a stable
 argsort, as in the JAX package.
 
-:func:`local_fof_labels` repeats the min-label sweep
-(:func:`.fof_cuda.fof_sweep`: a CUDA kernel on the card) with two
-pointer jumps per sweep until no label changes, then maps the roots back
-to slot order.
+:func:`local_fof_labels` repeats the min-label sweep with two pointer
+jumps per sweep until no label changes, then maps the roots back to slot
+order. The sweep runs in one of two modes (``ops/fof_cuda.py``; CUDA
+kernels on the card, their plain versions on the CPU): ``links`` builds
+the list of linked pairs once (a count, a cumsum, a fill) and each sweep
+is a min over it; ``search`` looks the neighbour cells up in every
+sweep. :func:`fof_fixpoint` takes ``links`` when the list fits the
+device's free memory, ``search`` otherwise; both give the same labels in
+the same sweeps.
 """
+
+import logging
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..utils import stage
-from .fof_cuda import fof_sweep
+from .fof_cuda import (column_table, fof_link_count, fof_link_fill,
+                       fof_links_sweep, fof_sweep)
 from .gridhash import neighbor_offsets
 from .radix import order_keys
 from .radix_cuda import raise_on_bad_digits
@@ -40,6 +48,7 @@ class DeviceGridHash(object):
     Attributes: ``order`` (the permutation to cell order), ``flat_s``,
     ``pos_s``, ``valid_s`` (the sorted arrays), ``offsets`` (the
     deduplicated neighbour offsets), ``ncell_np``, ``box_np``.
+    :meth:`columns` builds the column table of the CUDA kernels once.
     """
 
     def __init__(self, pos, box, rmax, valid=None, periodic=True,
@@ -75,6 +84,7 @@ class DeviceGridHash(object):
         self.order = order
         self.pos_s = pos[order]
         self.valid_s = valid[order]
+        self._cols = None
 
     def _flatten(self, ci):
         nc1, nc2 = int(self.ncell_np[1]), int(self.ncell_np[2])
@@ -87,33 +97,120 @@ class DeviceGridHash(object):
         ci = (p / self.cellsize).to(torch.int32)
         return torch.minimum(torch.clamp(ci, min=0), self.ncell - 1)
 
+    def columns(self):
+        """The column table of the sorted ids on a CUDA device (built on
+        the first call, :func:`.fof_cuda.column_table`); None on the
+        CPU, whose plain versions do not read it."""
+        if self._cols is None and self.flat_s.device.type == 'cuda':
+            self._cols = column_table(self.flat_s, self.ncell_np)
+        return self._cols
+
+    def geometry(self, ll2):
+        """The trailing arguments of the :mod:`.fof_cuda` functions:
+        (offsets, ncell, box, ll2, periodic)."""
+        return (self.offsets, self.ncell_np, self.box_np, ll2,
+                self.periodic)
+
     def sweep(self, ci_s, labels, ll2):
-        """One min-label sweep over the sorted arrays
+        """One search-mode min-label sweep over the sorted arrays
         (:func:`.fof_cuda.fof_sweep`)."""
         return fof_sweep(self.pos_s, ci_s, self.flat_s, self.valid_s,
-                         labels, self.offsets, self.ncell_np, self.box_np,
-                         ll2, self.periodic)
+                         labels, *self.geometry(ll2), cols=self.columns())
 
 
-def fof_fixpoint(grid, ll):
-    """The min-label fixpoint on a grid's sorted arrays: sweeps, each
-    followed by two pointer jumps, until no label changes. Returns
-    (labels, sweeps, ci_s): (n,) int32 root positions in the sorted
-    order, the number of sweeps, and the sorted cell coordinates."""
-    ci_s = grid.cell_of(grid.pos_s).contiguous()
-    ll2 = float(ll) ** 2
-    n = grid.pos_s.shape[0]
-    labels = torch.arange(n, dtype=torch.int32, device=grid.pos_s.device)
+# bytes a particle of the label arrays a sweep and its pointer jumps hold
+# beside the link list: the labels, the sweep's output, the two jumps'
+# gathers and minima, 4 bytes each
+FIXPOINT_LABEL_BYTES = 16
+
+
+def fits(nbytes, device):
+    """Whether ``nbytes`` more can be allocated on a CUDA device: within
+    the card's free memory (``cudaMemGetInfo``), else within that and the
+    blocks torch's caching allocator holds unused (its statistics, a
+    slower read). True on any other device."""
+    if device.type != 'cuda':
+        return True
+    free = torch.cuda.mem_get_info(device)[0]
+    if nbytes <= free:
+        return True
+    stats = torch.cuda.memory_stats(device)
+    return nbytes <= free + stats['reserved_bytes.all.current'] \
+        - stats['allocated_bytes.all.current']
+
+
+def sweep_to_fixpoint(sweep, n, device):
+    """Labels from ``arange(n)``: ``sweep`` (labels -> new labels, one
+    Jacobi min-label sweep), each followed by two pointer jumps, until no
+    label changes. Returns ((n,) int32 labels, the number of sweeps)."""
+    labels = torch.arange(n, dtype=torch.int32, device=device)
     sweeps = 0
     while True:
-        new = grid.sweep(ci_s, labels, ll2)
+        new = sweep(labels)
         new = torch.minimum(new, torch.index_select(new, 0, new))
         new = torch.minimum(new, torch.index_select(new, 0, new))
         sweeps += 1
         changed = bool((new != labels).any())
         labels = new
         if not changed:
-            return labels, sweeps, ci_s
+            return labels, sweeps
+
+
+def fof_fixpoint(grid, ll, stats=None):
+    """The min-label fixpoint on a grid's sorted arrays. Returns
+    (labels, sweeps, ci_s): (n,) int32 root positions in the sorted
+    order, the number of sweeps, and the sorted cell coordinates.
+
+    Counts the links (:func:`.fof_cuda.fof_link_count`, a cumsum to CSR
+    row offsets), then takes the ``links`` mode (the list filled once,
+    each sweep a min over it) when the list and the fixpoint's label
+    arrays (:data:`FIXPOINT_LABEL_BYTES` a particle) fit the device's
+    memory (:func:`fits`), else the ``search`` mode (each sweep searches
+    the neighbour cells): the same labels in the same sweeps. The mode
+    is logged; ``stats``, a dict, receives ``sweep_mode`` and ``links``
+    (E)."""
+    ci_s = grid.cell_of(grid.pos_s).contiguous()
+    ll2 = float(ll) ** 2
+    n = grid.pos_s.shape[0]
+    dev = grid.pos_s.device
+    geo = grid.geometry(ll2)
+    sorted_args = (grid.pos_s, ci_s, grid.flat_s, grid.valid_s,
+                   grid.columns())
+    counts = fof_link_count(*sorted_args, *geo)
+    row = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=row[1:])
+    del counts
+    nlinks = int(row[-1])
+    need = 4 * nlinks + FIXPOINT_LABEL_BYTES * n
+    if fits(need, dev):
+        mode = 'links'
+        links = fof_link_fill(*sorted_args, row, *geo, nlinks=nlinks)
+
+        def sweep(labels):
+            return fof_links_sweep(row, links, labels)
+    else:
+        mode = 'search'
+        del row
+
+        def sweep(labels):
+            return grid.sweep(ci_s, labels, ll2)
+    logging.getLogger('FOF').info(
+        "sweep mode %s: %d links for %d particles (the list and the "
+        "labels need %d bytes)", mode, nlinks, n, need)
+    if stats is not None:
+        stats.update(sweep_mode=mode, links=nlinks)
+    labels, sweeps = sweep_to_fixpoint(sweep, n, dev)
+    return labels, sweeps, ci_s
+
+
+def roots_in_slot_order(grid, labels):
+    """(n,) int32: for every slot, the slot index of its root, from the
+    fixpoint's root positions in the sorted order."""
+    root_slot = torch.index_select(grid.order, 0, labels)
+    out = torch.zeros(labels.shape[0], dtype=torch.int32,
+                      device=labels.device)
+    out[grid.order] = root_slot.to(torch.int32)
+    return out
 
 
 def local_fof_labels(pos, valid, box, ll, periodic=True, max_ncell=4096,
@@ -127,10 +224,10 @@ def local_fof_labels(pos, valid, box, ll, periodic=True, max_ncell=4096,
     Returns (n,) int32: for every slot, the slot index of its
     component's root (the member first in cell order); invalid slots
     are their own root. ``stats``, a dict, receives the number of
-    sweeps."""
+    sweeps, the sweeps' mode and the number of links
+    (:func:`fof_fixpoint`)."""
     if not isinstance(pos, torch.Tensor):
         pos = torch.as_tensor(np.asarray(pos), device=resolve_device())
-    n = pos.shape[0]
     if valid is not None and not isinstance(valid, torch.Tensor):
         valid = torch.as_tensor(np.asarray(valid), device=pos.device)
     with stage('fof_grid'):
@@ -140,11 +237,7 @@ def local_fof_labels(pos, valid, box, ll, periodic=True, max_ncell=4096,
         # device; read the count before the sweeps' first sync
         raise_on_bad_digits(pos.device)
     with stage('fof_sweeps'):
-        labels, sweeps, _ = fof_fixpoint(grid, ll)
+        labels, sweeps, _ = fof_fixpoint(grid, ll, stats=stats)
     if stats is not None:
         stats['sweeps'] = sweeps
-    # back to slot order: root slot = original slot of the root entry
-    root_slot = torch.index_select(grid.order, 0, labels)
-    out = torch.zeros(n, dtype=torch.int32, device=pos.device)
-    out[grid.order] = root_slot.to(torch.int32)
-    return out
+    return roots_in_slot_order(grid, labels)

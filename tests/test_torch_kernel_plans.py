@@ -5,8 +5,9 @@ scratch plan (``ops/radix_cuda.rank_plan``) and the LSD digits of the
 keys it orders (``ops/radix.digit_plan``), the Poisson draw's tiles,
 alignment shift, scratch and list capacity
 (``ops/threefry_cuda.poisson_plan``, ``cell_capacity``) and the FOF
-sweep's byte count (``ops/fof_cuda.sweep_bytes``), against the limits
-of the H100 and the constants compiled into ``csrc/*.cu``."""
+kernels' byte counts (``ops/fof_cuda.sweep_bytes``, ``link_*_bytes``,
+``fixpoint_bytes``), against the limits of the H100 and the constants
+compiled into ``csrc/*.cu``."""
 
 import os
 import re
@@ -130,7 +131,7 @@ def test_plans_match_the_kernel_sources():
     for name in ('SCR_ITERS', 'SCR_OVERFLOW', 'SCR_HASHES', 'SCR_TOTAL',
                  'SCR_OCCUPIED', 'SCR_ZEROS', 'SCR_TICKET'):
         assert _define('threefry.cu', name) == getattr(threefry_cuda, name)
-    assert _define('fof_sweep.cu', 'MAX_OFFSETS') == fof_cuda.MAX_OFFSETS
+    assert _define('fof_sweep.cu', 'SWEEP_THREADS') == fof_cuda.SWEEP_THREADS
 
 
 # (alphabet, passes, base): the 512^3 and 1024^3 paint buckets, the
@@ -153,6 +154,34 @@ def test_sweep_bytes(n):
     # f4 positions with int32 ids: 37 bytes a query; f8 with int64: 53
     assert fof_cuda.sweep_bytes(n, 4, 4) == 37 * n
     assert fof_cuda.sweep_bytes(n, 8, 8) == 53 * n
+
+
+# the FOF flow's grid (1077^3 cells, n = 1e7, E links), a grid of int64
+# ids at f8, and a tiny one
+FOF_GRIDS = [((1077, 1077, 1077), 10002365, 4, 4, 337000),
+             ((2048, 1024, 1024), 5000, 8, 8, 12),
+             ((1, 2, 3), 1, 4, 4, 0)]
+
+
+@pytest.mark.parametrize('ncell,n,pb,kb,E', FOF_GRIDS)
+def test_link_kernel_bytes(ncell, n, pb, kb, E):
+    ncol = 4 * (ncell[0] * ncell[1] + 1)
+    assert fof_cuda.column_bytes(ncell) == ncol
+    if ncell[0] == 1077:
+        assert ncol == 4 * 1159930              # 4.6 MB: fits the L2
+    q = 3 * pb + 12 + kb + 1                    # a query's inputs
+    assert fof_cuda.link_count_bytes(n, pb, kb, ncell) == n * (q + 4) + ncol
+    assert fof_cuda.link_fill_bytes(n, E, pb, kb, ncell) \
+        == n * q + 8 * (n + 1) + ncol + 4 * E
+    # row offsets, labels in and out, the links: 16 B a particle and 4 a
+    # link (the labels a link gathers are the labels read once)
+    assert fof_cuda.links_sweep_bytes(n, E) == 16 * n + 8 + 4 * E
+    # the whole fixpoint: 29 + 8 S bytes a particle at f4 with int32 ids
+    for sweeps in (1, 7):
+        assert fof_cuda.fixpoint_bytes(n, sweeps, pb, kb) \
+            == n * (q + 8 * sweeps)
+    if pb == kb == 4:
+        assert fof_cuda.fixpoint_bytes(n, 7, 4, 4) == n * (29 + 56)
 
 
 POISSON_N = [1, 3, 16383, 16384, 16385, 2 ** 20 + 3, 1024 ** 3]

@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
-drives five paths through the user entry points:
+drives six paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
@@ -30,6 +30,13 @@ drives five paths through the user entry points:
 - the FFTRecon path: that catalog as data, ~1e8 uniform randoms (seed
   84), FFTRecon(Nmesh=512, bias=2, f=0.77, R=15, scheme='LGS') and
   FFTPower(mode='1d') of the reconstructed field;
+- the CLASS path (after the lognormal path): the Boltzmann library
+  built with g++, the native solve against the scipy path, Planck15
+  from its shipped table and one fresh solve; the lognormal flow with
+  the default LinearPower(Planck15, 0.55) (the CLASS transfer); on its
+  mesh and catalog, compute(Nmesh=...) down and up, preview, sort and
+  DistributedRNG.choice; HalofitPower, ZeldovichPower,
+  CorrelationFunction and LinearNbody;
 
 and LinearMesh at the same scale against its exact expectation. Every
 check is an ``assert`` or a raise, so any failure exits non-zero.
@@ -1149,6 +1156,347 @@ def lognormal_stages(cat):
     emit({'phase': 'lognormal_stages', 'reps': LN_REPS, 'ms': summary})
 
 
+# the CLASS path: the lognormal flow with the default (CLASS) LinearPower;
+# the native solver's checks at the k values and tolerances of
+# tests/test_boltzmann_native.py; one fresh solve, Planck15 at h = 0.7,
+# whose sigma8 the native solve gives on the CPU
+CLASS_KS = (1e-4, 0.05, 0.6)
+CLASS_RTOL = {'phi': 2e-4, 'psi': 2e-4, 'd_cdm': 2e-4, 'd_b': 2e-4,
+              't_b': 2e-4, 'd_ncdm': 3e-3}
+CLASS_FRESH_SIGMA8 = 0.84576084112253
+# draws of the choice checks, and how many of them the CPU repeats
+CHOICE_N, CHOICE_CPU_N, CHOICE_K = 10 ** 7, 10 ** 6, 1000
+
+
+def class_linear_power():
+    from nbodykit_tpu_torch import cosmology
+    return cosmology.LinearPower(cosmology.Planck15, 0.55)
+
+
+def class_catalog():
+    """The benchmark's Data phase with the default transfer: the CLASS
+    LinearPower (Planck15's shipped table), then the LogNormalCatalog."""
+    from nbodykit_tpu_torch.source.catalog import LogNormalCatalog
+    return LogNormalCatalog(class_linear_power(), nbar=LN_N / LN_BOX ** 3,
+                            BoxSize=LN_BOX, Nmesh=LN_NMESH, bias=LN_BIAS,
+                            seed=LN_SEED)
+
+
+def class_engine_checks():
+    """The Boltzmann library's build, the native solve against the
+    scipy BDF path, Planck15 from its shipped table, and one fresh
+    solve into a temporary cache."""
+    import tempfile
+    from nbodykit_tpu_torch import _build
+    from nbodykit_tpu_torch import cosmology
+    from nbodykit_tpu_torch.cosmology import boltzmann
+
+    lib = 'boltzmann_kernel'
+    t0 = time.perf_counter()
+    built = bool(_build.build_all([lib]))
+    build_s = time.perf_counter() - t0 if built else None
+    _build.load_host(lib)
+    emit({'phase': 'class_build', 'library': lib, 'compiler': 'g++',
+          'flags': _build.HOST_FLAGS, 'built_here': built,
+          'build_s': build_s})
+
+    c = cosmology.Planck15
+    lna = np.sort(np.log(1.0 / (1.0 + np.array([9.0, 1.0, 0.0]))))
+    nat = boltzmann.BoltzmannSolver(c._bg, c._th)
+    py = boltzmann.BoltzmannSolver(c._bg, c._th, use_native=False)
+    modes = []
+    for k in CLASS_KS:
+        a, t_nat = timed_host(lambda: nat.solve_mode(k, lna))
+        b, t_py = timed_host(lambda: py.solve_mode(k, lna))
+        err = {q: float(np.max(np.abs(a[q] / b[q] - 1))) for q in CLASS_RTOL}
+        modes.append({'k': k, 'native_ms': t_nat, 'python_ms': t_py,
+                      'max_rel_err': err})
+        for q, tol in CLASS_RTOL.items():
+            assert err[q] <= tol, (k, q, err[q], tol)
+    emit({'phase': 'class_native', 'cosmology': 'Planck15', 'z': [9, 1, 0],
+          'rtol': CLASS_RTOL, 'modes': modes})
+
+    real = boltzmann.BoltzmannSolver
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("Planck15 started a solve")
+    boltzmann.BoltzmannSolver = refuse
+    try:
+        shipped = c.clone()
+        s8, t_ship = timed_host(lambda: shipped.sigma8)
+    finally:
+        boltzmann.BoltzmannSolver = real
+    assert shipped.engine.source == 'shipped', shipped.engine.source
+    emit({'phase': 'class_shipped', 'cosmology': 'Planck15',
+          'key': shipped.engine._key(), 'source': shipped.engine.source,
+          'solvers_built': 0, 'sigma8': s8, 'host_ms': t_ship})
+
+    old = os.environ.get('NBKIT_TORCH_CLASS_CACHE')
+    with tempfile.TemporaryDirectory() as d:
+        os.environ['NBKIT_TORCH_CLASS_CACHE'] = d
+        try:
+            fresh = c.clone(h=0.7)
+            s8, t_fresh = timed_host(lambda: fresh.sigma8)
+            written = os.listdir(d)
+        finally:
+            if old is None:
+                del os.environ['NBKIT_TORCH_CLASS_CACHE']
+            else:
+                os.environ['NBKIT_TORCH_CLASS_CACHE'] = old
+    rel = abs(s8 / CLASS_FRESH_SIGMA8 - 1)
+    emit({'phase': 'class_fresh', 'cosmology': 'Planck15.clone(h=0.7)',
+          'source': fresh.engine.source,
+          'k_modes': int(len(fresh.engine._tables['k'])),
+          'host_s': t_fresh / 1e3, 'sigma8': s8,
+          'sigma8_cpu': CLASS_FRESH_SIGMA8, 'rel_err': rel, 'tol': 1e-6,
+          'cache_files': written})
+    assert fresh.engine.source == 'solved' and rel <= 1e-6, (s8, rel)
+    assert written == [fresh.engine._key() + '.npz'], written
+
+
+def timed_host(fn):
+    """(result, host ms) of one call of ``fn``, the card drained before
+    and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def class_flow():
+    """The lognormal benchmark flow with the CLASS LinearPower at full
+    size: Data and Algorithm once with every kernel's launches counted,
+    the lognormal gates, then one warm-up and LN_REPS timed calls of
+    each."""
+    with counted_launches() as launches:
+        torch.cuda.reset_peak_memory_stats()
+        cat = class_catalog()
+        torch.cuda.synchronize()
+        peak_data = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh, r = lognormal_fftpower(cat)
+        torch.cuda.synchronize()
+        peak_alg = torch.cuda.max_memory_allocated()
+    for k in ('threefry_fill', 'poisson_cells', 'paint_deposit',
+              'radix_rank'):
+        assert launches[k] >= 1, "%s was not launched on the CLASS path" % k
+    assert launches['poisson_threefry'] == 0, launches
+
+    nbar = LN_N / LN_BOX ** 3
+    nexp = nbar * LN_BOX ** 3
+    N = len(cat)
+    assert abs(N - nexp) <= 5 * np.sqrt(nexp), (N, nexp)
+    P, modes, k = (r.power['power'].real, r.power['modes'],
+                   r.power['k'])
+    sel = (modes > 0) & (k > 0.005) & (k < 0.03)
+    plin = class_linear_power()
+    assert plin.transfer == 'CLASS'
+    ratio = float(np.sum(modes[sel] * (P[sel] - 1.0 / nbar))
+                  / np.sum(modes[sel] * LN_BIAS ** 2 * plin(k[sel])))
+    assert np.isfinite(P[modes > 0]).all()
+    assert 0.85 <= ratio <= 1.15, "large-scale bias ratio %r" % ratio
+    del r
+    class_catalog()
+    _, t_data = spread(class_catalog, LN_REPS)
+    lognormal_fftpower(cat)
+    _, t_alg = spread(lambda: lognormal_fftpower(cat), LN_REPS)
+    emit({'phase': 'class_flow', 'transfer': plin.transfer,
+          'sigma8': plin.sigma8, 'nmesh': LN_NMESH, 'box': LN_BOX,
+          'nbar': nbar, 'N': N, 'N_expected': nexp,
+          'N_gate': 5 * np.sqrt(nexp),
+          'bias_ratio_0.005_0.03': ratio, 'bias_gate': [0.85, 1.15],
+          'peak_gb_data': peak_data / 1e9,
+          'peak_gb_algorithm': peak_alg / 1e9,
+          'launches': {n: launches[n] for n in (
+              'threefry_fill', 'poisson_threefry', 'poisson_cells',
+              'paint_deposit', 'radix_rank')},
+          'reps': LN_REPS, 'data_ms': t_data, 'algorithm_ms': t_alg})
+    return cat, mesh, launches
+
+
+def peak_of(fn):
+    """(result, {median, min, max} CUDA-event ms, peak GB allocated):
+    one warm-up call, then LN_REPS timed calls, each with the previous
+    result freed; the peak is the last call's."""
+    fn()
+    ts = []
+    for _ in range(LN_REPS):
+        out = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, t = timed(fn)
+        ts.append(t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return out, {'median': float(np.median(ts)), 'min': min(ts),
+                 'max': max(ts)}, peak
+
+
+def p0_of(field, kedges):
+    """(P0, modes) of a complex field in the bins ``kedges``: |delta_k|^2
+    V with the DC mode cleared, binned by ``project_to_basis`` as FFTPower
+    bins it, with no transform on the way."""
+    from nbodykit_tpu_torch.algorithms.fftpower import project_to_basis
+    from nbodykit_tpu_torch.base.mesh import Field
+    v = field.value
+    p3d = (v * v.conj()).to(torch.complex128) \
+        * float(np.prod(field.pm.BoxSize))
+    p3d[0, 0, 0] = 0
+    (_, _, P, N), _ = project_to_basis(Field(p3d, field.pm, 'complex'),
+                                       [kedges, np.array([-1.0, 1.0])])
+    return np.squeeze(P).real, np.squeeze(N)
+
+
+def class_resample(mesh):
+    """The flow's 1024^3 mesh resampled down (the whole compute, then
+    the resample alone on its complex field; P0 below half the 512^3
+    Nyquist equal to the 1024^3 one: the modes are copied unscaled), a
+    512^3 mesh resampled up (the same two timings), and a 256^3 preview
+    against the sum of the 256^3 field (at LN_NMESH = 1024)."""
+    from nbodykit_tpu_torch.base.mesh import FieldMesh
+    half, quarter = LN_NMESH // 2, LN_NMESH // 4
+    _, t_whole, pk_whole = peak_of(
+        lambda: mesh.compute(mode='complex', Nmesh=half))
+    torch.cuda.empty_cache()
+    big = mesh.compute(mode='complex')
+    small, t_down, pk_down = peak_of(lambda: mesh._resample(big, half))
+    kedges = np.arange(0.0, 0.5 * np.pi * half / LN_BOX, 0.005)
+    pb, nb = p0_of(big, kedges)
+    del big
+    torch.cuda.empty_cache()
+    ps, ns = p0_of(small, kedges)
+    ok = nb > 0
+    rel = float(np.max(np.abs(ps[ok] - pb[ok])
+                       / np.maximum(np.abs(pb[ok]), 1e-300)))
+    assert np.array_equal(ns, nb) and rel <= 1e-6, rel
+
+    small_mesh = FieldMesh(small)
+    up, t_up, pk_up = peak_of(lambda: small_mesh._resample(small, LN_NMESH))
+    assert tuple(up.value.shape) == (LN_NMESH, LN_NMESH, LN_NMESH // 2 + 1)
+    del up
+    torch.cuda.empty_cache()
+    up, t_up_whole, pk_up_whole = peak_of(
+        lambda: small_mesh.compute(mode='complex', Nmesh=LN_NMESH))
+    del up, small, small_mesh
+    torch.cuda.empty_cache()
+
+    pv, t_pv, pk_pv = peak_of(
+        lambda: mesh.preview(axes=[0, 1], Nmesh=quarter))
+    fq = mesh.compute(mode='real', Nmesh=quarter)
+    total = float(fq.value.double().sum())
+    prel = abs(float(pv.astype('f8').sum()) / total - 1)
+    assert pv.shape == (quarter, quarter) and prel <= 1e-5, (pv.shape,
+                                                             prel)
+    del fq
+    torch.cuda.empty_cache()
+    emit({'phase': 'class_resample', 'down': {
+              'from': LN_NMESH, 'to': half, 'resample_ms': t_down,
+              'resample_peak_gb': pk_down, 'compute_ms': t_whole,
+              'compute_peak_gb': pk_whole, 'bins_checked': int(ok.sum()),
+              'p0_max_rel_err': rel, 'tol': 1e-6},
+          'up': {'from': half, 'to': LN_NMESH, 'resample_ms': t_up,
+                 'resample_peak_gb': pk_up, 'compute_ms': t_up_whole,
+                 'compute_peak_gb': pk_up_whole},
+          'preview': {'nmesh': quarter, 'axes': [0, 1], 'ms': t_pv,
+                      'peak_gb': pk_pv, 'total_rel_err': prel,
+                      'tol': 1e-5}})
+
+
+def class_sort(cat):
+    """CatalogSource.sort on the flow's catalog by a scalar column, both
+    ways: ordered, and a permutation of the input."""
+    cat['x'] = cat['Position'][:, 0]
+    recs = {}
+    for reverse in (False, True):
+        def run():
+            return cat.sort('x', reverse=reverse)
+        run()
+        out, t = spread(run, LN_REPS)
+        x, idx = out['x'], out['Index']
+        d = x[1:] - x[:-1]
+        assert bool((d <= 0).all() if reverse else (d >= 0).all())
+        assert bool((torch.bincount(idx, minlength=len(cat)) == 1).all())
+        assert torch.equal(x, cat['x'][idx])
+        recs['reverse' if reverse else 'forward'] = t
+        del out, x, idx, d
+    columns = cat.columns
+    del cat['x']
+    emit({'phase': 'class_sort', 'N': len(cat), 'key': 'Position[:, 0]',
+          'columns': columns, 'ms': recs})
+
+
+def class_choice():
+    """DistributedRNG.choice at CHOICE_N draws on the card, with and
+    without p; the first CHOICE_CPU_N equal the CPU's draws bit for
+    bit."""
+    from nbodykit_tpu_torch.rng import DistributedRNG
+    p = np.random.RandomState(LN_SEED).dirichlet(np.ones(CHOICE_K))
+    recs = {}
+    for label, kw in (('uniform', {}), ('p', {'p': p})):
+        def run():
+            return DistributedRNG(LN_SEED, CHOICE_N).choice(CHOICE_K, **kw)
+        run()
+        out, t = spread(run, LN_REPS)
+        cpu = DistributedRNG(LN_SEED, CHOICE_CPU_N, device='cpu').choice(
+            CHOICE_K, **kw)
+        assert out.shape == (CHOICE_N,) and out.dtype == torch.int64
+        assert int(out.min()) >= 0 and int(out.max()) < CHOICE_K
+        assert torch.equal(out[:CHOICE_CPU_N].cpu(), cpu), label
+        recs[label] = dict(t, mean=float(out.double().mean()))
+    emit({'phase': 'class_choice', 'draws': CHOICE_N, 'choices': CHOICE_K,
+          'cpu_equal_draws': CHOICE_CPU_N, 'ms': recs})
+
+
+def class_host(cat):
+    """The host-side spectra at Planck15, z = 0.55, and LinearNbody on
+    the flow's particles on the card."""
+    from nbodykit_tpu_torch import cosmology
+    c, z = cosmology.Planck15, 0.55
+    k = np.logspace(-3, 1, 200)
+    r = np.linspace(1.0, 200.0, 200)
+    hf, t_hf = timed_host(lambda: cosmology.HalofitPower(c, z)(k))
+    zk = np.logspace(-3, 0, 20)
+    zp, t_z = timed_host(lambda: cosmology.ZeldovichPower(c, z)(zk))
+    cf, t_cf = timed_host(
+        lambda: cosmology.CorrelationFunction(class_linear_power())(r))
+    for v in (hf, zp, cf):
+        assert np.isfinite(v).all()
+    plin = class_linear_power()(k)
+    assert (hf >= 0.9 * plin).all()        # halofit adds power
+    nb = cosmology.LinearNbody(c)
+    disp, vel = cat['Position'], cat['Velocity']
+
+    def run():
+        return nb.integrate(None, disp, vel, 1.0 / (1.0 + z), 1.0)
+    run()
+    (d2, v2), t_nb = spread(run, LN_REPS)
+    assert d2.device == disp.device and torch.isfinite(d2).all()
+    emit({'phase': 'class_host', 'halofit_host_ms': t_hf,
+          'zeldovich_host_ms': t_z, 'zeldovich_k': len(zk),
+          'correlation_host_ms': t_cf, 'linear_nbody_N': len(cat),
+          'linear_nbody_ms': t_nb,
+          'growth_ratio': float((d2[:1000].double()
+                                 / disp[:1000].double()).mean())})
+
+
+def class_path():
+    """The CLASS slice on the card: the engine's checks, the flow at
+    full size, then resampling, sort, choice and the host spectra on
+    its outputs. Returns the flow's launch counts."""
+    class_engine_checks()
+    cat, mesh, launches = class_flow()
+    class_resample(mesh)
+    del mesh
+    torch.cuda.empty_cache()
+    class_sort(cat)
+    torch.cuda.empty_cache()
+    class_choice()
+    class_host(cat)
+    del cat
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the convpower path: benchmarks/test_convpower.py at desi_like, data and
 # randoms (10 nbar) from seeds 42 and 84
 CP_BOX, CP_NMESH, CP_N, CP_DK, CP_POLES = 5000.0, 1024, 1e7, 0.005, [0, 2, 4]
@@ -1556,14 +1904,22 @@ def fof_mode_checks(label, pos, box, ll):
             plain_ms=plain_ms, links_plain_ms=csr_plain_ms,
             changed=int((p != lab).sum()))
     assert at['fixpoint']['changed'] == 0 < at['first_sweep']['changed']
+    # the library call beside the links sweep: one scatter_reduce of the
+    # same CSR min, its index and source operands made beforehand
+    owner = torch.repeat_interleave(
+        torch.arange(n, device='cuda'), row[1:] - row[:-1])
+    vals = lab0[links.long()]
+    scatter_ms = cuda_ms(lambda: lab0.scatter_reduce(0, owner, vals, 'amin'),
+                         reps=20)
+    del owner, vals
     kmax = int(torch.unique_consecutive(grid.flat_s,
                                         return_counts=True)[1].max())
 
-    def rec(ms, plain_ms, nbytes, **extra):
+    def rec(ms, plain_ms, nbytes, library_ms=None, **extra):
         b_ms, b_by = bound(nbytes, 0, F32_FLOPS)
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                    bound_by=b_by, max_abs_err=0, share_of_bound=b_ms / ms,
-                    **extra)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=0,
+                    share_of_bound=b_ms / ms, **extra)
     where = '%s f%d n=%d, %s cells, kmax %d, E=%d' % (
         label, 8 * pb, n, 'x'.join(str(int(c)) for c in grid.ncell_np),
         kmax, E)
@@ -1575,10 +1931,10 @@ def fof_mode_checks(label, pos, box, ll):
                              fc.link_fill_bytes(n, E, pb, kb, grid.ncell_np),
                              at=where),
         'links': rec(at['first_sweep']['links_ms'],
-                     at['first_sweep']['links_plain_ms'],
-                     fc.links_sweep_bytes(n, E),
+                     at['first_sweep']['plain_ms'],
+                     fc.links_sweep_bytes(n, E), library_ms=scatter_ms,
                      at_fixpoint_ms=at['fixpoint']['links_ms'],
-                     sweep_plain_ms=at['first_sweep']['plain_ms'],
+                     links_plain_ms=at['first_sweep']['links_plain_ms'],
                      at=where + ', CSR min'),
         'search': rec(at['first_sweep']['search_ms'],
                       at['first_sweep']['plain_ms'],
@@ -1814,8 +2170,9 @@ def main():
 
     name = torch.cuda.get_device_name(0)
     smi = smi_query('name,power.limit')
+    # the CUDA kernels; class_path builds and times the Boltzmann library
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(_build.sources())
     build_s = time.perf_counter() - t0
     for src, log in logs.items():
         print('nvcc %s:\n%s' % (src, log), file=sys.stderr)
@@ -1857,6 +2214,8 @@ def main():
     profile_main_path(ln_run, 'lognormal_1024')
     del ln_cat, ln_run
     torch.cuda.empty_cache()
+    cl_launches = class_path()
+    torch.cuda.empty_cache()
     tf_rec = time_threefry(LN_NMESH ** 3, hash_opcodes)
     torch.cuda.empty_cache()
 
@@ -1875,12 +2234,13 @@ def main():
     del fof_cat
     torch.cuda.empty_cache()
 
-    paths = ('main_512', 'lognormal_1024', 'convpower_1024', 'fof_1024',
-             'fftrecon_512')
+    paths = ('main_512', 'lognormal_1024', 'class_1024', 'convpower_1024',
+             'fof_1024', 'fftrecon_512')
 
     def counted(name):
         by_path = dict(zip(paths, (launches[name], ln_launches[name],
-                                   cp_launches[name], fof_launches[name],
+                                   cl_launches[name], cp_launches[name],
+                                   fof_launches[name],
                                    rc_launches[name])))
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)

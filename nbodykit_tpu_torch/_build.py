@@ -1,13 +1,18 @@
-"""Build the hand-written CUDA kernels (``csrc/*.cu``) at first use.
+"""Build the hand-written CUDA kernels (``csrc/*.cu``) and the host
+libraries at first use.
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, loaded with ``ctypes``. Libraries go
-to ``nbodykit_tpu_torch/_build/`` under a name that carries a hash of
-the source and the flags, so an edit rebuilds. :func:`build_all`
-starts one ``nvcc`` per source, all together.
+Each CUDA source is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. The
+host libraries (``HOST_SOURCES``: the native Einstein-Boltzmann solver,
+the repo's root ``csrc/boltzmann_kernel.cpp``) are compiled by ``g++``
+with ``HOST_FLAGS``, the flags the JAX package builds the same source
+with, so both packages compute the same bits. Libraries go to
+``nbodykit_tpu_torch/_build/`` under a name that carries a hash of the
+source and the flags, so an edit rebuilds. :func:`build_all` starts one
+compiler per source, all together.
 
-A missing ``nvcc`` or a failed build raises with the compiler's output;
-nothing falls back to the plain PyTorch versions.
+A missing compiler or a failed build raises with the compiler's output;
+nothing falls back to the plain versions.
 """
 
 import ctypes
@@ -19,10 +24,13 @@ import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, 'csrc')
+HOST_SRC_DIR = os.path.join(os.path.dirname(_HERE), 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
 
 FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
+HOST_FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17']
+HOST_SOURCES = ('boltzmann_kernel',)
 
 _libs = {}
 
@@ -47,29 +55,49 @@ def nvcc():
                        "$CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def gxx():
+    """Path of ``g++`` (on PATH; ``nvcc`` needs it as its host
+    compiler)."""
+    found = shutil.which('g++')
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH; the host libraries cannot "
+                       "be built")
+
+
+def _host(name):
+    return name in HOST_SOURCES
+
+
 def _target(name):
-    src = os.path.join(SRC_DIR, name + '.cu')
+    if _host(name):
+        src, flags = os.path.join(HOST_SRC_DIR, name + '.cpp'), HOST_FLAGS
+    else:
+        src, flags = os.path.join(SRC_DIR, name + '.cu'), FLAGS
     with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(FLAGS).encode())
+        digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
     return src, os.path.join(BUILD_DIR, 'lib%s_%s.so'
                              % (name, digest.hexdigest()[:16]))
 
 
 def build_all(names=None):
-    """Compile every kernel not built yet, one ``nvcc`` per source, all
-    started together. Returns {name: compiler output} for the sources
-    compiled by this call (``-Xptxas -v`` register/spill report)."""
-    names = sources() if names is None else list(names)
+    """Compile every library not built yet, one compiler per source
+    (``nvcc`` for the kernels, ``g++`` for ``HOST_SOURCES``), all started
+    together. ``names`` defaults to every kernel and host library.
+    Returns {name: compiler output} for the sources compiled by this
+    call (``-Xptxas -v`` register/spill report for the kernels)."""
+    names = sources() + list(HOST_SOURCES) if names is None \
+        else list(names)
     todo = [(n,) + _target(n) for n in names]
     todo = [t for t in todo if not os.path.exists(t[2])]
     if not todo:
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    exe = nvcc()
     procs = []
     for name, src, lib in todo:
         tmp = '%s.%d.tmp.so' % (lib[:-3], os.getpid())
-        p = subprocess.Popen([exe] + FLAGS + ['-o', tmp, src],
+        cmd = [gxx()] + HOST_FLAGS if _host(name) else [nvcc()] + FLAGS
+        p = subprocess.Popen(cmd + ['-o', tmp, src],
                              stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         procs.append((name, lib, tmp, p))
@@ -84,8 +112,23 @@ def build_all(names=None):
         else:
             os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("nvcc failed to build %s" % '\n'.join(failed))
+        raise RuntimeError("failed to build %s" % '\n'.join(failed))
     return logs
+
+
+def load_host(name):
+    """The loaded host library ``name`` (one of ``HOST_SOURCES``), built
+    first if needed."""
+    if not _host(name):
+        raise ValueError("%r is not a host library (%s)"
+                         % (name, HOST_SOURCES))
+    lib = _libs.get(name)
+    if lib is None:
+        _, path = _target(name)
+        if not os.path.exists(path):
+            build_all([name])
+        lib = _libs[name] = ctypes.CDLL(path)
+    return lib
 
 
 def load(name):

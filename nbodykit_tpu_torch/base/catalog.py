@@ -183,3 +183,22 @@ class CatalogSource(CatalogSourceBase):
     def Index(self):
         return torch.arange(self._size, dtype=torch.int64,
                             device=self.device)
+
+    def sort(self, keys, reverse=False, usecols=None):
+        """An ArrayCatalog of the ``usecols`` columns (default: all)
+        sorted by one or more scalar columns, the first key most
+        significant: a stable argsort of the last key, then a stable
+        pass for each earlier key. ``reverse`` flips the whole order, so
+        ties come out in reverse catalog order too, as on one device in
+        the JAX package."""
+        from ..source.catalog.array import ArrayCatalog
+        if isinstance(keys, str):
+            keys = [keys]
+        cols = usecols or self.columns
+        order = torch.argsort(self[keys[-1]], stable=True)
+        for key in reversed(keys[:-1]):
+            order = order[torch.argsort(self[key][order], stable=True)]
+        if reverse:
+            order = order.flip(0)
+        data = {c: self[c][order] for c in cols}
+        return ArrayCatalog(data, device=self.device, **self.attrs)

@@ -75,6 +75,16 @@ class Field(object):
         assert self.kind == 'real'
         return self.pm.readout(self.value, pos, resampler=resampler)
 
+    def preview(self, axes=None):
+        """Project the (real) field onto ``axes`` by summing the others;
+        returns host numpy."""
+        v = self.value
+        if axes is None:
+            return as_numpy(v)
+        axes = tuple(axes) if np.iterable(axes) else (axes,)
+        other = tuple(i for i in range(3) if i not in axes)
+        return as_numpy(v.sum(dim=other))
+
     def numpy(self):
         return as_numpy(self.value)
 
@@ -175,13 +185,10 @@ class MeshSource(object):
 
     def compute(self, mode='real', Nmesh=None):
         """Produce the field: the native representation, then the action
-        pipeline (alternating r2c/c2r as needed)."""
+        pipeline (alternating r2c/c2r as needed), then, when ``Nmesh``
+        differs from the mesh's, a Fourier-space resample to it."""
         if mode not in ('real', 'complex'):
             raise ValueError("mode must be 'real' or 'complex'")
-        if Nmesh is not None and np.any(np.atleast_1d(Nmesh)
-                                        != self.pm.Nmesh):
-            raise NotImplementedError("resampling to another Nmesh is not "
-                                      "ported yet")
         native_real = (type(self).to_real_field
                        is not MeshSource.to_real_field)
         field = self.to_field('real' if native_real else 'complex')
@@ -191,11 +198,58 @@ class MeshSource(object):
             elif amode == 'complex' and field.kind != 'complex':
                 field = field.r2c()
             field = field.apply(func, kind=kind)
+        if Nmesh is not None and np.any(np.atleast_1d(Nmesh)
+                                        != self.pm.Nmesh):
+            field = self._resample(field, Nmesh)
         if mode == 'real' and field.kind != 'real':
             field = field.c2r()
         elif mode == 'complex' and field.kind != 'complex':
             field = field.r2c()
         return field
+
+    def preview(self, axes=None, Nmesh=None):
+        """Project the (optionally ``Nmesh``-resampled) real field onto
+        ``axes`` and return host numpy."""
+        return self.compute(mode='real', Nmesh=Nmesh).preview(axes=axes)
+
+    def _resample(self, field, Nmesh):
+        """Fourier-space resample to a new mesh size: mode truncation
+        (down) or zero-padding (up), as the JAX package does it.
+
+        On each of the transposed layout's first two axes (ky, kx) the
+        kept modes are two contiguous runs, the first ``ceil(n/2)``
+        non-negative frequencies and the last ``n - ceil(n/2)``, with
+        ``n`` the smaller of the two sizes; on kz they are a prefix of
+        ``min(sN2, dN2)//2 + 1`` planes. So the copy is at most four
+        block copies into the zeroed destination. Modes are copied
+        unscaled, Nyquist planes included, with no hermitian repair."""
+        if field.kind != 'complex':
+            field = field.r2c()
+        src = field.value
+        pm2 = self.pm.reshape(Nmesh)
+        out = torch.zeros(pm2.shape_complex, dtype=src.dtype,
+                          device=src.device)
+        runs = [_resample_runs(s, d) for s, d in
+                zip(src.shape[:2], out.shape[:2])]
+        nz = min(src.shape[2], out.shape[2])
+        for (s1, d1, n1) in runs[0]:
+            for (s0, d0, n0) in runs[1]:
+                out[d1:d1 + n1, d0:d0 + n0, :nz] = \
+                    src[s1:s1 + n1, s0:s0 + n0, :nz]
+        return Field(out, pm2, 'complex', field.attrs)
+
+
+def _resample_runs(n_src, n_dst):
+    """The (source start, destination start, length) runs of the modes a
+    resample keeps on one axis of length ``n_src`` -> ``n_dst``: the
+    first ``half`` frequencies and the last ``count - half``."""
+    count = min(n_src, n_dst)
+    half = (count + 1) // 2
+    runs = [(0, 0, half)]
+    if count - half:
+        runs.append((n_src - (count - half), n_dst - (count - half),
+                     count - half))
+    return runs
 
 
 class FieldMesh(MeshSource):

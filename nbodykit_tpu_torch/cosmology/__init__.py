@@ -1,13 +1,11 @@
-"""Cosmology: background evolution and linear power spectra (counterpart
-of ``nbodykit_tpu/cosmology/``, numpy and scipy only).
+"""Cosmology: background evolution, power spectra, correlation functions
+(counterpart of ``nbodykit_tpu/cosmology/``, numpy and scipy only).
 
-The JAX package serves the reference's classylss surface with an
-in-repo Einstein-Boltzmann engine plus the analytic Eisenstein-Hu
-transfer functions the reference also ships
-(``cosmology/power/transfers.py:73-255``). This port has the
-background, the thermodynamics and the Eisenstein-Hu path; the engine
-(CLASS transfer, sigma8), HalofitPower, ZeldovichPower and the
-correlation functions are not ported yet (ROADMAP, Queue A).
+As in the JAX package, the reference's classylss surface is served by an
+in-repo Einstein-Boltzmann engine (``boltzmann.py``, with the native
+solver of the root ``csrc/boltzmann_kernel.cpp``) plus the analytic
+Eisenstein-Hu transfer functions the reference also ships
+(``cosmology/power/transfers.py:73-255``).
 
 Built-in parameter sets mirror the reference's
 (``cosmology/__init__.py``): astropy parameter values + the published
@@ -18,6 +16,11 @@ this environment, so the values are inlined and documented).
 from .cosmology import Cosmology
 from .background import Perturbation, MatterDominated, RadiationDominated
 from .power.linear import LinearPower, EHPower, NoWiggleEHPower
+from .power.halofit import HalofitPower
+from .power.zeldovich import ZeldovichPower
+from .correlation import (CorrelationFunction, pk_to_xi, xi_to_pk)
+from .power.galaxy import FNLGalaxyPower
+from .linearnbody import LinearNbody
 
 # Planck13: astropy Planck13 (H0=67.77, Om0=0.30712, Ob0=0.048252,
 # Tcmb0=2.7255, Neff=3.046, one 0.06 eV neutrino) + Planck 2014 XVI
@@ -50,5 +53,7 @@ WMAP9 = Cosmology(h=0.6932, T0_cmb=2.725, Omega0_b=0.04628,
                   tau_reio=0.081)
 
 __all__ = ['Cosmology', 'LinearPower', 'EHPower', 'NoWiggleEHPower',
-           'Perturbation', 'MatterDominated', 'RadiationDominated',
+           'HalofitPower', 'ZeldovichPower', 'CorrelationFunction',
+           'pk_to_xi', 'xi_to_pk', 'Perturbation', 'MatterDominated',
+           'RadiationDominated', 'FNLGalaxyPower', 'LinearNbody',
            'Planck13', 'Planck15', 'WMAP5', 'WMAP7', 'WMAP9']

@@ -1,8 +1,9 @@
-"""The Cosmology calculator (a copy of ``nbodykit_tpu/cosmology/cosmology.py``).
+"""The Cosmology calculator (a copy of
+``nbodykit_tpu/cosmology/cosmology.py``).
 
 The JAX package serves the reference's classylss/CLASS surface with its
-in-repo Einstein-Boltzmann engine (``cosmology/boltzmann.py``). This
-copy keeps what needs no perturbation solve:
+in-repo Einstein-Boltzmann engine (``cosmology/boltzmann.py``); so does
+this copy:
 
 - CLASS-style parameter handling: canonical names + ``Omega_x``/
   ``Omega0_x`` aliases, little-omega (``omega_b = Omega_b h^2``)
@@ -18,11 +19,10 @@ copy keeps what needs no perturbation solve:
   (with inversion when ``tau_reio`` is the input).
 - ``clone``/``match``/``from_dict``/``from_file``/pickling, and the
   astropy-compat accessor names (``Odm0``, ``Onu(z)``, …).
+- Spectra: ``get_pk``/``get_pklin``/``get_transfer``/``sigma8``/
+  ``sigma8_z`` backed by the Boltzmann engine (shipped tables for the
+  built-in parameter sets, else a disk-cached solve).
 
-The Boltzmann engine behind Spectra (``get_pk``/``get_pklin``/
-``get_transfer``/``sigma8``/``sigma8_z``, the CLASS transfer) is not
-ported yet: :attr:`Cosmology.engine` raises ``NotImplementedError``
-(ROADMAP, Queue A), and so does every Spectra call that needs it.
 Numpy and scipy only.
 """
 
@@ -490,13 +490,14 @@ class Cosmology(object):
 
     @property
     def engine(self):
-        """The Einstein-Boltzmann engine backing Spectra: not ported
-        yet."""
-        raise NotImplementedError(
-            "the Boltzmann engine (CLASS transfer, sigma8, get_pklin) is "
-            "not ported yet (ROADMAP, Queue A: 'the CLASS transfer with "
-            "the native Boltzmann engine'); use "
-            "LinearPower(transfer='EisensteinHu')")
+        """The Einstein-Boltzmann engine backing Spectra."""
+        if '_engine' not in self._cache:
+            p = self._pars
+            self._cache['_engine'] = _boltz.BoltzmannEngine(
+                self._bg, self._th, A_s=p['A_s'], n_s=p['n_s'],
+                P_k_max=p['P_k_max'], P_z_max=p['P_z_max'],
+                k_pivot=p['k_pivot'])
+        return self._cache['_engine']
 
     # -- background: E(z), densities --------------------------------------
 
@@ -757,8 +758,15 @@ class Cosmology(object):
         """P(k,z): HaloFit-nonlinear when ``nonlinear=True``, else
         linear (reference Spectra.get_pk semantics)."""
         if self._pars['nonlinear']:
-            raise NotImplementedError(
-                "HalofitPower is not ported yet (ROADMAP, Queue A)")
+            from .power.halofit import HalofitPower
+            z = np.asarray(z, dtype='f8')
+            k = np.asarray(k, dtype='f8')
+            kb, zb = np.broadcast_arrays(k, z)
+            out = np.empty(kb.shape)
+            for zi in np.unique(zb):
+                m = zb == zi
+                out[m] = HalofitPower(self, float(zi))(kb[m])
+            return out if out.ndim else float(out)
         return self.get_pklin(k, z)
 
     def get_transfer(self, z=0.0):

@@ -18,10 +18,11 @@ Normalization:
   domination.  This agrees with the Boltzmann sigma8 to within the
   EH transfer accuracy (a few percent).
 
-``transfer='CLASS'`` needs the Boltzmann engine, which is not ported
-yet: it raises ``NotImplementedError``. On a torch tensor ``__call__``
-interpolates the (ln k, ln P) table on the tensor's device, the
-counterpart of the JAX package's ``jnp.interp`` branch.
+On a torch tensor ``__call__`` interpolates the (ln k, ln P) table on
+the tensor's device, the counterpart of the JAX package's ``jnp.interp``
+branch. The table runs from 1e-6 to 1e3 h/Mpc; with the CLASS transfer
+it takes the continuity-matched Eisenstein-Hu transfer beyond the
+engine's ``P_k_max``, as on numpy input.
 """
 
 import numpy as np

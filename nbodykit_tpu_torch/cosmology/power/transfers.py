@@ -2,10 +2,10 @@
 ``nbodykit_tpu/cosmology/power/transfers.py``).
 
 Reference: ``nbodykit/cosmology/power/transfers.py`` — CLASS (:8),
-EisensteinHu (:73), NoWiggleEisensteinHu (:184). The analytic
-Eisenstein & Hu 1998 (astro-ph/9709112) forms are implemented from the
-published paper. The CLASS transfer needs the Boltzmann engine, which
-is not ported yet: constructing it raises ``NotImplementedError``.
+EisensteinHu (:73), NoWiggleEisensteinHu (:184). The CLASS transfer is
+served by the port's Einstein-Boltzmann engine
+(``cosmology/boltzmann.py``); the analytic Eisenstein & Hu 1998
+(astro-ph/9709112) forms are implemented from the published paper.
 
 All transfers are normalized to T -> 1 as k -> 0 and take k in h/Mpc.
 """

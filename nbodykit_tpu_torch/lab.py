@@ -14,8 +14,10 @@ from .base.mesh import Field, FieldMesh, MeshSource  # noqa: F401
 from .binned_statistic import BinnedStatistic  # noqa: F401
 from .convert import (catalog_from_numpy, field_from_numpy,  # noqa: F401
                       key_from_numpy)
-from .cosmology import (Cosmology, LinearPower, Planck13,  # noqa: F401
-                        Planck15, WMAP5, WMAP7, WMAP9)
+from .cosmology import (Cosmology, CorrelationFunction,  # noqa: F401
+                        FNLGalaxyPower, HalofitPower, LinearNbody,
+                        LinearPower, Planck13, Planck15, WMAP5, WMAP7,
+                        WMAP9, ZeldovichPower)
 from .pmesh import ParticleMesh  # noqa: F401
 from .source.catalog import (ArrayCatalog, LogNormalCatalog,  # noqa: F401
                              MultipleSpeciesCatalog, RandomCatalog,

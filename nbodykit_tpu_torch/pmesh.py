@@ -262,6 +262,11 @@ class ParticleMesh(object):
                         .expand(N0, N1, N2).reshape(-1))
         return torch.stack(axes, dim=-1).to(torch_dtype(dtype))
 
+    def reshape(self, Nmesh):
+        """A ParticleMesh of another resolution on the same box, dtype
+        and device (for resampling)."""
+        return ParticleMesh(Nmesh, self.BoxSize, self.dtype, self.device)
+
     # -- paint / readout --------------------------------------------------
 
     def _to_cell_units(self, pos):

@@ -13,12 +13,13 @@ module computes the same values:
 - ``random_bits``, ``uniform`` and ``normal`` go through
   :func:`ops.threefry_cuda.threefry_fill`, ``poisson`` through
   :func:`ops.threefry_cuda.poisson_threefry`: the CUDA kernels for a
-  CUDA device, their plain versions on the CPU.
+  CUDA device, their plain versions on the CPU;
+- ``randint`` and ``choice`` follow ``jax.random`` (x64) on those draws.
 
-Bits, uniforms and Poisson counts (given the same lam) equal JAX's bit
-for bit. Normals use XLA's ``erf_inv`` arithmetic, but torch's
-``log1p`` is not XLA's: f32 normals differ from JAX's by at most a few
-ulp, f64 normals by ~1e-15.
+Bits, uniforms, integers, choices (with f8 probabilities) and Poisson
+counts (given the same lam) equal JAX's bit for bit. Normals use XLA's
+``erf_inv`` arithmetic, but torch's ``log1p`` is not XLA's: f32 normals
+differ from JAX's by at most a few ulp, f64 normals by ~1e-15.
 """
 
 import numpy as np
@@ -133,6 +134,115 @@ def poisson(key, lam, shape=None, device=None):
     return poisson_threefry(key, lam)
 
 
+def randint(key, shape, minval, maxval, device=None):
+    """JAX's ``random.randint`` at int64 (x64 on): two 64-bit
+    ``random_bits`` draws under ``split(key)``, the high one reduced
+    through the multiplier ``(2^32 mod span)^2 mod span``, as in JAX.
+    ``minval`` and ``maxval`` are Python ints with a span (1 when
+    ``maxval <= minval``) below 2^31, where the int64 arithmetic here is
+    exact and equals JAX's uint64 arithmetic."""
+    minval, maxval = int(minval), int(maxval)
+    span = maxval - minval if maxval > minval else 1
+    if span >= 2 ** 31:
+        raise ValueError("randint supports spans below 2^31, got %d"
+                         % span)
+    shape = tuple(shape)
+    device = resolve_device(device)
+    k1, k2 = split(key)
+    two32 = (1 << 32) % span
+    mult = two32 * two32 % span
+
+    def reduced(k):
+        # a 64-bit draw (hi << 32 | lo) mod span, from its two words
+        b = random_bits(k, 64, shape, device).view(torch.int64)
+        hi, lo = (b >> 32) & M32, b & M32
+        return ((hi % span) * two32 + lo % span) % span
+
+    offset = (reduced(k1) * mult + reduced(k2)) % span
+    return offset + minval
+
+
+# the block length of XLA's cumulative-sum rewrite on the CPU
+CUMSUM_BLOCK = 16
+
+
+def _sequential_cumsum(x):
+    """Inclusive prefix sums of the last axis, added left to right."""
+    out = torch.empty_like(x)
+    acc = x[..., 0]
+    out[..., 0] = acc
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+        out[..., j] = acc
+    return out
+
+
+def cumsum_xla(x):
+    """``jnp.cumsum`` of a 1-D tensor in XLA's CPU order, bit for bit:
+    up to ``CUMSUM_BLOCK`` elements a left-to-right sum; beyond, blocks
+    of ``CUMSUM_BLOCK`` summed left to right, each offset by the
+    exclusive prefix of the block totals, taken the same way. The
+    explicit order makes the sums the same on every device."""
+    n = x.numel()
+    if n <= CUMSUM_BLOCK:
+        return _sequential_cumsum(x)
+    m = -(-n // CUMSUM_BLOCK)
+    padded = torch.zeros(m * CUMSUM_BLOCK, dtype=x.dtype, device=x.device)
+    padded[:n] = x
+    inner = _sequential_cumsum(padded.reshape(m, CUMSUM_BLOCK))
+    outer = torch.zeros(m, dtype=x.dtype, device=x.device)
+    outer[1:] = cumsum_xla(inner[:, -1])[:-1]
+    return (inner + outer[:, None]).reshape(-1)[:n]
+
+
+def _on(x, device):
+    """``x`` (a tensor or array-like) as a tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device)
+
+
+def choice(key, choices, shape, p=None, device=None):
+    """JAX's ``random.choice(key, choices, shape, replace=True, p=p)``
+    at x64: without ``p`` a ``randint`` index; with ``p`` the left
+    ``searchsorted`` of ``p_cuml[-1] * (1 - uniform)`` in ``p_cuml``,
+    the cumulative sum in XLA's order (:func:`cumsum_xla`). ``choices``
+    is an int n (draw from arange(n)) or an array-like whose leading
+    axis is drawn from; the result has shape ``shape`` plus its trailing
+    axes, on ``device``."""
+    device = resolve_device(device)
+    shape = tuple(shape)
+    arr = _on(choices, device)
+    scalar = arr.dim() == 0
+    n = int(arr) if scalar else arr.shape[0]
+    n_draws = _size(shape)
+    if n_draws == 0:
+        dt = torch.int64 if scalar else arr.dtype
+        return torch.zeros(shape if scalar else shape + tuple(arr.shape[1:]),
+                           dtype=dt, device=device)
+    if n <= 0:
+        raise ValueError("a must be greater than 0 unless no samples are "
+                         "taken")
+    if p is None:
+        ind = randint(key, shape, 0, n, device)
+    else:
+        p = _on(p, device)
+        if not p.is_floating_point():
+            p = p.to(torch.float64)
+        if tuple(p.shape) != (n,):
+            raise ValueError("p must be None or a 1D vector with the same "
+                             "size as a.shape[axis]. p has shape %s and "
+                             "a.shape[axis] is %d." % (tuple(p.shape), n))
+        p_cuml = cumsum_xla(p)
+        dt = 'f8' if p.dtype == torch.float64 else 'f4'
+        u = uniform(key, shape, dt, device=device)
+        r = p_cuml[-1] * (1 - u)
+        ind = torch.searchsorted(p_cuml, r.reshape(-1)).reshape(shape)
+    if scalar:
+        return ind
+    return arr[ind]
+
+
 class DistributedRNG(object):
     """A stateful RandomState-like façade over the threefry draws,
     producing tensors of length ``size`` (+ itemshape) on ``device``.
@@ -181,6 +291,8 @@ class DistributedRNG(object):
         return p.to(torch_dtype(working_dtype(dtype)))
 
     def choice(self, choices, p=None, itemshape=None):
-        raise NotImplementedError(
-            "DistributedRNG.choice is not ported yet (ROADMAP, Queue A: "
-            "'DistributedRNG.choice')")
+        """Draws with replacement from ``choices`` (an int n or an
+        array), uniform or with probabilities ``p``, as
+        ``jax.random.choice`` under the next key."""
+        return choice(self._next_key(), choices, self._shape(itemshape),
+                      p=p, device=self.device)

@@ -127,11 +127,14 @@ def test_linear_power_numpy_and_tensor(transfer):
 
 
 def test_boltzmann_engine_not_ported_raises():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcosmo.LinearPower(tcosmo.Planck15, 0.0, transfer='CLASS')
-    with pytest.raises(NotImplementedError):
-        tcosmo.Planck15.sigma8
-    # what needs no perturbation solve is there
+    """The engine is ported now: what used to raise here (the CLASS
+    transfer, sigma8) equals the JAX package's, beside what needs no
+    perturbation solve."""
+    k = np.logspace(-4, 1, 40)
+    _close(tcosmo.LinearPower(tcosmo.Planck15, 0.0, transfer='CLASS')(k),
+           jcosmo.LinearPower(jcosmo.Planck15, 0.0, transfer='CLASS')(k),
+           1e-12)
+    assert tcosmo.Planck15.sigma8 == jcosmo.Planck15.sigma8
     assert tcosmo.Planck15.z_drag == jcosmo.Planck15.z_drag
 
 

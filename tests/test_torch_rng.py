@@ -210,8 +210,9 @@ def test_distributed_rng_matches_jax_call_for_call():
     lam = np.random.RandomState(2).uniform(0, 20, 500)
     np.testing.assert_array_equal(mine.poisson(torch.from_numpy(lam)).numpy(),
                                   np.asarray(ref.poisson(lam)))
-    with pytest.raises(NotImplementedError):
-        mine.choice([1, 2, 3])
+    # choice, the last draw method to be ported, continues the sequence
+    np.testing.assert_array_equal(mine.choice([1, 2, 3]).numpy(),
+                                  np.asarray(ref.choice([1, 2, 3])))
 
 
 def test_key_from_numpy_carries_jax_keys():

@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
-drives six paths through the user entry points:
+drives seven paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
@@ -37,6 +37,15 @@ drives six paths through the user entry points:
   mesh and catalog, compute(Nmesh=...) down and up, preview, sort and
   DistributedRNG.choice; HalofitPower, ZeldovichPower,
   CorrelationFunction and LinearNbody;
+- the io path (last): the bigfile reader built with g++; the FOF path's
+  lognormal catalog saved (Position, Velocity) and reloaded with
+  BigFileCatalog, bit for bit on the card, then its compensated CIC
+  mesh and FFTPower against the in-memory run; the convpower path's
+  99,976,127 randoms (f8 Position, 2.4 GB) written, then read cold
+  (page cache dropped) and warm, with the host-to-device copy; the
+  painted 1024^3 f4 field saved (4.3 GB, 32 part files) and reloaded
+  with BigFileMesh, bit for bit, FFTPower equal to 1e-12; all under a
+  temporary directory in $TMPDIR, removed at the end;
 
 and LinearMesh at the same scale against its exact expectation. Every
 check is an ``assert`` or a raise, so any failure exits non-zero.
@@ -2157,6 +2166,366 @@ def fftrecon_path(data):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the io path: bigfile save and reload (nbodykit_tpu_torch/io)
+# ---------------------------------------------------------------------------
+
+# the convpower path's randoms: 10 nbar at the same box, seed 84
+IO_RANDOMS_SEED = 84
+IO_REPS = 2
+# per-bin |P| agreement of two runs that differ only in the order of the
+# deposit's f32 atomic adds
+IO_POWER_RTOL = 1e-5
+
+
+def fs_type(path):
+    """(mount point, filesystem type) of ``path``, from /proc/mounts."""
+    path = os.path.realpath(path)
+    best = ('', '?')
+    with open('/proc/mounts') as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1].replace('\\040', ' ')
+            if (path == mnt or path.startswith(mnt.rstrip('/') + '/')) \
+                    and len(mnt) >= len(best[0]):
+                best = (mnt, parts[2])
+    return best
+
+
+def need_disk(path, nbytes):
+    """Raise unless the filesystem of ``path`` has ``nbytes`` and a 10%
+    (at least 256 MB) margin free."""
+    want = int(nbytes * 1.1) + (256 << 20)
+    free = shutil.disk_usage(path).free
+    if free < want:
+        raise RuntimeError("io phase: %s has %d bytes free, the write needs "
+                           "%d (%d of data and the margin)"
+                           % (path, free, want, nbytes))
+
+
+def drop_page_cache(path):
+    """Flush every file under ``path`` to disk and ask the kernel to drop
+    its cached pages (``fsync``, ``POSIX_FADV_DONTNEED``): the next read
+    comes from the device unless the filesystem lives in memory
+    (tmpfs)."""
+    for root, _, names in os.walk(path):
+        for n in names:
+            fd = os.open(os.path.join(root, n), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+class HostPeak(object):
+    """The peak resident set of this process inside a ``with`` block,
+    sampled from /proc/self/statm every millisecond by a thread."""
+
+    def __enter__(self):
+        import threading
+        self.page = os.sysconf('SC_PAGE_SIZE')
+        self.peak = self.rss()
+        self.start = self.peak
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def rss(self):
+        with open('/proc/self/statm') as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self._stop.wait(0.001):
+            self.peak = max(self.peak, self.rss())
+
+    def __exit__(self, *args):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+
+
+def host_s(fn):
+    """(result, host seconds) of ``fn``, the card drained before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def host_spread(fn, reps=IO_REPS, warmup=1, before=None):
+    """(last result, {median, min, max, all} host seconds): ``warmup``
+    untimed and ``reps`` timed calls of ``fn``, ``before()`` run untimed
+    ahead of each."""
+    out, ts = None, []
+    for i in range(warmup + reps):
+        if before is not None:
+            before()
+        out = None
+        out, t = host_s(fn)
+        if i >= warmup:
+            ts.append(t)
+    return out, {'median': float(np.median(ts)), 'min': min(ts),
+                 'max': max(ts), 'all': ts}
+
+
+def rate(nbytes, t):
+    """GB/s of ``nbytes`` moved in the median of a host_spread record."""
+    return nbytes / t['median'] / 1e9
+
+
+def fresh_dir(path):
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    return path
+
+
+def load_steps(path, block, verify=True):
+    """The steps a BigFileCatalog or BigFileMesh takes to put a block on
+    the card, one at a time: the checksum of every part file (none with
+    ``verify=False``), the native threaded read, the host-to-device
+    copy. Returns (tensor, {step: host seconds})."""
+    from nbodykit_tpu_torch import set_options
+    from nbodykit_tpu_torch.io.bigfile import BigFileDataset
+    with set_options(io_verify_checksums=verify):
+        ds = BigFileDataset(path, block)
+        _, t_verify = host_s(lambda: ds._verify_files(0, ds.size))
+        arr, t_read = host_s(lambda: ds.read(0, ds.size))
+    dev, t_h2d = host_s(lambda: torch.as_tensor(arr).to('cuda'))
+    return dev, {'checksum': t_verify, 'read': t_read, 'h2d': t_h2d,
+                 'total': t_verify + t_read + t_h2d}
+
+
+def load_spread(path, block, cold, verify=True):
+    """(tensor, {step: {median, min, max}} host seconds, host peak bytes
+    above the start): ``load_steps`` IO_REPS times, the page cache
+    dropped before each when ``cold``, else after one warm-up. A cold
+    load with ``verify`` reads each file twice, the checksum's read cold
+    and the data's warm; ``verify=False`` times the cold data read."""
+    steps, out, peak = [], None, 0
+    for i in range(IO_REPS + (0 if cold else 1)):
+        if cold:
+            drop_page_cache(path)
+        out = None
+        torch.cuda.empty_cache()
+        with HostPeak() as hp:
+            out, t = load_steps(path, block, verify)
+        peak = max(peak, hp.peak - hp.start)
+        if cold or i >= 1:
+            steps.append(t)
+    rec = {k: {'median': float(np.median([s[k] for s in steps])),
+               'min': min(s[k] for s in steps),
+               'max': max(s[k] for s in steps)} for k in steps[0]}
+    if verify:
+        rec['checksum_share'] = rec['checksum']['median'] / \
+            rec['total']['median']
+    return out, rec, peak
+
+
+def same_bits(a, b):
+    """True when two tensors on one device hold the same bytes."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ia = a.contiguous().view(torch.uint8)
+    ib = b.contiguous().view(torch.uint8)
+    return bool(torch.equal(ia, ib))
+
+
+def io_catalog(root, cat):
+    """Part 1: the lognormal path's catalog (Position and Velocity, f4)
+    saved and reloaded with BigFileCatalog, then the path's compensated
+    CIC mesh and FFTPower on the reloaded catalog with every kernel's
+    launches counted, against the same run on the catalog in memory."""
+    from nbodykit_tpu_torch.lab import BigFileCatalog
+    cols = ['Position', 'Velocity']
+    nbytes = sum(cat[c].numel() * cat[c].element_size() for c in cols)
+    d = os.path.join(root, 'lognormal')
+    need_disk(root, nbytes)
+    _, t_save = host_spread(lambda: cat.save(fresh_dir(d), columns=cols))
+    _, t_load = host_spread(
+        lambda: [BigFileCatalog(d)[c] for c in cols])
+    mesh_mem, r_mem = lognormal_fftpower(cat)
+    painted = mesh_mem.to_real_field()
+    with counted_launches() as launches:
+        torch.cuda.reset_peak_memory_stats()
+        cat2 = BigFileCatalog(d)
+        mesh2, r2 = lognormal_fftpower(cat2)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    # the path's paint: deposit and rank pass; no draws, the catalog
+    # came from the files
+    assert launches['paint_deposit'] >= 1 and launches['radix_rank'] >= 1, \
+        launches
+    for k in ('threefry_fill', 'poisson_threefry', 'poisson_cells'):
+        assert launches[k] == 0, launches
+    for c in cols:
+        assert cat2[c].device.type == 'cuda', cat2[c].device
+        assert same_bits(cat2[c], cat[c]), "reloaded %s differs" % c
+    field2 = mesh2.to_real_field()
+    fdiff = float((field2.value - painted.value).abs().max())
+    fmax = float(painted.value.abs().max())
+    assert fdiff <= 1e-5 * fmax, (fdiff, fmax)
+    del field2, mesh2
+    m1, m2 = r_mem.power['modes'], r2.power['modes']
+    assert np.array_equal(m1, m2), "mode counts differ"
+    sel = m1 > 0
+    p1, p2 = r_mem.power['power'].real[sel], r2.power['power'].real[sel]
+    rel = np.abs(p2 - p1) / np.abs(p1)
+    assert np.isfinite(p2).all() and rel.max() <= IO_POWER_RTOL, rel.max()
+    emit({'phase': 'io_catalog', 'N': len(cat), 'columns': cols,
+          'bytes': nbytes, 'save_s': t_save, 'save_gb_s': rate(nbytes, t_save),
+          'load_s': t_load, 'load_gb_s': rate(nbytes, t_load),
+          'reloaded_bit_identical': True,
+          'field_max_abs_diff': fdiff, 'field_max': fmax,
+          'power_bins': int(sel.sum()), 'power_max_rel_diff': float(rel.max()),
+          'power_rtol': IO_POWER_RTOL, 'modes_equal': True,
+          'peak_gb_reload_algorithm': peak / 1e9, 'launches': launches})
+    shutil.rmtree(d)
+    return painted, launches
+
+
+
+def io_randoms(root):
+    """Part 2: the convpower path's 99,976,127 uniform randoms (Position,
+    f8, 2.4 GB, 3 part files): the write, a cold and a warm read by the
+    threaded native reader, the host-to-device copy."""
+    from nbodykit_tpu_torch.io import _native
+    from nbodykit_tpu_torch.lab import BigFileCatalog, UniformCatalog
+    from nbodykit_tpu_torch.utils import as_numpy
+    nbar = 10 * CP_N / CP_BOX ** 3
+    randoms = UniformCatalog(nbar=nbar, BoxSize=CP_BOX, seed=IO_RANDOMS_SEED)
+    pos = randoms['Position']
+    nbytes = pos.numel() * pos.element_size()
+    d = os.path.join(root, 'randoms')
+    need_disk(root, nbytes)
+    _, t_d2h = host_spread(lambda: as_numpy(pos))
+    host = as_numpy(pos)
+    _, t_cks = host_spread(lambda: _native.checksum(host))
+    del host
+    with HostPeak() as hp:
+        _, t_write = host_spread(
+            lambda: randoms.save(fresh_dir(d), columns=['Position']))
+    nfile = len([n for n in os.listdir(os.path.join(d, 'Position'))
+                 if n not in ('header', 'attr-v2')])
+    cold_dev, cold, cold_peak = load_spread(d, 'Position', cold=True)
+    assert same_bits(cold_dev, pos), "cold reload differs"
+    del cold_dev
+    raw_dev, raw, _ = load_spread(d, 'Position', cold=True, verify=False)
+    assert same_bits(raw_dev, pos), "cold unverified reload differs"
+    del raw_dev
+    warm_dev, warm, warm_peak = load_spread(d, 'Position', cold=False)
+    assert same_bits(warm_dev, pos), "warm reload differs"
+    del warm_dev
+    # the user entry, whole
+    got, t_entry = host_s(lambda: BigFileCatalog(d)['Position'])
+    assert got.device.type == 'cuda' and same_bits(got, pos)
+    del got
+    emit({'phase': 'io_randoms', 'N': len(randoms), 'bytes': nbytes,
+          'part_files': nfile, 'd2h_s': t_d2h,
+          'd2h_gb_s': rate(nbytes, t_d2h), 'checksum_s': t_cks,
+          'checksum_gb_s': rate(nbytes, t_cks),
+          'write_s': t_write, 'write_gb_s': rate(nbytes, t_write),
+          'write_host_peak_gb': (hp.peak - hp.start) / 1e9,
+          'cold': cold, 'cold_total_gb_s': rate(nbytes, cold['total']),
+          'cold_unverified': raw,
+          'cold_read_gb_s': rate(nbytes, raw['read']),
+          'warm': warm, 'warm_read_gb_s': rate(nbytes, warm['read']),
+          'warm_total_gb_s': rate(nbytes, warm['total']),
+          'h2d_gb_s': rate(nbytes, warm['h2d']),
+          'host_peak_gb_load': max(cold_peak, warm_peak) / 1e9,
+          'entry_load_s': t_entry, 'reloaded_bit_identical': True})
+    shutil.rmtree(d)
+
+
+def io_mesh(root, painted):
+    """Part 3: part 1's painted 1024^3 f4 field saved with
+    MeshSource.save (4.3 GB, 32 part files) and reloaded with
+    BigFileMesh: bit for bit on the card, and FFTPower of the reloaded
+    field against FFTPower of the field before saving. The cold data
+    read alone is timed on part 2's files."""
+    from nbodykit_tpu_torch.algorithms.fftpower import FFTPower
+    from nbodykit_tpu_torch.base.mesh import FieldMesh
+    from nbodykit_tpu_torch.lab import BigFileMesh
+    fm = FieldMesh(painted)
+    nbytes = painted.value.numel() * painted.value.element_size()
+    d = os.path.join(root, 'mesh')
+    need_disk(root, nbytes)
+    with HostPeak() as hp:
+        _, t_save = host_spread(lambda: fm.save(fresh_dir(d)))
+    save_peak = hp.peak - hp.start
+    nfile = len([n for n in os.listdir(os.path.join(d, 'Field'))
+                 if n not in ('header', 'attr-v2')])
+    torch.cuda.reset_peak_memory_stats()
+    cold_dev, cold, cold_peak = load_spread(d, 'Field', cold=True)
+    assert same_bits(cold_dev.reshape(painted.value.shape), painted.value)
+    del cold_dev
+    warm_dev, warm, warm_peak = load_spread(d, 'Field', cold=False)
+    assert same_bits(warm_dev.reshape(painted.value.shape), painted.value)
+    del warm_dev
+    dev_peak = torch.cuda.max_memory_allocated()
+    # the user entry: BigFileMesh and compute, then FFTPower of the
+    # reloaded field
+    field, t_entry = host_s(lambda: BigFileMesh(d).compute(mode='real'))
+    assert field.value.device.type == 'cuda'
+    assert same_bits(field.value, painted.value), "reloaded field differs"
+    kw = dict(mode='2d', kmin=0.001, Nmu=10)
+    r_saved = FFTPower(fm, **kw).power
+    r_loaded = FFTPower(FieldMesh(field), **kw).power
+    del field
+    assert np.array_equal(r_saved['modes'], r_loaded['modes'])
+    sel = r_saved['modes'] > 0
+    p1, p2 = (r['power'].real[sel] for r in (r_saved, r_loaded))
+    rel = float((np.abs(p2 - p1) / np.abs(p1)).max())
+    assert rel <= 1e-12, rel
+    emit({'phase': 'io_mesh', 'nmesh': LN_NMESH, 'bytes': nbytes,
+          'part_files': nfile, 'save_s': t_save,
+          'save_gb_s': rate(nbytes, t_save),
+          'save_host_peak_gb': save_peak / 1e9,
+          'cold': cold, 'cold_total_gb_s': rate(nbytes, cold['total']),
+          'warm': warm, 'warm_total_gb_s': rate(nbytes, warm['total']),
+          'warm_read_gb_s': rate(nbytes, warm['read']),
+          'h2d_gb_s': rate(nbytes, warm['h2d']),
+          'host_peak_gb_load': max(cold_peak, warm_peak) / 1e9,
+          'device_peak_gb_load': dev_peak / 1e9, 'entry_load_s': t_entry,
+          'reloaded_bit_identical': True,
+          'fftpower_max_rel_diff': rel, 'fftpower_rtol': 1e-12})
+    shutil.rmtree(d)
+
+
+def io_path(cat):
+    """The io path: the bigfile reader's g++ build, then the three parts
+    in a temporary directory ($TMPDIR), removed at the end whatever
+    happens (an error propagates). Returns part 1's launch counts."""
+    import tempfile
+    from nbodykit_tpu_torch import _build
+    t0 = time.perf_counter()
+    built = bool(_build.build_all(['bigfile_io']))
+    build_s = time.perf_counter() - t0 if built else None
+    _build.load_host('bigfile_io')
+    root = tempfile.mkdtemp(prefix='nbk_io_')
+    mnt, fstype = fs_type(root)
+    emit({'phase': 'io_setup', 'library': 'bigfile_io', 'compiler': 'g++',
+          'flags': _build.host_flags('bigfile_io'), 'built_here': built,
+          'build_s': build_s, 'tmpdir': root, 'mount': mnt,
+          'fstype': fstype, 'free_bytes': shutil.disk_usage(root).free,
+          'cpu_count': os.cpu_count()})
+    try:
+        painted, launches = io_catalog(root, cat)
+        torch.cuda.empty_cache()
+        io_randoms(root)
+        torch.cuda.empty_cache()
+        io_mesh(root, painted)
+        del painted
+        torch.cuda.empty_cache()
+    finally:
+        if os.path.exists(root):
+            shutil.rmtree(root)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2231,17 +2600,20 @@ def main():
     fof_stages(fof_cat)
     profile_main_path(lambda: fof_algorithm(fof_cat), 'fof_1024')
     rc_launches = fftrecon_path(fof_cat)
+    torch.cuda.empty_cache()
+    # last: the same catalog saved and reloaded (bigfile)
+    io_launches = io_path(fof_cat)
     del fof_cat
     torch.cuda.empty_cache()
 
     paths = ('main_512', 'lognormal_1024', 'class_1024', 'convpower_1024',
-             'fof_1024', 'fftrecon_512')
+             'fof_1024', 'fftrecon_512', 'io_1024')
 
     def counted(name):
         by_path = dict(zip(paths, (launches[name], ln_launches[name],
                                    cl_launches[name], cp_launches[name],
                                    fof_launches[name],
-                                   rc_launches[name])))
+                                   rc_launches[name], io_launches[name])))
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 

@@ -42,6 +42,10 @@ _default_options = {
     # device of the entry points: None means 'cuda'; 'cpu' runs on the
     # CPU (the tests' choice)
     'device': None,
+    # verify each bigfile part file's byte-sum checksum on its first
+    # read (io/bigfile.py); a mismatch raises ChecksumMismatch. False
+    # skips verification
+    'io_verify_checksums': True,
 }
 
 _global_options = dict(_default_options)

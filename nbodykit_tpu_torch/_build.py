@@ -3,10 +3,12 @@ libraries at first use.
 
 Each CUDA source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The
-host libraries (``HOST_SOURCES``: the native Einstein-Boltzmann solver,
-the repo's root ``csrc/boltzmann_kernel.cpp``) are compiled by ``g++``
-with ``HOST_FLAGS``, the flags the JAX package builds the same source
-with, so both packages compute the same bits. Libraries go to
+host libraries (``HOST_SOURCES``: the native Einstein-Boltzmann solver
+and the bigfile part-file reader, the repo's root
+``csrc/boltzmann_kernel.cpp`` and ``csrc/bigfile_io.cpp``) are compiled
+by ``g++`` with ``HOST_FLAGS`` plus the source's ``HOST_EXTRA_FLAGS``,
+the flags the JAX package builds the same source with, so both packages
+compute the same bits. Libraries go to
 ``nbodykit_tpu_torch/_build/`` under a name that carries a hash of the
 source and the flags, so an edit rebuilds. :func:`build_all` starts one
 compiler per source, all together.
@@ -30,7 +32,9 @@ BUILD_DIR = os.path.join(_HERE, '_build')
 FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
 HOST_FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17']
-HOST_SOURCES = ('boltzmann_kernel',)
+HOST_SOURCES = ('boltzmann_kernel', 'bigfile_io')
+# flags one host source adds to HOST_FLAGS (the reader's threads)
+HOST_EXTRA_FLAGS = {'bigfile_io': ['-pthread']}
 
 _libs = {}
 
@@ -69,9 +73,15 @@ def _host(name):
     return name in HOST_SOURCES
 
 
+def host_flags(name):
+    """The ``g++`` flags of host library ``name``."""
+    return HOST_FLAGS + HOST_EXTRA_FLAGS.get(name, [])
+
+
 def _target(name):
     if _host(name):
-        src, flags = os.path.join(HOST_SRC_DIR, name + '.cpp'), HOST_FLAGS
+        src = os.path.join(HOST_SRC_DIR, name + '.cpp')
+        flags = host_flags(name)
     else:
         src, flags = os.path.join(SRC_DIR, name + '.cu'), FLAGS
     with open(src, 'rb') as f:
@@ -96,7 +106,8 @@ def build_all(names=None):
     procs = []
     for name, src, lib in todo:
         tmp = '%s.%d.tmp.so' % (lib[:-3], os.getpid())
-        cmd = [gxx()] + HOST_FLAGS if _host(name) else [nvcc()] + FLAGS
+        cmd = [gxx()] + host_flags(name) if _host(name) \
+            else [nvcc()] + FLAGS
         p = subprocess.Popen(cmd + ['-o', tmp, src],
                              stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)

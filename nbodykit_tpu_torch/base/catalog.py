@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import as_numpy
 
 
 def column(name=None):
@@ -145,6 +146,35 @@ class CatalogSourceBase(object):
                            interlaced=interlaced, compensated=compensated,
                            resampler=resampler, position=position,
                            weight=weight, value=value, selection=selection)
+
+    def save(self, output, columns=None, dataset=None, datasets=None,
+             header='Header'):
+        """Write ``columns`` (default: every column, the default
+        Selection/Weight/Value/Index included) and ``attrs`` as a
+        bigfile directory (:mod:`nbodykit_tpu_torch.io.bigfile`), each
+        column fetched to the host first. ``datasets`` renames the
+        blocks; ``dataset`` is accepted for the JAX signature and
+        unused, as there."""
+        from ..io.bigfile import BigFileWriter
+        if columns is None:
+            columns = self.columns
+        if datasets is None:
+            datasets = columns
+        with BigFileWriter(output, create=True) as ff:
+            ff.write_attrs(header, self.attrs)
+            for col, ds in zip(columns, datasets):
+                ff.write(ds, as_numpy(self[col]))
+
+    def read(self, columns):
+        return [self[col] for col in columns]
+
+    def to_subvolumes(self, domain=None, position='Position',
+                      columns=None):
+        """A copy of this catalog sorted into spatial subvolumes
+        (:class:`~nbodykit_tpu_torch.source.catalog.subvolumes.SubVolumesCatalog`)."""
+        from ..source.catalog.subvolumes import SubVolumesCatalog
+        return SubVolumesCatalog(self, domain=domain, position=position,
+                                 columns=columns)
 
 
 class CatalogSource(CatalogSourceBase):

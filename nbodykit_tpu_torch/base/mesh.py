@@ -212,6 +212,20 @@ class MeshSource(object):
         ``axes`` and return host numpy."""
         return self.compute(mode='real', Nmesh=Nmesh).preview(axes=axes)
 
+    def save(self, output, dataset='Field', mode='real'):
+        """Write the computed field and ``attrs`` as one bigfile block
+        (:mod:`nbodykit_tpu_torch.io.bigfile`), flattened, with its
+        shape in the ``ndarray.shape`` attr; ``mode='complex'`` writes
+        the transposed (ky, kx, kz) layout that ``r2c`` gives here and
+        in the JAX package."""
+        from ..io.bigfile import BigFileWriter
+        field = self.compute(mode=mode)
+        with BigFileWriter(output, create=True) as ff:
+            attrs = dict(self.attrs)
+            attrs['ndarray.shape'] = np.asarray(field.shape)
+            ff.write(dataset, as_numpy(field.value).reshape(-1),
+                     attrs=attrs)
+
     def _resample(self, field, Nmesh):
         """Fourier-space resample to a new mesh size: mode truncation
         (down) or zero-padding (up), as the JAX package does it.

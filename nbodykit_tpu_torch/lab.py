@@ -31,5 +31,14 @@ from .hod import (HODModel, HODModelFactory, Hearin15Model,  # noqa: F401
 from .algorithms.fftrecon import FFTRecon  # noqa: F401
 from . import filters, meshtools  # noqa: F401
 from .filters import Gaussian, TopHat  # noqa: F401
+from .source.catalog.file import (BigFileCatalog, BinaryCatalog,  # noqa: F401
+                                  CSVCatalog, FileCatalog,
+                                  FileCatalogBase, FileCatalogFactory,
+                                  FITSCatalog, Gadget1Catalog, HDFCatalog,
+                                  TPMBinaryCatalog)
+from .source.mesh.bigfile import BigFileMesh  # noqa: F401
+from .source.catalog.subvolumes import SubVolumesCatalog  # noqa: F401
+from . import io  # noqa: F401
 
 FKPPower = ConvolvedFFTPower  # the reference's alias
+IO = io  # the reference's alias

@@ -63,7 +63,11 @@ def test_import_loads_no_jax():
             "nbodykit_tpu_torch.algorithms.fftrecon, "
             "nbodykit_tpu_torch.hod, nbodykit_tpu_torch.meshtools, "
             "nbodykit_tpu_torch.source.catalog.species, "
-            "nbodykit_tpu_torch.source.mesh.species; "
+            "nbodykit_tpu_torch.source.mesh.species, "
+            "nbodykit_tpu_torch.io, nbodykit_tpu_torch.io._native, "
+            "nbodykit_tpu_torch.source.catalog.file, "
+            "nbodykit_tpu_torch.source.catalog.subvolumes, "
+            "nbodykit_tpu_torch.source.mesh.bigfile; "
             "added = set(sys.modules) - before; "
             "bad = sorted(m for m in added if m == 'jax' or "
             "m.startswith('jax.') or m == 'nbodykit_tpu' or "
@@ -83,6 +87,8 @@ def test_entry_points_refuse_cpu_without_asking():
     from nbodykit_tpu_torch import rng, transform
     from nbodykit_tpu_torch.algorithms.fof import _fof_labels
     from nbodykit_tpu_torch.lab import FFTRecon, FOF
+    from nbodykit_tpu_torch.lab import (BigFileCatalog, BigFileMesh,
+                                        FileCatalog, io)
     from nbodykit_tpu_torch.ops.threefry_cuda import threefry_fill
     from nbodykit_tpu_torch.rng import DistributedRNG
     if torch.cuda.is_available():
@@ -118,7 +124,11 @@ def test_entry_points_refuse_cpu_without_asking():
                      lambda: _fof_labels(np.zeros((3, 3)), np.ones(3), 0.1),
                      lambda: FFTRecon(UniformCatalog(1e-3, 100.0, seed=1),
                                       UniformCatalog(1e-3, 100.0, seed=2),
-                                      Nmesh=8)):
+                                      Nmesh=8),
+                     lambda: BigFileCatalog('no-such-dir'),
+                     lambda: FileCatalog(io.BinaryFile, 'no-such-file',
+                                         dtype=[('x', 'f8')]),
+                     lambda: BigFileMesh('no-such-dir')):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make()
         # asking for the CPU, per call or by option, works
@@ -214,17 +224,21 @@ def test_lab_exports_every_ported_name():
             missing.append('%s (%s)' % (name, module))
     assert not missing, "the port's lab lacks %s" % missing
     for name in ('Planck15', 'FKPPower', 'FOF', 'HaloCatalog', 'FFTRecon',
-                 'TopHat', 'setup_logging', 'timer', 'meshtools'):
+                 'TopHat', 'setup_logging', 'timer', 'meshtools', 'io', 'IO',
+                 'BigFileCatalog', 'FITSCatalog', 'BigFileMesh',
+                 'SubVolumesCatalog', 'FileCatalogFactory'):
         assert hasattr(tlab, name), name
     assert checked >= 50, checked
     assert tlab.FKPPower is tlab.ConvolvedFFTPower
+    assert tlab.IO is tlab.io
 
 
 def test_lab_star_import_runs_the_benchmark_idiom():
     ns = {}
     exec("from nbodykit_tpu_torch.lab import *\n"
          "plin = LinearPower(Planck15, 0.55, 'EisensteinHu')\n"
-         "names = (FKPPower, FOF, HaloCatalog, FFTRecon, TopHat)", ns)
+         "names = (FKPPower, FOF, HaloCatalog, FFTRecon, TopHat, "
+         "BigFileCatalog, BigFileMesh, SubVolumesCatalog, IO)", ns)
     assert float(ns['plin'](np.array([0.1]))[0]) > 0
 
 

@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
-drives seven paths through the user entry points:
+drives eight paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
@@ -46,6 +46,16 @@ drives seven paths through the user entry points:
   painted 1024^3 f4 field saved (4.3 GB, 32 part files) and reloaded
   with BigFileMesh, bit for bit, FFTPower equal to 1e-12; all under a
   temporary directory in $TMPDIR, removed at the end;
+- the particles path (after the io path): the reference's boss_like
+  sample (``benchmarks/conftest.py:24``), LogNormalCatalog(LinearPower(
+  Planck15, 0.55, 'EisensteinHu'), nbar=1e6/2500^3, BoxSize=2500,
+  Nmesh=1024, bias=2, seed=42) with seeded Weight and Mass columns;
+  SimulationBox2PCF in '1d', '2d' and 'projected', a cross count against
+  1e6 uniform randoms (seed 84), SimulationBox3PCF at poles 0-4; the
+  catalog and the randoms on the sky from the box centre, SurveyData2PCF
+  ('2d'), an angular SurveyDataPairCount and FiberCollisions at 62";
+  KDDensity and CylindricalGroups (rperp 2, rpar 10); both particle
+  kernels against their plain versions on every count's grid;
 
 and LinearMesh at the same scale against its exact expectation. Every
 check is an ``assert`` or a raise, so any failure exits non-zero.
@@ -72,6 +82,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
+# the same FP64 lanes for separate operations (one a lane a clock; the
+# data sheet's rate counts a fused multiply-add as two): the rate of the
+# pair kernels, built with -fmad=false, whose operation counts count
+# each add, multiply and compare as one
+F64_UNFUSED_OPS = F64_FLOPS / 2
 # Integer issue on compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput): IADD3, LOP3 and SHF go to the ALU
 # pipe and IMAD to the FMA pipe, each 64 results per clock per SM, and
@@ -442,7 +457,9 @@ def launch_counters():
     from nbodykit_tpu_torch.ops import fof_cuda as fc
     from nbodykit_tpu_torch.ops import threefry_cuda as tf
     from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_cuda
+    from nbodykit_tpu_torch.ops.paircount_cuda import paircount_hist_cuda
     from nbodykit_tpu_torch.ops.radix_cuda import pass_rank_hist_cuda
+    from nbodykit_tpu_torch.ops.threept_cuda import threept_alm_cuda
     return {'radix_rank': pass_rank_hist_cuda,
             'paint_deposit': deposit_blocks_cuda,
             'threefry_fill': tf.threefry_fill_cuda,
@@ -451,12 +468,16 @@ def launch_counters():
             'fof_sweep_search': fc.fof_sweep_cuda,
             'fof_sweep_links': fc.fof_links_sweep_cuda,
             'fof_link_count': fc.fof_link_count_cuda,
-            'fof_link_fill': fc.fof_link_fill_cuda}
+            'fof_link_fill': fc.fof_link_fill_cuda,
+            'paircount_hist': paircount_hist_cuda,
+            'threept_alm': threept_alm_cuda}
 
 
-# the FOF's kernels: no other path launches them
+# the FOF's kernels: launched by FOF, FiberCollisions and KDDensity only
 FOF_KERNELS = ('fof_sweep', 'fof_sweep_search', 'fof_sweep_links',
                'fof_link_count', 'fof_link_fill')
+# the particle statistics' kernels: no path but the particles path
+PARTICLE_KERNELS = ('paircount_hist', 'threept_alm')
 
 
 @contextlib.contextmanager
@@ -1043,7 +1064,8 @@ def lognormal_path():
     # every kernel, the Poisson draw in its occupied-cells mode: the full
     # count mesh is not made on this path
     for k, v in launches.items():
-        assert v >= 1 or k == 'poisson_threefry' or k in FOF_KERNELS, \
+        assert v >= 1 or k == 'poisson_threefry' or k in FOF_KERNELS \
+            or k in PARTICLE_KERNELS, \
             "%s was not launched on the lognormal path" % k
     assert launches['poisson_threefry'] == 0, launches
 
@@ -2526,6 +2548,354 @@ def io_path(cat):
     return launches
 
 
+# the particles path: the reference's boss_like sample
+# (benchmarks/conftest.py:24): 1e6 lognormal galaxies in a box of 2500
+PB_BOX, PB_N, PB_NMESH, PB_BIAS, PB_SEED = 2500.0, 1e6, 1024, 2.0, 42
+PB_RANDOMS_SEED, PB_WEIGHT_SEED, PB_RANK_SEED = 84, 7, 8
+PB_EDGES = np.linspace(5, 150, 30)
+PB_RP_EDGES, PB_PIMAX = np.logspace(0, 2, 21), 60
+PB_3PT_EDGES, PB_POLES = np.linspace(20, 150, 14), [0, 1, 2, 3, 4]
+PB_THETA = np.logspace(-1, 0.5, 11)                 # degrees
+# queries of the kernels' checks against their plain versions
+PB_CHECK_PAIRS, PB_CHECK_3PT = 20000, 5000
+PB_RTOL = 1e-12
+
+
+def particles_catalogs():
+    """The boss_like LogNormalCatalog with seeded Weight and Mass
+    columns (numpy, uniform in [0.5, 1.5) and [0, 1)) and 1e6 uniform
+    randoms."""
+    from nbodykit_tpu_torch.source.catalog import (LogNormalCatalog,
+                                                   UniformCatalog)
+    cat = LogNormalCatalog(linear_power(), nbar=PB_N / PB_BOX ** 3,
+                           BoxSize=PB_BOX, Nmesh=PB_NMESH, bias=PB_BIAS,
+                           seed=PB_SEED)
+    n = len(cat)
+    cat['Weight'] = np.random.RandomState(PB_WEIGHT_SEED).uniform(0.5, 1.5, n)
+    cat['Mass'] = np.random.RandomState(PB_RANK_SEED).uniform(0, 1, n)
+    randoms = UniformCatalog(nbar=PB_N / PB_BOX ** 3, BoxSize=PB_BOX,
+                             seed=PB_RANDOMS_SEED)
+    return cat, randoms
+
+
+def sky_catalog(cat):
+    """The catalog on the sky (RA, DEC, Redshift; Weight kept), seen from
+    the box centre with Planck15 distances."""
+    from nbodykit_tpu_torch.cosmology import Planck15
+    from nbodykit_tpu_torch.source.catalog.array import ArrayCatalog
+    from nbodykit_tpu_torch.transform import CartesianToSky
+    ra, dec, z = CartesianToSky(cat['Position'].double(), Planck15,
+                                observer=[PB_BOX / 2] * 3)
+    return ArrayCatalog({'RA': ra, 'DEC': dec, 'Redshift': z,
+                         'Weight': cat['Weight']}, device='cuda')
+
+
+def particles_flow():
+    """Every particle algorithm once through the user entry points, each
+    stage in one CUDA-event window: returns ({stage: result}, {stage:
+    ms})."""
+    from nbodykit_tpu_torch.cosmology import Planck15
+    from nbodykit_tpu_torch.lab import (CylindricalGroups, FiberCollisions,
+                                        KDDensity, SimulationBox2PCF,
+                                        SimulationBox3PCF,
+                                        SimulationBoxPairCount,
+                                        SurveyData2PCF, SurveyDataPairCount)
+    out, ms = {}, {}
+
+    def step(name, fn):
+        out[name], ms[name] = timed(fn)
+        return out[name]
+    cat, randoms = step('catalogs', particles_catalogs)
+    step('box_2pcf_1d', lambda: SimulationBox2PCF('1d', cat, PB_EDGES))
+    step('box_2pcf_2d', lambda: SimulationBox2PCF('2d', cat, PB_EDGES,
+                                                  Nmu=10))
+    step('box_2pcf_projected', lambda: SimulationBox2PCF(
+        'projected', cat, PB_RP_EDGES, pimax=PB_PIMAX))
+    step('box_cross_1d', lambda: SimulationBoxPairCount(
+        '1d', cat, PB_EDGES, second=randoms))
+    step('box_3pcf', lambda: SimulationBox3PCF(cat, PB_POLES, PB_3PT_EDGES))
+    dsky, rsky = step('sky', lambda: (sky_catalog(cat),
+                                      sky_catalog(randoms)))
+    step('survey_2pcf_2d', lambda: SurveyData2PCF(
+        '2d', dsky, rsky, PB_EDGES, cosmo=Planck15, Nmu=10))
+    step('survey_angular', lambda: SurveyDataPairCount('angular', dsky,
+                                                       PB_THETA))
+    step('fibercollisions', lambda: FiberCollisions(dsky['RA'], dsky['DEC'],
+                                                    seed=PB_SEED))
+    step('kddensity', lambda: KDDensity(cat))
+    step('cgm', lambda: CylindricalGroups(cat, rankby='Mass', rperp=2,
+                                          rpar=10, flat_sky_los=[0, 0, 1]))
+    return out, ms
+
+
+def particles_gates(res):
+    """The results checked by the estimators' own identities and the
+    physics of the sample; returns the numbers read."""
+    from nbodykit_tpu_torch.algorithms.paircount_tpcf.estimators import \
+        analytic_random_pairs
+    cat, randoms = res['catalogs']
+    N = len(cat)
+    assert abs(N - PB_N) <= 5 * np.sqrt(PB_N), N
+    g = {'N': N, 'N_randoms': len(randoms)}
+    xi1, xi2 = res['box_2pcf_1d'], res['box_2pcf_2d']
+    xi = xi1.corr['corr']
+    r = xi1.corr['r']
+    assert np.isfinite(xi).all()
+    g['xi_1d'] = xi.tolist()
+    assert xi[r < 30].mean() > 0.1 and np.abs(xi[r > 100]).max() < 0.1, xi
+    # the wedges hold the same pairs: their sum over mu is the 1d count,
+    # their mean xi the 1d xi (uniform RR in mu)
+    n1, n2 = xi1.D1D2.pairs['npairs'], xi2.D1D2.pairs['npairs']
+    assert np.array_equal(n2.sum(axis=-1), n1), (n1, n2.sum(axis=-1))
+    xi0 = xi2.corr.to_poles([0])['corr_0']
+    g['xi0_wedges_vs_1d_max_abs'] = float(np.abs(xi0 - xi).max())
+    assert g['xi0_wedges_vs_1d_max_abs'] <= 1e-9 * np.abs(xi).max()
+    wp = res['box_2pcf_projected'].wp['corr']
+    assert np.isfinite(wp).all() and wp[0] > wp[-1] > -10, wp
+    g['wp'] = wp.tolist()
+    cross = res['box_cross_1d']
+    expect = analytic_random_pairs('1d', PB_EDGES, 2, np.full(3, PB_BOX)) \
+        / 2.0 * N * len(randoms)
+    got = cross.pairs['npairs']
+    g['cross_pairs_over_uniform'] = float(got.sum() / expect.sum())
+    assert abs(g['cross_pairs_over_uniform'] - 1) < 0.01, g
+    z3 = res['box_3pcf'].poles
+    for ell in PB_POLES:
+        z = z3['corr_%d' % ell]
+        assert z.shape == (13, 13) and np.isfinite(z).all()
+        assert np.abs(z - z.T).max() <= 1e-10 * np.abs(z).max(), ell
+    assert (np.diag(z3['corr_0']) > 0).all()
+    g['zeta_0_diag'] = np.diag(z3['corr_0']).tolist()
+    sxi = res['survey_2pcf_2d']
+    for name in ('D1D2', 'D1R2', 'R1R2'):
+        assert getattr(sxi, name).pairs['npairs'].sum() > 0, name
+    sx = sxi.corr['corr']
+    assert np.isfinite(sx).all()
+    g['survey_xi0'] = sxi.corr.to_poles([0])['corr_0'].tolist()
+    assert np.mean(g['survey_xi0'][:5]) > 0.1, g['survey_xi0']
+    ang = res['survey_angular'].pairs['npairs']
+    assert (ang > 0).all(), ang
+    g['angular_npairs'] = ang.tolist()
+    fc = res['fibercollisions'].labels
+    coll = fc['Collided'].cpu().numpy()
+    nid = fc['NeighborID'].cpu().numpy()
+    assert np.array_equal(nid >= 0, coll == 1)
+    g['collided_fraction'] = float(coll.mean())
+    g['fiber_groups'] = int(fc['Label'].max())
+    assert 0 < g['collided_fraction'] < 0.1, g['collided_fraction']
+    kd = res['kddensity']
+    vol = 4.0 / 3 * np.pi * kd.attrs['kernel_radius'] ** 3
+    counts = kd.density * vol
+    assert bool(torch.isfinite(kd.density).all())
+    assert float(counts.min()) >= 1 - 1e-9
+    g['kdd_mean_count'] = float(counts.mean())
+    assert 4 < g['kdd_mean_count'] < 40, g['kdd_mean_count']
+    groups = res['cgm'].groups
+    typ = groups['cgm_type'].cpu().numpy()
+    hid = groups['cgm_haloid'].cpu().numpy()
+    sat = typ == 1
+    assert sat.any() and (typ[hid[sat]] == 0).all()
+    assert (hid[~sat] == -1).all()
+    g['cgm_satellites'] = int(sat.sum())
+    g['cgm_rounds'] = res['cgm'].rounds
+    return g
+
+
+def strided(n, m):
+    """Indices of ``m`` queries spread over ``n`` cell-ordered ones."""
+    return torch.arange(0, n, max(n // m, 1), device='cuda')[:m]
+
+
+def candidates(grid, ci1, live1):
+    """The candidates the plain fold visits for the live queries in
+    cells ``ci1``: the slots of every in-grid neighbour cell, summed
+    (an int; the counts of ``ops.gridhash.neighbor_cells``)."""
+    from nbodykit_tpu_torch.ops.gridhash import neighbor_cells
+    total = 0
+    for _, count, oob in neighbor_cells(grid.flat_s, ci1, grid.offsets,
+                                        grid.ncell_np, grid.periodic):
+        total += int(torch.where(live1 & ~oob, count, 0).sum())
+    return total
+
+
+def pair_kernel_check(label, args, kwargs):
+    """paircount_hist on PB_CHECK_PAIRS strided queries against all
+    secondaries: the kernel against its plain version (npairs bit for
+    bit, wpairs to PB_RTOL of the largest), with both times."""
+    from nbodykit_tpu_torch.ops import paircount_cuda as pc
+    grid, w2_s, p1, w1, live, ci1, r2edges, mode = args
+    q = strided(p1.shape[0], PB_CHECK_PAIRS)
+    sub = (grid, w2_s, p1[q].contiguous(), w1[q].contiguous(), live[q],
+           ci1[q].contiguous(), r2edges, mode)
+    (kn, kw), k_ms = timed(lambda: pc.paircount_hist_cuda(*sub, **kwargs))
+    (pn, pw), p_ms = timed(lambda: pc.paircount_hist_plain(*sub, **kwargs,
+                                                           block=128))
+    nd = int((kn != pn).sum())
+    err = float((kw - pw).abs().max())
+    scale = float(pw.abs().max())
+    assert nd == 0, "%s: %d npairs bins differ" % (label, nd)
+    assert err <= PB_RTOL * scale, (label, err, scale)
+    return dict(case=label, queries=int(q.numel()), npairs_equal=True,
+                wpairs_max_abs_err=err, wpairs_max=scale, kernel_ms=k_ms,
+                plain_ms=p_ms, pairs=float(kn.sum()))
+
+
+def particles_kernels(cat, randoms):
+    """Both new kernels against their plain versions on every count's
+    shapes, then their times at the path's shapes beside the bounds."""
+    from nbodykit_tpu_torch.algorithms.pair_counters.core import \
+        paircount_inputs
+    from nbodykit_tpu_torch.algorithms.threeptcf import se_inputs
+    from nbodykit_tpu_torch.ops import paircount_cuda as pc
+    from nbodykit_tpu_torch.ops import threept_cuda as tc
+    box = np.full(3, PB_BOX)
+    pos, w = cat['Position'], cat['Weight']
+    counts = {
+        'box_1d': ((pos, w, pos, w, box, PB_EDGES), dict(is_auto=True)),
+        'box_2d': ((pos, w, pos, w, box, PB_EDGES),
+                   dict(mode='2d', Nmu=10, is_auto=True)),
+        'box_projected': ((pos, w, pos, w, box, PB_RP_EDGES),
+                          dict(mode='projected', pimax=PB_PIMAX,
+                               is_auto=True)),
+        'box_cross_1d': ((pos, w, randoms['Position'], randoms['Weight'],
+                          box, PB_EDGES), {}),
+    }
+    checks, cands = [], {}
+    for label, (a, kw) in counts.items():
+        args, kwargs, _, _ = paircount_inputs(*a, **kw)
+        checks.append(pair_kernel_check(label, args, kwargs))
+        cands[label] = candidates(args[0], args[5], args[4])
+        if label == 'box_1d':
+            full = (args, kwargs)
+        del args
+    # the survey counts, on the sky catalog's Cartesian positions
+    from nbodykit_tpu_torch.cosmology import Planck15
+    from nbodykit_tpu_torch.transform import SkyToCartesian, SkyToUnitSphere
+    sky = sky_catalog(cat)
+    xyz = SkyToCartesian(sky['RA'], sky['DEC'], sky['Redshift'], Planck15)
+    lo = xyz.min(dim=0).values.cpu().numpy()
+    sbox = (xyz.max(dim=0).values.cpu().numpy() - lo) * 1.001 + 1e-3
+    args, kwargs, _, _ = paircount_inputs(
+        xyz, sky['Weight'], xyz, sky['Weight'], sbox, PB_EDGES, mode='2d',
+        Nmu=10, periodic=False, is_auto=True, grid_origin=lo,
+        pair_los='midpoint')
+    checks.append(pair_kernel_check('survey_2d_midpoint', args, kwargs))
+    cands['survey_2d_midpoint'] = candidates(args[0], args[5],
+                                             args[4])
+    unit = SkyToUnitSphere(sky['RA'], sky['DEC'])
+    args, kwargs, _, _ = paircount_inputs(unit, None, unit, None, None,
+                                          PB_THETA, mode='angular',
+                                          is_auto=True)
+    checks.append(pair_kernel_check('survey_angular', args, kwargs))
+    cands['survey_angular'] = candidates(args[0], args[5], args[4])
+    del args, xyz, unit, sky
+
+    # paircount_hist at the path's largest shape: the 1d auto count
+    args, kwargs = full
+    grid = args[0]
+    (kn, kw), _ = timed(lambda: pc.paircount_hist_cuda(*args, **kwargs))
+    ms = cuda_ms(lambda: pc.paircount_hist_cuda(*args, **kwargs), reps=3)
+    n = args[2].shape[0]
+    cand = cands['box_1d']
+    ops = cand * pc.candidate_ops('1d', len(PB_EDGES), 2, True)
+    nbytes = pc.hist_bytes(n, n, grid.flat_s.element_size(),
+                           grid.columns().numel(), len(PB_EDGES), 1)
+    b_ms, b_by = bound(nbytes, ops, F64_UNFUSED_OPS)
+    worst = max(checks, key=lambda c: c['wpairs_max_abs_err'])
+    check_1d = checks[0]
+    pair_rec = dict(
+        ms=ms, plain_ms=check_1d['plain_ms'], library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=worst['wpairs_max_abs_err'],
+        plain_queries=check_1d['queries'],
+        ms_at_plain_queries=check_1d['kernel_ms'],
+        at='1d auto, f64, n=%d, %s cells, %d candidates, %d pairs in '
+           'range' % (n, 'x'.join(str(int(c)) for c in grid.ncell_np), cand,
+                      int(kn[1:-1].sum())),
+        candidates=cand, ops=ops, bytes=nbytes, checks=checks,
+        candidates_by_count=cands)
+    del args, full, grid, kn, kw
+
+    # threept_alm: the 3PCF's grid, a strided check, then one chunk
+    edges = PB_3PT_EDGES
+    grid, w_s, p, live, ci = se_inputs(pos.double(), w, edges, box, True)
+    q = strided(p.shape[0], PB_CHECK_3PT)
+    sub = (grid, w_s, p[q].contiguous(), live[q], ci[q].contiguous(),
+           edges ** 2, PB_POLES)
+    a, k_ms = timed(lambda: tc.threept_alm_cuda(*sub))
+    b, p_ms = timed(lambda: tc.threept_alm_plain(*sub, block=128))
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    assert err <= PB_RTOL * scale, ('threept_alm', err, scale)
+    del a, b
+    from nbodykit_tpu_torch.algorithms.threeptcf import CHUNK
+    nq = min(CHUNK, p.shape[0])
+    chunk = (grid, w_s, p[:nq], live[:nq], ci[:nq], edges ** 2, PB_POLES)
+    ms3 = cuda_ms(lambda: tc.threept_alm_cuda(*chunk), reps=3)
+    # the chunk's in-bin pairs: a pair count of its queries on its grid
+    hn, _ = pc.paircount_hist_cuda(grid, w_s, chunk[2], w_s[:nq],
+                                   chunk[3], chunk[4], edges ** 2, '1d',
+                                   is_auto=True)
+    inbin = int(hn[1:-1].sum())
+    cand3 = candidates(grid, chunk[4], chunk[3])
+    nlm = len(tc.lm_table(PB_POLES)[0])
+    ops3 = cand3 * (pc.candidate_ops('1d', len(edges), 2, True) - 2) \
+        + inbin * tc.ylm_ops(PB_POLES)
+    nbytes3 = tc.alm_bytes(nq, p.shape[0], grid.flat_s.element_size(),
+                           grid.columns().numel(), len(edges) - 1, nlm)
+    b3, b3_by = bound(nbytes3, ops3, F64_UNFUSED_OPS)
+    alm_rec = dict(
+        ms=ms3, plain_ms=p_ms, library_ms=None, bound_ms=b3, bound_by=b3_by,
+        max_abs_err=err, alm_max=scale, plain_queries=int(q.numel()),
+        ms_at_plain_queries=k_ms,
+        at='poles 0-4 (%d Y_lm), %d bins, chunk of %d queries of n=%d, '
+           '%d candidates, %d in-bin pairs' % (nlm, len(edges) - 1, nq,
+                                               p.shape[0], cand3, inbin),
+        launches_per_3pcf=-(-p.shape[0] // CHUNK), candidates=cand3,
+        inbin_pairs=inbin, ops=ops3, bytes=nbytes3)
+    emit({'phase': 'particles_kernels', 'paircount_hist': pair_rec,
+          'threept_alm': alm_rec})
+    return pair_rec, alm_rec
+
+
+def particles_path():
+    """The particles path: the flow once with every kernel's launches
+    counted and its peak memory; the gates; the kernel checks and times;
+    a profile of the box 2PCF and 3PCF. Returns (launches, paircount
+    record, threept record)."""
+    with counted_launches() as launches:
+        torch.cuda.reset_peak_memory_stats()
+        res, ms = particles_flow()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    # 2PCF 1d, 2d, projected, the cross count, the survey's DD, DR, RR
+    # and the angular count each launch paircount_hist once; the 3PCF
+    # once a chunk of its 1e6 queries
+    from nbodykit_tpu_torch.algorithms.threeptcf import CHUNK
+    N = len(res['catalogs'][0])
+    assert launches['paircount_hist'] == 8, launches
+    assert launches['threept_alm'] == -(-N // CHUNK), launches
+    for k in ('radix_rank', 'threefry_fill', 'poisson_cells',
+              'fof_link_count', 'fof_link_fill', 'fof_sweep'):
+        assert launches[k] >= 1, "%s was not launched on the particles " \
+            "path" % k
+    gates = particles_gates(res)
+    emit({'phase': 'particles_boss', 'box': PB_BOX, 'nbar': PB_N / PB_BOX ** 3,
+          'N': gates['N'], 'stages_ms': ms,
+          'total_ms': sum(ms.values()), 'peak_gb': peak / 1e9,
+          'launches': launches, 'gates': gates})
+    cat, randoms = res['catalogs']
+    del res
+    torch.cuda.empty_cache()
+    from nbodykit_tpu_torch.lab import SimulationBox2PCF, SimulationBox3PCF
+    profile_main_path(lambda: (SimulationBox2PCF('1d', cat, PB_EDGES),
+                               SimulationBox3PCF(cat, PB_POLES,
+                                                 PB_3PT_EDGES)),
+                      'particles_boss_2pcf_3pcf')
+    pair_rec, alm_rec = particles_kernels(cat, randoms)
+    return launches, pair_rec, alm_rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2605,15 +2975,19 @@ def main():
     io_launches = io_path(fof_cat)
     del fof_cat
     torch.cuda.empty_cache()
+    # the particle algorithms on the boss_like sample
+    pb_launches, pb_pair, pb_alm = particles_path()
+    torch.cuda.empty_cache()
 
     paths = ('main_512', 'lognormal_1024', 'class_1024', 'convpower_1024',
-             'fof_1024', 'fftrecon_512', 'io_1024')
+             'fof_1024', 'fftrecon_512', 'io_1024', 'particles_boss')
 
     def counted(name):
         by_path = dict(zip(paths, (launches[name], ln_launches[name],
                                    cl_launches[name], cp_launches[name],
                                    fof_launches[name],
-                                   rc_launches[name], io_launches[name])))
+                                   rc_launches[name], io_launches[name],
+                                   pb_launches[name])))
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -2664,6 +3038,16 @@ def main():
         dict(name='fof_link_fill', route='cuda', source=fof_src,
              replaces=fof_replaces, **counted('fof_link_fill'),
              **fof_recs['fof_link_fill']),
+        dict(name='paircount_hist', route='cuda',
+             source='nbodykit_tpu_torch/csrc/paircount.cu',
+             replaces=('nbodykit_tpu/algorithms/pair_counters/core.py:103 '
+                       '_fold_body (XLA gathers and bincounts; no Pallas '
+                       'kernel)'), **counted('paircount_hist'), **pb_pair),
+        dict(name='threept_alm', route='cuda',
+             source='nbodykit_tpu_torch/csrc/threept_alm.cu',
+             replaces=('nbodykit_tpu/algorithms/threeptcf.py:58 the fold '
+                       'body of chunk_zeta (XLA; no Pallas kernel)'),
+             **counted('threept_alm'), **pb_alm),
     ]
     for kern in kernels:
         kern['share_of_bound'] = kern['bound_ms'] / kern['ms']

@@ -2,7 +2,9 @@
 libraries at first use.
 
 Each CUDA source is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. The
+shared library with a plain C interface, loaded with ``ctypes``; the
+headers they share (``csrc/*.cuh``) are on the include path and in the
+library's hash. The
 host libraries (``HOST_SOURCES``: the native Einstein-Boltzmann solver
 and the bigfile part-file reader, the repo's root
 ``csrc/boltzmann_kernel.cpp`` and ``csrc/bigfile_io.cpp``) are compiled
@@ -30,7 +32,8 @@ HOST_SRC_DIR = os.path.join(os.path.dirname(_HERE), 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
 
 FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-         '-shared', '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
+         '-shared', '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v',
+         '-I', SRC_DIR]
 HOST_FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17']
 HOST_SOURCES = ('boltzmann_kernel', 'bigfile_io')
 # flags one host source adds to HOST_FLAGS (the reader's threads)
@@ -86,6 +89,11 @@ def _target(name):
         src, flags = os.path.join(SRC_DIR, name + '.cu'), FLAGS
     with open(src, 'rb') as f:
         digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
+    if not _host(name):
+        # the headers the kernels share (csrc/*.cuh): an edit rebuilds
+        for header in sorted(glob.glob(os.path.join(SRC_DIR, '*.cuh'))):
+            with open(header, 'rb') as f:
+                digest.update(f.read())
     return src, os.path.join(BUILD_DIR, 'lib%s_%s.so'
                              % (name, digest.hexdigest()[:16]))
 

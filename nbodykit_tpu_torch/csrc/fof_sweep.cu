@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_columns.cuh"
+
 #define SWEEP_THREADS 256
 
 template <typename F>
@@ -83,62 +85,6 @@ struct Geo {
   F ll2;
   int periodic;
 };
-
-// The sorted distinct cells of one axis seen from cell c: at most two
-// runs [lo, hi] of consecutive cells, in increasing order.
-struct Runs {
-  int lo0, hi0, lo1, hi1;
-  int m;
-};
-
-__device__ __forceinline__ Runs axis_runs(int c, int n, int dlo, int dhi,
-                                          int periodic) {
-  Runs r;
-  const int lo = c + dlo, hi = c + dhi;
-  r.m = 1;
-  r.lo1 = r.hi1 = 0;
-  if (!periodic) {
-    r.lo0 = lo < 0 ? 0 : lo;
-    r.hi0 = hi >= n ? n - 1 : hi;
-  } else if (hi - lo + 1 >= n) {  // the offsets cover the axis
-    r.lo0 = 0;
-    r.hi0 = n - 1;
-  } else if (lo < 0) {  // wraps below 0: [0, hi], then [lo + n, n - 1]
-    r.m = 2;
-    r.lo0 = 0;
-    r.hi0 = hi;
-    r.lo1 = lo + n;
-    r.hi1 = n - 1;
-  } else if (hi >= n) {  // wraps above n - 1: [0, hi - n], then [lo, n - 1]
-    r.m = 2;
-    r.lo0 = 0;
-    r.hi0 = hi - n;
-    r.lo1 = lo;
-    r.hi1 = n - 1;
-  } else {
-    r.lo0 = lo;
-    r.hi0 = hi;
-  }
-  return r;
-}
-
-// The same cells one by one: v[0] < v[1] < v[2], the first m of them.
-struct Cells {
-  int v[3];
-  int m;
-};
-
-__device__ __forceinline__ Cells axis_cells(int c, int n, int dlo, int dhi,
-                                            int periodic) {
-  const Runs r = axis_runs(c, n, dlo, dhi, periodic);
-  const int len0 = r.hi0 - r.lo0 + 1;
-  Cells o;
-#pragma unroll
-  for (int t = 0; t < 3; ++t)
-    o.v[t] = t < len0 ? r.lo0 + t : r.lo1 + t - len0;
-  o.m = len0 + (r.m == 2 ? r.hi1 - r.lo1 + 1 : 0);
-  return o;
-}
 
 __device__ __forceinline__ float round_even(float x) { return rintf(x); }
 __device__ __forceinline__ double round_even(double x) { return rint(x); }
@@ -165,17 +111,6 @@ __device__ __forceinline__ int walk(const Geo<F>& g,
     if (r2 <= g.ll2) visit(j);
   }
   return j;
-}
-
-// The first slot in [lo, hi) whose key is not below key (hi if none).
-template <typename K>
-__device__ __forceinline__ int lower_bound(const K* __restrict__ flat,
-                                           int lo, int hi, K key) {
-  while (lo < hi) {
-    const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
-    if (flat[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
 }
 
 // Calls visit(j) for every slot j of a neighbour cell of query i within

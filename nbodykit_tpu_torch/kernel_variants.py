@@ -8,18 +8,19 @@ beside the kernel as built at the main path's shapes: the rank pass on
 of ``UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42)`` at 512^3, the
 Poisson draw (both output modes) on the lognormal path's 1024^3 lam,
 the FOF's link count, link fill and search sweep on the FOF flow's grid
-and on a clustered 2e6 catalog. Run from the repository root on a CUDA
-machine::
+and on a clustered 2e6 catalog, the pair count's '1d' and '2d' counts of
+the particles path's boss_like sample. Run from the repository root on
+a CUDA machine::
 
     python -m nbodykit_tpu_torch.kernel_variants [kernel ...]
 
-(kernels: radix_rank, paint_deposit, poisson, fof_sweep, pipes; default
-all). It
+(kernels: radix_rank, paint_deposit, poisson, fof_sweep, paircount,
+pipes; default all). It
 prints one JSON line per timing: the mean CUDA-event time of 20
 launches into preallocated outputs, the kernels in turn (as built,
 each variant, as built again), and whether the variant's result
 matches (ranks and counts bit for bit, blocks within 1e-5 of their
-maximum). The Poisson case also times the occupied cells as the
+maximum, pair counts bit for bit and their sums within 1e-12). The Poisson case also times the occupied cells as the
 full-mesh draw followed by ``nonzero`` (the compaction unfused). The
 ``pipes`` probe runs loops of ALU-pipe (LOP3, SHF) and FMA-pipe (IMAD)
 instructions, alone and together, one CTA per SM, and prints their
@@ -189,6 +190,16 @@ VARIANTS = {
         (FOF_COLUMN_LOOP, fof_columns_side_by_side(3))],
         'the neighbour columns\' table loads and searches three at a time '
         '(one row of the table), not one column after another'),
+    'paircount_overflow_row_by_groups': ('paircount', [
+        ('''    if (ONE_COLUMN && bin == g.nb1 + 1) {
+      far_n += 1;
+      far_w += w;
+      bin = -1;
+    }
+''', '')],
+        'the overflow row of a one-column count through the warp step\'s '
+        'groups (a shuffle loop over ~27 lanes), not in the lanes\' '
+        'registers'),
     # a probe, not a design: what the ordered look-back costs (its list is
     # out of raster order, so it does not match)
     'poisson_unordered_bases': ('threefry', [
@@ -322,6 +333,57 @@ def _lognormal_lam():
     delta = pm.c2r(delta_k.value)
     del delta_k
     return mockmaker.lognormal_lambda(delta, pm, nbar, 2.0), nbar * box ** 3
+
+
+def _paircount_cases():
+    """(label, run, same) of the pair-count kernel on the particles path's
+    boss_like sample (LogNormalCatalog, 1e6 in a box of 2500, seed 42,
+    numpy-seeded weights): the '1d' auto count (one column) and the '2d'
+    one (Nmu 10) on r in linspace(5, 150, 30), the histograms zeroed
+    before each launch (in the timing, alike for every variant)."""
+    import numpy as np
+    from . import cosmology
+    from .algorithms.pair_counters.core import paircount_inputs
+    from .ops import paircount_cuda as pc
+    from .source.catalog import LogNormalCatalog
+    box = 2500.0
+    plin = cosmology.LinearPower(cosmology.Planck15, 0.55, 'EisensteinHu')
+    cat = LogNormalCatalog(plin, nbar=1e6 / box ** 3, BoxSize=box,
+                           Nmesh=1024, bias=2.0, seed=42)
+    pos = cat['Position']
+    w = torch.as_tensor(np.random.RandomState(7).uniform(0.5, 1.5, len(cat)),
+                        device='cuda')
+    del cat
+    edges = np.linspace(5, 150, 30)
+    cases = []
+    for label, kw in (('1d', {}), ('2d', dict(mode='2d', Nmu=10))):
+        args, kwargs, _, _ = paircount_inputs(pos, w, pos, w, np.full(3, box),
+                                              edges, is_auto=True, **kw)
+        ref_n, ref_w = pc.paircount_hist_cuda(*args, **kwargs)
+        e = torch.as_tensor(args[6], dtype=torch.float64, device='cuda')
+        out_n = torch.zeros(ref_n.numel(), dtype=torch.int64, device='cuda')
+        out_w = torch.zeros_like(ref_w)
+        call = pc.launch_args(*args[:6], e, args[7], kwargs['nb2'],
+                              kwargs['pimax'], kwargs['los'],
+                              kwargs['origin'], True, out_n, out_w)
+
+        # the closure holds the tensors behind the pointers
+        def run(lib, call=call, out=(out_n, out_w), keep=(args, e)):
+            fn = lib.nbk_paircount_hist
+            fn.argtypes = pc.ARGTYPES
+
+            def go():
+                out[0].zero_()
+                out[1].zero_()
+                _build.check('paircount', fn(*call))
+            return go
+
+        def same(out_n=out_n, out_w=out_w, ref_n=ref_n, ref_w=ref_w):
+            return bool(torch.equal(out_n.double(), ref_n)) and float(
+                (out_w - ref_w).abs().max()) <= 1e-12 * float(
+                ref_w.abs().max())
+        cases.append(('paircount_hist %s boss_like' % label, run, same))
+    return cases
 
 
 def clustered_catalog(n=2 * 10 ** 6, box=1000.0, blobs=10 ** 4, seed=42):
@@ -592,6 +654,8 @@ def _cases(kernel):
         return [('radix_rank', run, same)]
     if kernel == 'fof_sweep':
         return _fof_cases()
+    if kernel == 'paircount':
+        return _paircount_cases()
     run, same = _deposit_case()
     return [('paint_deposit', run, same)]
 
@@ -601,7 +665,7 @@ def main(argv=()):
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
     which = list(argv) or ['radix_rank', 'paint_deposit', 'poisson',
-                           'fof_sweep', 'pipes']
+                           'fof_sweep', 'paircount', 'pipes']
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -610,7 +674,8 @@ def main(argv=()):
                       'nvidia_smi': smi}), flush=True)
     _build.build_all()
     source = {'radix_rank': 'radix_rank', 'paint_deposit': 'paint_deposit',
-              'poisson': 'threefry', 'fof_sweep': 'fof_sweep'}
+              'poisson': 'threefry', 'fof_sweep': 'fof_sweep',
+              'paircount': 'paircount'}
     names = sorted(n for n in VARIANTS if VARIANTS[n][0] in
                    [source[k] for k in which if k in source])
     libs = _build_variants(names)

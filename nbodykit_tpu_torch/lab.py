@@ -39,6 +39,18 @@ from .source.catalog.file import (BigFileCatalog, BinaryCatalog,  # noqa: F401
 from .source.mesh.bigfile import BigFileMesh  # noqa: F401
 from .source.catalog.subvolumes import SubVolumesCatalog  # noqa: F401
 from . import io  # noqa: F401
+from .algorithms.pair_counters import (SimulationBoxPairCount,  # noqa: F401
+                                       SurveyDataPairCount)
+from .algorithms.pair_counters.base import PairCountBase  # noqa: F401
+from .algorithms.paircount_tpcf import (SimulationBox2PCF,  # noqa: F401
+                                        SurveyData2PCF)
+from .algorithms.paircount_tpcf.estimators import (  # noqa: F401
+    WedgeBinnedStatistic)
+from .algorithms.threeptcf import (SimulationBox3PCF,  # noqa: F401
+                                   SurveyData3PCF, YlmCache)
+from .algorithms.kdtree import KDDensity  # noqa: F401
+from .algorithms.cgm import CylindricalGroups  # noqa: F401
+from .algorithms.fibercollisions import FiberCollisions  # noqa: F401
 
 FKPPower = ConvolvedFFTPower  # the reference's alias
 IO = io  # the reference's alias

@@ -2,6 +2,11 @@
 (counterpart of ``nbodykit_tpu/ops/devicehash.py``, without the
 ``shard_map`` axis: the distributed FOF waits for the multi-GPU port).
 
+:meth:`DeviceGridHash.fold` is the plain candidate traversal the
+particle algorithms fold over (:func:`.gridhash.offset_candidates`);
+:class:`GridHash`, the JAX package's host-side class of
+``ops/gridhash.py``, is a DeviceGridHash of f64 positions.
+
 Particles are hashed into cells at least ``rmax`` wide, ordered by flat
 cell id and located by binary search into the sorted ids: no dense cell
 table. The order is :func:`.radix.order_keys` over the alphabet of
@@ -30,7 +35,7 @@ from .. import resolve_device
 from ..utils import stage
 from .fof_cuda import (column_table, fof_link_count, fof_link_fill,
                        fof_links_sweep, fof_sweep)
-from .gridhash import neighbor_offsets
+from .gridhash import neighbor_offsets, offset_candidates
 from .radix import order_keys
 from .radix_cuda import raise_on_bad_digits
 
@@ -111,11 +116,53 @@ class DeviceGridHash(object):
         return (self.offsets, self.ncell_np, self.box_np, ll2,
                 self.periodic)
 
+    def fold(self, p, ci, body, carry, block=None):
+        """``carry = body(carry, j, valid, d, r2)`` over every (offset,
+        slot) candidate of the queries ``p`` (m, 3) in cells ``ci`` (m, 3)
+        (:func:`.gridhash.offset_candidates`: ``j`` indexes the sorted
+        arrays, ``d = pos_s[j] - p``, minimum-imaged when periodic). With
+        ``block``, up to that many slots a call, arrays of (m, s)."""
+        for j, ok, d, r2 in offset_candidates(
+                self.pos_s, self.flat_s, p, ci, self.offsets, self.ncell_np,
+                self.box_np, self.periodic, block=block):
+            carry = body(carry, j, ok, d, r2)
+        return carry
+
     def sweep(self, ci_s, labels, ll2):
         """One search-mode min-label sweep over the sorted arrays
         (:func:`.fof_cuda.fof_sweep`)."""
         return fof_sweep(self.pos_s, ci_s, self.flat_s, self.valid_s,
                          labels, *self.geometry(ll2), cols=self.columns())
+
+
+class GridHash(DeviceGridHash):
+    """The grid hash of the particle algorithms (counterpart of the JAX
+    package's host-side ``ops/gridhash.GridHash``): a
+    :class:`DeviceGridHash` of f64 positions in [0, box), placed on the
+    entry points' device unless already a tensor. Its callers read
+    ``order``, ``pos_s``, ``offsets``, ``cell_of`` and ``fold``; the
+    kernels also ``flat_s`` and ``columns()``. Cells are at least
+    ``rmax`` wide, capped at DeviceGridHash's 4096 a side (the JAX class
+    caps at 128: every pair within ``rmax`` is visited either way). The
+    cell order is DeviceGridHash's default engine's; :meth:`cell_order`
+    orders queries with the same engine."""
+
+    def __init__(self, pos, box, rmax, periodic=True):
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.as_tensor(np.asarray(pos, dtype='f8'),
+                                  device=resolve_device())
+        pos = pos.to(torch.float64).contiguous()
+        DeviceGridHash.__init__(self, pos, box, rmax, periodic=periodic)
+        raise_on_bad_digits(pos.device)
+
+    def cell_order(self, ci):
+        """The stable permutation of queries in cells ``ci`` (m, 3) to
+        the grid's cell order, by the engine of the grid's own order
+        (the rank pass on a CUDA device for int32 ids)."""
+        key = self._flatten(ci)
+        if self._idt == torch.int32:
+            return order_keys(key, self.ncells_tot)
+        return torch.argsort(key, stable=True)
 
 
 # bytes a particle of the label arrays a sweep and its pointer jumps hold

@@ -49,6 +49,8 @@ import ctypes
 import numpy as np
 import torch
 
+from .gridhash import offset_candidates
+
 # threads a block of each kernel (csrc/fof_sweep.cu SWEEP_THREADS)
 SWEEP_THREADS = 256
 # neighbour offsets a sweep takes: the 3 x 3 x 3 of ops/gridhash.py
@@ -103,40 +105,6 @@ def column_table(flat_s, ncell):
     return torch.searchsorted(flat_s, keys, out_int32=True)
 
 
-def _offset_candidates(pos_s, ci_s, flat_s, offsets, ncell, box, periodic):
-    """Per offset and slot of the plain fold: (j, ok, r2) of every query,
-    ``ok`` false where the slot is past the cell or the offset is out of
-    an open grid. A generator: one host sync per offset."""
-    dev = pos_s.device
-    box_t = torch.as_tensor(np.asarray(box, 'f8'), dtype=pos_s.dtype,
-                            device=dev)
-    ncell_t = torch.as_tensor(np.asarray(ncell), dtype=torch.int32,
-                              device=dev)
-    nc1, nc2 = int(ncell[1]), int(ncell[2])
-    for off in offsets:
-        nc = ci_s + torch.as_tensor(off, dtype=torch.int32, device=dev)
-        if periodic:
-            nc = torch.remainder(nc, ncell_t)
-            oob = torch.zeros(nc.shape[0], dtype=torch.bool, device=dev)
-        else:
-            clipped = torch.minimum(torch.clamp(nc, min=0), ncell_t - 1)
-            oob = (nc != clipped).any(dim=-1)
-            nc = clipped
-        nc = nc.to(flat_s.dtype)
-        nflat = (nc[:, 0] * nc1 + nc[:, 1]) * nc2 + nc[:, 2]
-        start = torch.searchsorted(flat_s, nflat)
-        count = torch.searchsorted(flat_s, nflat, right=True) - start
-        kmax = int(torch.where(oob, 0, count).max())
-        for slot in range(kmax):
-            ok = (slot < count) & ~oob
-            j = torch.where(ok, start + slot, 0)
-            d = pos_s[j] - pos_s
-            if periodic:
-                d = d - torch.round(d / box_t) * box_t
-            r2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
-            yield j, ok, r2
-
-
 def fof_sweep_plain(pos_s, ci_s, flat_s, valid_s, labels, offsets, ncell,
                     box, ll2, periodic):
     """One Jacobi min-label sweep in torch, on any device.
@@ -152,8 +120,8 @@ def fof_sweep_plain(pos_s, ci_s, flat_s, valid_s, labels, offsets, ncell,
     if labels.shape[0] == 0:
         return best
     ll2_t = torch.tensor(float(ll2), dtype=pos_s.dtype, device=pos_s.device)
-    for j, ok, r2 in _offset_candidates(pos_s, ci_s, flat_s, offsets, ncell,
-                                        box, periodic):
+    for j, ok, _, r2 in offset_candidates(pos_s, flat_s, pos_s, ci_s,
+                                          offsets, ncell, box, periodic):
         ok = ok & valid_s & (r2 <= ll2_t)
         best = torch.minimum(best, torch.where(ok, labels[j], best))
     return best
@@ -171,8 +139,8 @@ def fof_pairs_plain(pos_s, ci_s, flat_s, valid_s, offsets, ncell, box, ll2,
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     keys = []
     if n:
-        for j, ok, r2 in _offset_candidates(pos_s, ci_s, flat_s, offsets,
-                                            ncell, box, periodic):
+        for j, ok, _, r2 in offset_candidates(pos_s, flat_s, pos_s, ci_s,
+                                              offsets, ncell, box, periodic):
             ok = ok & valid_s & (r2 <= ll2_t) & (j != idx)
             keys.append(idx[ok] * n + j[ok])
     keys = torch.sort(torch.cat(keys))[0] if keys else \

@@ -31,8 +31,15 @@ LL = 0.2 * BOX / N ** (1. / 3)      # 0.2 of the mean separation
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    with nbodykit_tpu_torch.set_options(device='cpu'):
-        yield
+    # one intra-op thread: the plain sweeps are many small ops, and the
+    # thread pools of parallel test workers slow each by milliseconds
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with nbodykit_tpu_torch.set_options(device='cpu'):
+            yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def positions(kind, dtype, seed=7, n=N, box=BOX):

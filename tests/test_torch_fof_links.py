@@ -26,8 +26,15 @@ TINY_LL = 1.0
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    with nbodykit_tpu_torch.set_options(device='cpu'):
-        yield
+    # one intra-op thread: the plain sweeps are many small ops, and the
+    # thread pools of parallel test workers slow each by milliseconds
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with nbodykit_tpu_torch.set_options(device='cpu'):
+            yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def positions(kind, dtype, box, ll, n, seed=5):

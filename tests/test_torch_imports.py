@@ -67,7 +67,15 @@ def test_import_loads_no_jax():
             "nbodykit_tpu_torch.io, nbodykit_tpu_torch.io._native, "
             "nbodykit_tpu_torch.source.catalog.file, "
             "nbodykit_tpu_torch.source.catalog.subvolumes, "
-            "nbodykit_tpu_torch.source.mesh.bigfile; "
+            "nbodykit_tpu_torch.source.mesh.bigfile, "
+            "nbodykit_tpu_torch.algorithms.pair_counters, "
+            "nbodykit_tpu_torch.algorithms.paircount_tpcf, "
+            "nbodykit_tpu_torch.algorithms.threeptcf, "
+            "nbodykit_tpu_torch.algorithms.kdtree, "
+            "nbodykit_tpu_torch.algorithms.cgm, "
+            "nbodykit_tpu_torch.algorithms.fibercollisions, "
+            "nbodykit_tpu_torch.ops.paircount_cuda, "
+            "nbodykit_tpu_torch.ops.threept_cuda; "
             "added = set(sys.modules) - before; "
             "bad = sorted(m for m in added if m == 'jax' or "
             "m.startswith('jax.') or m == 'nbodykit_tpu' or "
@@ -192,6 +200,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                             p0=8, N1=8, N2=8, origin=0)
 
 
+def test_particle_kernel_wrappers_refuse_cpu_tensors():
+    from nbodykit_tpu_torch.ops.devicehash import GridHash
+    from nbodykit_tpu_torch.ops.paircount_cuda import paircount_hist_cuda
+    from nbodykit_tpu_torch.ops.threept_cuda import threept_alm_cuda
+    pos = torch.as_tensor(np.random.RandomState(0).uniform(0, 10, (20, 3)))
+    grid = GridHash(pos, np.full(3, 10.0), 3.0)
+    w = torch.ones(20, dtype=torch.float64)
+    live = torch.ones(20, dtype=torch.bool)
+    ci = grid.cell_of(grid.pos_s)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        paircount_hist_cuda(grid, w, grid.pos_s, w, live, ci,
+                            np.array([1.0, 4.0]), '1d', is_auto=True)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        threept_alm_cuda(grid, w, grid.pos_s, live, ci,
+                         np.array([1.0, 4.0]), [0, 2])
+
+
 def _port_module(name):
     """The port's counterpart of JAX-package module ``name``, if any."""
     import importlib.util
@@ -226,7 +251,12 @@ def test_lab_exports_every_ported_name():
     for name in ('Planck15', 'FKPPower', 'FOF', 'HaloCatalog', 'FFTRecon',
                  'TopHat', 'setup_logging', 'timer', 'meshtools', 'io', 'IO',
                  'BigFileCatalog', 'FITSCatalog', 'BigFileMesh',
-                 'SubVolumesCatalog', 'FileCatalogFactory'):
+                 'SubVolumesCatalog', 'FileCatalogFactory',
+                 'SimulationBoxPairCount', 'SurveyDataPairCount',
+                 'PairCountBase', 'SimulationBox2PCF', 'SurveyData2PCF',
+                 'WedgeBinnedStatistic', 'SimulationBox3PCF',
+                 'SurveyData3PCF', 'YlmCache', 'KDDensity',
+                 'CylindricalGroups', 'FiberCollisions'):
         assert hasattr(tlab, name), name
     assert checked >= 50, checked
     assert tlab.FKPPower is tlab.ConvolvedFFTPower

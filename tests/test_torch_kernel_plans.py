@@ -240,3 +240,50 @@ def test_kernel_variants_apply_to_the_sources(name):
     for old, new in subs:
         assert text.count(old) >= 1 and old != new
     assert what
+
+
+def test_particle_kernels_match_their_sources():
+    """The pair-count and 3PCF wrappers' constants, shared-memory sizes
+    and mode numbers against csrc/paircount.cu and csrc/threept_alm.cu."""
+    from nbodykit_tpu_torch.ops import paircount_cuda as pc
+    from nbodykit_tpu_torch.ops import threept_cuda as tc
+    assert _define('paircount.cu', 'PC_THREADS') == pc.PC_THREADS
+    assert _define('threept_alm.cu', 'TA_THREADS') == tc.TA_THREADS
+    with open(os.path.join(CSRC, 'paircount.cu')) as f:
+        src = f.read()
+    assert 'enum { MODE_1D = 0, MODE_2D = 1, MODE_PROJECTED = 2 };' in src
+    assert pc.MODES == {'1d': 0, 'angular': 0, '2d': 1, 'projected': 2}
+    # '1d' with 30 edges: 31 bins of 16 bytes and 30 edges of 8
+    assert pc.smem_bytes(30, 1) == 31 * 16 + 30 * 8
+    assert pc.hist_bins(21, 60) == 22 * 60
+    assert (_define('threept_alm.cu', 'QCAP'),
+            _define('threept_alm.cu', 'QBATCH')) == (tc.QCAP, tc.QBATCH)
+    # poles 0-4 (25 harmonics, lmax 4), 13 bins: 4 warps, each a queue of
+    # 64 pairs, a batch's 32 x 25 harmonics and 25 x 13 moments
+    assert tc.smem_bytes(13, 25, 4) == 8 * 14 + 8 * 25 + 16 * 5 \
+        + 4 * (64 * 36 + 32 * 25 * 8 + 25 * 13 * 8)
+    assert tc.smem_bytes(13, 25, 4) < tc.SMEM_LIMIT
+
+
+@pytest.mark.parametrize('mode,los,periodic,ops', [
+    ('1d', 2, True, 22), ('2d', 'midpoint', False, 41),
+    ('projected', 2, True, 31)])
+def test_candidate_ops(mode, los, periodic, ops):
+    from nbodykit_tpu_torch.ops.paircount_cuda import candidate_ops
+    assert candidate_ops(mode, 30, los, periodic) == ops
+
+
+def test_ylm_ops_and_bytes():
+    from nbodykit_tpu_torch.ops import paircount_cuda as pc
+    from nbodykit_tpu_torch.ops import threept_cuda as tc
+    # ell 0: the unit vector (4) and one Y_00 (its product, sum: 4)
+    assert tc.ylm_ops([0]) == 8
+    # ell 1: the recurrence's first step (2), 3 harmonics of 4 each, the
+    # unit vector (4)
+    assert tc.ylm_ops([1]) == 4 + 2 + 12
+    # poles 0-4: m = 0 steps 2 + 5 * 3, m = 1 2 + 5 * 2, m = 2 6 + 2 + 5,
+    # m = 3 6 + 2, m = 4 6; 25 harmonics
+    assert tc.ylm_ops([0, 1, 2, 3, 4]) == 4 + 17 + 12 + 13 + 8 + 6 + 100
+    assert tc.alm_bytes(10, 20, 4, 5, 3, 4) == 10 * (37 + 96) + 20 * 36 \
+        + 20 + 32
+    assert pc.hist_bytes(10, 20, 8, 5, 4, 2) == 450 + 800 + 20 + 32 + 160

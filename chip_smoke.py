@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
-drives eight paths through the user entry points:
+drives ten paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
@@ -37,7 +37,7 @@ drives eight paths through the user entry points:
   mesh and catalog, compute(Nmesh=...) down and up, preview, sort and
   DistributedRNG.choice; HalofitPower, ZeldovichPower,
   CorrelationFunction and LinearNbody;
-- the io path (last): the bigfile reader built with g++; the FOF path's
+- the io path (after the FFTRecon path): the bigfile reader built with g++; the FOF path's
   lognormal catalog saved (Position, Velocity) and reloaded with
   BigFileCatalog, bit for bit on the card, then its compensated CIC
   mesh and FFTPower against the in-memory run; the convpower path's
@@ -56,6 +56,20 @@ drives eight paths through the user entry points:
   ('2d'), an angular SurveyDataPairCount and FiberCollisions at 62";
   KDDensity and CylindricalGroups (rperp 2, rpar 10); both particle
   kernels against their plain versions on every count's grid;
+- the bispectrum path (after the particles path): Bispectrum(
+  UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42), nbins=16,
+  Nmesh=256, method='fft') (564 triangles, alias-free), the deposit and
+  the rank pass against their plain versions on its f8 paint; the FFT
+  and direct estimators on bench.py's imprinted-weight catalog (1e6 in
+  1000, nbins 8): ntri identical, B within 2e-2 of the largest; the
+  pairblock sum and the triple sum beside their bounds; the numpy
+  oracles of tests/test_bispectrum.py on small cases;
+- the forward path (last): ForwardModel(128, 128^3, BoxSize=1000,
+  pm_steps=2, delta_rms=0.36, dtype='f8') (the grad-mode paint demoted
+  from mxu to scatter), the density's and one value-and-gradient's
+  times, 40 Adam steps (lr 0.01) from the linear start beating
+  FFTRecon on mean_cross_correlation, and the loss's directional
+  derivative against central differences (eps 1e-6) at 32^3;
 
 and LinearMesh at the same scale against its exact expectation. Every
 check is an ``assert`` or a raise, so any failure exits non-zero.
@@ -2896,6 +2910,404 @@ def particles_path():
     return launches, pair_rec, alm_rec
 
 
+# the bispectrum path: the FFT estimator on the main path's catalog at
+# 256^3 (564 triangles, alias-free: 2 (16 + 1) <= 256 / 2); the
+# agreement of the FFT and direct estimators on the imprinted-weight
+# catalog of bench.py's bispectrum bench (1e6 in 1000, f8, nbins 8);
+# each numpy oracle of tests/test_bispectrum.py on a small case
+BS_BOX, BS_NMESH, BS_NBINS = 1000.0, 256, 16
+BS_NPART, BS_CHECK_NBINS, BS_SEED = 10 ** 6, 8, 42
+# f64 operations a particle-mode pair of the pairblock sum, unfused as
+# F64_UNFUSED_OPS counts them: the phase (3 multiplies, 2 adds), the two
+# weighted accumulations (2 multiplies, 2 adds), and sin and cos at 22
+# each (a Cody-Waite reduction of 3 and a degree-~9 polynomial of 19 by
+# Horner's rule, the least a libm sin or cos takes for |x| < 1e5)
+PAIRBLOCK_OPS = 5 + 4 + 2 * 22
+
+
+def spy_rank_digits(fn):
+    """(fn's result, [(digits, D)]): every digit stream the rank pass
+    is given while ``fn`` runs, copied."""
+    from nbodykit_tpu_torch.ops import radix
+    seen, orig = [], radix._rank_hist
+
+    def spy(digit, D):
+        seen.append((digit.clone(), D))
+        return orig(digit, D)
+    radix._rank_hist = spy
+    try:
+        out = fn()
+    finally:
+        radix._rank_hist = orig
+    return out, seen
+
+
+def bispectrum_flow(nmesh=BS_NMESH, nbins=BS_NBINS):
+    from nbodykit_tpu_torch.lab import Bispectrum, UniformCatalog
+    cat = UniformCatalog(nbar=1e-2, BoxSize=BS_BOX, seed=42)
+    return cat, Bispectrum(cat, nbins=nbins, Nmesh=nmesh, method='fft')
+
+
+def imprinted_catalog(npart=BS_NPART, L=BS_BOX, seed=BS_SEED):
+    """bench.py's bispectrum catalog: numpy uniform positions from
+    RandomState(seed + 11) and weights (1 + g / 2)^2, g a sum of eight
+    low-|q| cosines, as an f8 ArrayCatalog on the card."""
+    from nbodykit_tpu_torch.lab import ArrayCatalog
+    rng = np.random.RandomState(seed + 11)
+    pos = rng.uniform(0.0, L, size=(npart, 3))
+    g = np.zeros(npart)
+    for m in [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (0, 1, 1),
+              (1, 0, 1), (2, 0, 0), (1, 1, 1)]:
+        ph = rng.uniform(0, 2 * np.pi)
+        g += 0.4 * np.cos(2 * np.pi * (pos @ np.array(m)) / L + ph)
+    return ArrayCatalog({'Position': pos, 'Weight': (1.0 + 0.5 * g) ** 2},
+                        device='cuda', BoxSize=L)
+
+
+def fft_triangle_oracle(N=16, L=100.0, nbins=4):
+    """tests/test_bispectrum.py's all-triangle oracle of the FFT path
+    (mod-N closure) against fft_bispectrum on the card, f8."""
+    from nbodykit_tpu_torch.algorithms.bispectrum import fft_bispectrum
+    from nbodykit_tpu_torch.pmesh import ParticleMesh
+    pm = ParticleMesh(N, L, dtype='f8')
+    real = np.random.RandomState(42).standard_normal((N, N, N))
+    B, ntri = fft_bispectrum(pm, pm.r2c(torch.as_tensor(real,
+                                                        device='cuda')),
+                             nbins)
+    dk = np.fft.fftn(real).reshape(-1) / N ** 3
+    fx = np.fft.fftfreq(N, 1.0 / N).astype(int)
+    qx, qy, qz = np.meshgrid(fx, fx, fx, indexing='ij')
+    q = np.stack([qx, qy, qz], -1).reshape(-1, 3)
+    isq = (q ** 2).sum(1)
+    sh = np.floor(np.sqrt(isq.astype('f8'))).astype(int) - 1
+    pos_of = {tuple(v): i for i, v in enumerate(q)}
+    idx = {b: np.flatnonzero((isq >= 1) & (sh == b)) for b in range(nbins)}
+    So = np.zeros((nbins,) * 3, complex)
+    No = np.zeros((nbins,) * 3)
+    for b1 in range(nbins):
+        for b2 in range(nbins):
+            q2s, d2 = q[idx[b2]], dk[idx[b2]]
+            for i1 in idx[b1]:
+                q3 = (-(q[i1] + q2s) + N // 2) % N - N // 2
+                for i2 in range(len(q2s)):
+                    t = pos_of[tuple(q3[i2])]
+                    b3 = sh[t]
+                    if 0 <= b3 < nbins and isq[t] >= 1:
+                        So[b1, b2, b3] += dk[i1] * d2[i2] * dk[t]
+                        No[b1, b2, b3] += 1
+    return B, ntri, So, No, L ** 3
+
+
+def direct_triangle_oracle(Np=400, L=100.0, nbins=3):
+    """tests/test_bispectrum.py's true-closure oracle of the direct path
+    against direct_bispectrum on the card, f8."""
+    from nbodykit_tpu_torch.algorithms.bispectrum import (direct_bispectrum,
+                                                          shell_modes)
+    rng = np.random.RandomState(7)
+    pos = rng.uniform(0, L, (Np, 3))
+    w = rng.uniform(0.5, 1.5, Np)
+    B, ntri = direct_bispectrum(torch.as_tensor(pos, device='cuda'),
+                                torch.as_tensor(w, device='cuda'), L, nbins,
+                                tile=128)
+    q, sh = shell_modes(nbins)
+    q = np.concatenate([q, -q])
+    sh = np.concatenate([sh, sh])
+    kv = q * (2 * np.pi / L)
+    d = (w[None, :] * np.exp(-1j * (kv @ pos.T))).sum(1) / w.sum()
+    pos_of = {tuple(v): i for i, v in enumerate(q)}
+    S = np.zeros((nbins,) * 3, complex)
+    No = np.zeros((nbins,) * 3)
+    for i1 in range(len(q)):
+        for i2 in range(len(q)):
+            t = pos_of.get(tuple(-(q[i1] + q[i2])))
+            if t is not None:
+                S[sh[i1], sh[i2], sh[t]] += d[i1] * d[i2] * d[t]
+                No[sh[i1], sh[i2], sh[t]] += 1
+    return B, ntri, S, No, L ** 3
+
+
+def check_oracle(label, B, ntri, S, No, V, rtol):
+    Bo = np.where(No > 0, V * V * S.real / np.where(No > 0, No, 1), np.nan)
+    assert np.array_equal(np.nan_to_num(ntri, nan=0.0), No), \
+        "%s: ntri differs from the oracle's count" % label
+    assert np.array_equal(np.isnan(B), No == 0), label
+    both = No > 0
+    err = float(np.max(np.abs(B[both] - Bo[both]) / np.abs(Bo[both])))
+    assert err <= rtol, "%s: B off the oracle by %g > %g" % (label, err,
+                                                              rtol)
+    return dict(triangles=int(both.sum()), max_rel_err=err, rtol=rtol)
+
+
+def bispectrum_kernels(cat, nmesh=BS_NMESH):
+    """The deposit and the rank pass on the bispectrum's paint (the f8
+    CIC mesh that Bispectrum's FFT path paints): the deposit against its
+    plain version on the whole payload, bucketed by the radix passes and
+    equal to argsort's bucketing; the rank kernel against its plain
+    version on every digit stream of that paint; the mxu paint against
+    index_add_'s; their times."""
+    from nbodykit_tpu_torch import set_options
+    from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
+                                                   pass_rank_hist_plain)
+    full = (nmesh,) * 3
+    mesh = cat.to_mesh(Nmesh=nmesh, dtype='f8', compensated=True)
+    field, digits = spy_rank_digits(lambda: mesh.to_real_field().value)
+    assert digits, "the bispectrum's paint ran no rank pass"
+    for d, D in digits:
+        rk, hk = pass_rank_hist_cuda(d, D)
+        rp, hp = pass_rank_hist_plain(d, D)
+        assert torch.equal(rk, rp) and torch.equal(hk, hp), \
+            "rank pass at D=%d differs from its plain version" % D
+    with set_options(paint_method='scatter'):
+        plain = mesh.to_real_field().value
+    diff = float((plain - field).abs().max())
+    fmax = float(field.abs().max())
+    assert diff <= 1e-12 * fmax, (diff, fmax)
+    del plain, field
+    pos = cat['Position'] * (nmesh / BS_BOX)
+    mass = torch.ones(pos.shape[0], dtype=torch.float64, device='cuda')
+    plan, payload, geom, err, _ = deposit_case(
+        'cic %d^3 f8 bispectrum n=%d' % (nmesh, pos.shape[0]), pos, mass,
+        full, full, 0, 'cic', check_order=True)
+    dep = time_deposit(payload, geom, plan, err)
+    del payload
+    rank = time_rank(len(cat), D=digits[0][1], digits=digits[0][0],
+                     plain_reps=1)
+    emit({'phase': 'bispectrum_kernels', 'rank_streams_checked':
+          [[int(d.numel()), int(D)] for d, D in digits],
+          'mxu_vs_index_add_max_abs': diff, 'field_max': fmax,
+          'deposit': dep, 'rank': rank})
+    return dep, rank
+
+
+def triple_sum_timing(cat, nmesh=BS_NMESH, nbins=BS_NBINS):
+    """One call of the FFT path's triple sum (three shell-filtered c2r
+    and the product's sum) at the path's mesh, against its bound: three
+    complex-to-real transforms at 2.5 N log2 N f64 operations each (N
+    real cells) at the FMA peak, or the complex field read once."""
+    from nbodykit_tpu_torch.algorithms.bispectrum import (_make_triple_sum,
+                                                          _shell_edges2)
+    c = cat.to_mesh(Nmesh=nmesh, dtype='f8', compensated=True).compute(
+        mode='complex')
+    triple = _make_triple_sum(c.pm)
+    edges2, _ = _shell_edges2(nbins, c.pm.BoxSize)
+    e = np.stack([edges2[nbins // 2]] * 3)
+    ms = cuda_ms(lambda: triple(c.value, e), reps=10)
+    n = float(c.pm.Ntot)
+    ops = 3 * 2.5 * n * np.log2(n)
+    b_ms, b_by = bound(c.value.numel() * c.value.element_size(), ops,
+                       F64_FLOPS)
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, ops=ops,
+                share_of_bound=b_ms / ms, at='%d^3 f8, shells %s'
+                % (nmesh, e.tolist()))
+
+
+def bispectrum_agreement(npart=BS_NPART, nmesh=BS_NMESH,
+                         nbins=BS_CHECK_NBINS):
+    """The FFT and direct estimators on the imprinted-weight catalog: an
+    alias-free closure (2 (nbins + 1) <= nmesh / 2), so ntri must be
+    identical and B agree to tests/test_bispectrum.py's bar (2e-2 of
+    the largest |B|); the pairblock sum's time against its bound and the
+    host combination's seconds."""
+    from nbodykit_tpu_torch.algorithms.bispectrum import (
+        _combine_triangles, shell_modes)
+    from nbodykit_tpu_torch.lab import Bispectrum
+    from nbodykit_tpu_torch.ops.pairblock import lattice_kvecs, pairblock_sum
+    assert 2 * (nbins + 1) <= nmesh // 2
+    cat = imprinted_catalog(npart)
+    bf, fft_ms = timed(lambda: Bispectrum(cat, nbins=nbins, Nmesh=nmesh,
+                                          method='fft'))
+    bd, direct_ms = timed_host(lambda: Bispectrum(cat, nbins=nbins,
+                                                  method='direct'))
+    Bf, Bd = bf.B['B'], bd.B['B']
+    same = np.array_equal(np.nan_to_num(bf.B['ntri'], nan=-1.0),
+                          np.nan_to_num(bd.B['ntri'], nan=-1.0))
+    m = ~np.isnan(Bf)
+    scale = float(np.abs(Bd[m]).max())
+    err = float(np.max(np.abs(Bf[m] - Bd[m])))
+    ok = bool(np.allclose(Bf[m], Bd[m], rtol=2e-2, atol=2e-2 * scale))
+
+    pos, w = cat['Position'], cat['Weight']
+    q, shell = shell_modes(nbins)
+    kv = lattice_kvecs(q, BS_BOX)
+    modes = pairblock_sum(pos, w, kv)
+    pb_ms = cuda_ms(lambda: pairblock_sum(pos, w, kv), reps=3)
+    pairs = float(npart) * len(kv)
+    b_ms, b_by = bound(npart * 4 * 8 + len(kv) * 3 * 8 + len(kv) * 16,
+                       pairs * PAIRBLOCK_OPS, F64_UNFUSED_OPS)
+    d_half = modes.cpu().numpy() / float(w.sum())
+    full_q = np.concatenate([q, -q])
+    delta = np.concatenate([d_half, np.conj(d_half)])
+    _, host_ms = timed_host(lambda: _combine_triangles(
+        full_q, np.concatenate([shell, shell]), delta, nbins))
+    rec = {'phase': 'bispectrum_agreement', 'npart': npart, 'nmesh': nmesh,
+           'nbins': nbins, 'triangles': int(m.sum()),
+           'ntri_identical': same, 'max_abs_B_diff': err,
+           'max_abs_B': scale, 'atol': 2e-2 * scale, 'agree': ok,
+           'fft_ms': fft_ms, 'direct_host_ms': direct_ms,
+           'pairblock': dict(ms=pb_ms, bound_ms=b_ms, bound_by=b_by,
+                             share_of_bound=b_ms / pb_ms, pairs=pairs,
+                             modes=len(kv), ops_per_pair=PAIRBLOCK_OPS,
+                             library_ms=None),
+           'combine_host_s': host_ms / 1e3}
+    emit(rec)
+    assert same, "FFT and direct ntri differ on an alias-free closure"
+    assert ok, "FFT and direct B differ by %g > 2e-2 * %g" % (err, scale)
+    return bf, rec
+
+
+def bispectrum_path():
+    """The bispectrum path: the user flow once with every kernel's
+    launches counted, then its median of 3 calls after a warm-up, ms a
+    triangle, the paint's ms and the peak; the kernels on its paint; the
+    FFT/direct agreement; the numpy oracles. Returns (launches,
+    {deposit, rank} records, triple-sum and pairblock records)."""
+    from nbodykit_tpu_torch.algorithms.bispectrum import triangle_bins
+    t0 = time.perf_counter()
+    with counted_launches() as launches:
+        cat, r = bispectrum_flow()
+    for k in ('threefry_fill', 'paint_deposit', 'radix_rank'):
+        assert launches[k] >= 1, "%s was not launched on the bispectrum " \
+            "path" % k
+    ntri, B = r.B['ntri'], r.B['B']
+    closed = ~np.isnan(ntri)
+    ncanon = len(triangle_bins(BS_NBINS))
+    assert np.array_equal(closed, ~np.isnan(B))
+    assert np.isfinite(B[closed]).all() and (ntri[closed] >= 1).all()
+    for perm in ((0, 2, 1), (1, 0, 2), (2, 1, 0)):
+        assert np.array_equal(np.nan_to_num(ntri), np.nan_to_num(
+            ntri.transpose(perm)))
+    _, run, peak = peak_of(lambda: bispectrum_flow()[1])
+    mesh = cat.to_mesh(Nmesh=BS_NMESH, dtype='f8', compensated=True)
+    _, paint = spread(lambda: mesh.to_real_field(), REPS)
+    del mesh
+    emit({'phase': 'bispectrum_256', 'npart': len(cat), 'nmesh': BS_NMESH,
+          'nbins': BS_NBINS, 'triangles': ncanon, 'launches': launches,
+          'run_ms': run, 'ms_per_triangle': run['median'] / ncanon,
+          'paint_ms': paint, 'peak_gb': peak})
+    dep, rank = bispectrum_kernels(cat)
+    triple = triple_sum_timing(cat)
+    del cat, r
+    torch.cuda.empty_cache()
+    bf, agree = bispectrum_agreement()
+    # the counts are the mesh's, whatever the field: nbins 8 of the
+    # 16-bin run equal the agreement run's
+    k = BS_CHECK_NBINS
+    assert np.array_equal(np.nan_to_num(ntri[:k, :k, :k], nan=-1.0),
+                          np.nan_to_num(bf.B['ntri'], nan=-1.0))
+    oracles = {'fft': check_oracle('fft oracle', *fft_triangle_oracle(),
+                                   rtol=1e-6),
+               'direct': check_oracle('direct oracle',
+                                      *direct_triangle_oracle(), rtol=1e-10)}
+    emit({'phase': 'bispectrum_checks', 'triple_sum': triple,
+          'oracles': oracles,
+          'path_s': time.perf_counter() - t0})
+    return launches, dict(deposit=dep, rank=rank), dict(
+        triple_sum=triple, pairblock=agree['pairblock'])
+
+
+# the forward path: the JAX package's 128^3 inference configuration
+# (tests/test_forward.py test_recovery_beats_fftrecon_128), f8
+FW_NMESH, FW_STEPS, FW_DELTA_RMS = 128, 2, 0.36
+FW_ADAM_STEPS, FW_LR, FW_NOISE = 40, 0.01, 0.1
+# the finite-difference check of docs/FORWARD.md: eps 1e-6 at f8, on a
+# 32^3 model, at tests/test_forward.py's bar for the whole pipeline
+FD_NMESH, FD_EPS, FD_RTOL = 32, 1e-6, 1e-4
+
+
+def forward_fd_check(nmesh=FD_NMESH):
+    """The directional derivative of the loss along a unit whitenoise
+    direction against central differences."""
+    from nbodykit_tpu_torch.forward import ForwardModel, make_loss
+    model = ForwardModel(nmesh, nmesh ** 3, BoxSize=1000.0,
+                         pm_steps=FW_STEPS, dtype='f8')
+    lat = model.lattice
+    with torch.no_grad():
+        obs = model.density(model.linear_modes(1))
+        w = lat.c2r(lat.generate_whitenoise(3)) * 0.2
+        d = lat.c2r(lat.generate_whitenoise(5))
+        d = d / torch.sqrt(torch.sum(d * d))
+    loss = make_loss(model, obs, noise_std=0.5)
+    x = w.clone().requires_grad_(True)
+    g, = torch.autograd.grad(loss(x), x)
+    with torch.no_grad():
+        fd = (float(loss(w + FD_EPS * d)) - float(loss(w - FD_EPS * d))) \
+            / (2.0 * FD_EPS)
+    dot = float(torch.sum(g * d))
+    err = abs(fd - dot) / max(abs(fd), abs(dot), 1e-10)
+    assert err <= FD_RTOL, "FD %r vs grad %r (rel %.3g)" % (fd, dot, err)
+    return dict(nmesh=nmesh, eps=FD_EPS, fd=fd, grad_dot=dot, rel_err=err,
+                rtol=FD_RTOL)
+
+
+def forward_path(nmesh=FW_NMESH, steps=FW_ADAM_STEPS):
+    """The forward path: the 128^3 model's truth, observation and
+    linear start with every kernel's launches counted; the density's and
+    one value-and-gradient's times and peaks; 40 Adam steps against
+    FFTRecon on mean_cross_correlation; the FD check at 32^3."""
+    from nbodykit_tpu_torch.forward import (ForwardModel, fftrecon_baseline,
+                                            linear_init, make_loss,
+                                            mean_cross_correlation,
+                                            recover)
+    t0 = time.perf_counter()
+    with counted_launches() as launches:
+        model = ForwardModel(nmesh, nmesh ** 3, BoxSize=1000.0,
+                             pm_steps=FW_STEPS, delta_rms=FW_DELTA_RMS,
+                             dtype='f8')
+        with torch.no_grad():
+            truth = model.linear_modes(0)
+            obs = model.density(truth)
+            w0 = linear_init(model, obs)
+            pos, _ = model.evolve(truth)
+            base = fftrecon_baseline(model, pos)
+        (w, losses), recover_ms = timed(lambda: recover(
+            model, obs, steps=steps, lr=FW_LR, noise_std=FW_NOISE,
+            white0=w0))
+    cfg = model.paint_cfg
+    assert (cfg['paint_method'], cfg['source'], cfg['winner_name']) == \
+        ('scatter', 'grad-fallback', 'mxu'), cfg
+    # the draws of the truth; the FFTRecon baseline's mxu paints
+    for k in ('threefry_fill', 'paint_deposit', 'radix_rank'):
+        assert launches[k] >= 1, "%s was not launched on the forward " \
+            "path" % k
+    lat = model.lattice
+    with torch.no_grad():
+        r_rec = float(mean_cross_correlation(
+            lat, model.modes_from_white(w), truth))
+        r_base = float(mean_cross_correlation(lat, base, truth))
+        r_start = float(mean_cross_correlation(
+            lat, model.modes_from_white(w0), truth))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert r_rec > r_base, \
+        "recovered r=%.4f does not beat FFTRecon r=%.4f" % (r_rec, r_base)
+
+    loss = make_loss(model, obs, noise_std=FW_NOISE)
+
+    def value_and_grad():
+        x = w0.clone().requires_grad_(True)
+        val = loss(x)
+        return val.detach(), torch.autograd.grad(val, x)[0]
+
+    def density():
+        with torch.no_grad():
+            return model.density(truth)
+    _, dens, dens_peak = peak_of(density)
+    _, vg, vg_peak = peak_of(value_and_grad)
+    fd = forward_fd_check()
+    emit({'phase': 'forward_128', 'nmesh': nmesh, 'npart': model.npart,
+          'pm_steps': FW_STEPS, 'delta_rms': FW_DELTA_RMS,
+          'paint_method': cfg['paint_method'], 'paint_source': cfg['source'],
+          'demoted': cfg['winner_name'], 'launches': launches,
+          'density_ms': dens, 'density_peak_gb': dens_peak,
+          'value_and_grad_ms': vg, 'value_and_grad_peak_gb': vg_peak,
+          'grad_over_density': vg['median'] / dens['median'],
+          'adam_steps': steps, 'lr': FW_LR, 'loss_first': losses[0],
+          'loss_last': losses[-1], 'r_recovered': r_rec,
+          'r_fftrecon': r_base, 'r_linear_start': r_start,
+          'ms_per_adam_step': recover_ms / steps, 'fd_check': fd,
+          'path_s': time.perf_counter() - t0})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2978,16 +3390,26 @@ def main():
     # the particle algorithms on the boss_like sample
     pb_launches, pb_pair, pb_alm = particles_path()
     torch.cuda.empty_cache()
+    # the bispectrum, then the forward model
+    t0 = time.perf_counter()
+    bs_launches, bs_kernels, bs_torch = bispectrum_path()
+    torch.cuda.empty_cache()
+    fw_launches = forward_path()
+    torch.cuda.empty_cache()
+    emit({'phase': 'bispectrum_and_forward', 'seconds':
+          time.perf_counter() - t0})
 
     paths = ('main_512', 'lognormal_1024', 'class_1024', 'convpower_1024',
-             'fof_1024', 'fftrecon_512', 'io_1024', 'particles_boss')
+             'fof_1024', 'fftrecon_512', 'io_1024', 'particles_boss',
+             'bispectrum_256', 'forward_128')
 
     def counted(name):
         by_path = dict(zip(paths, (launches[name], ln_launches[name],
                                    cl_launches[name], cp_launches[name],
                                    fof_launches[name],
                                    rc_launches[name], io_launches[name],
-                                   pb_launches[name])))
+                                   pb_launches[name], bs_launches[name],
+                                   fw_launches[name])))
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -3018,12 +3440,14 @@ def main():
              source='nbodykit_tpu_torch/csrc/radix_rank.cu',
              replaces='nbodykit_tpu/ops/radix_pallas.py:30',
              **counted('radix_rank'), **rank_rec,
-             at_convpower_1024=cp_rank, at_fof_1024=fof_rank),
+             at_convpower_1024=cp_rank, at_fof_1024=fof_rank,
+             at_bispectrum_256=bs_kernels['rank']),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
              replaces='nbodykit_tpu/ops/paint_pallas.py:37',
              **counted('paint_deposit'), **dep_rec,
-             at_convpower_1024=cp_dep),
+             at_convpower_1024=cp_dep,
+             at_bispectrum_256=bs_kernels['deposit']),
         dict(name='threefry_fill', route='cuda', source=rng_src,
              replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),
         dict(name='poisson_threefry', route='cuda', source=rng_src,
@@ -3051,6 +3475,9 @@ def main():
     ]
     for kern in kernels:
         kern['share_of_bound'] = kern['bound_ms'] / kern['ms']
+    # the bispectrum's torch stages: no hand kernel (the JAX package runs
+    # them through XLA); their times beside their bounds
+    emit({'phase': 'bispectrum_torch_stages', **bs_torch})
     emit({'kernels': kernels})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

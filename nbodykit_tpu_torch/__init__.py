@@ -114,20 +114,44 @@ def resolve_device(device=None):
     return device
 
 
-def resolve_paint(device):
+# paint methods torch.autograd differentiates as they run; grad mode
+# demotes any other to 'scatter' (the JAX package's
+# tune/resolve.py DIFFERENTIABLE_PAINT)
+DIFFERENTIABLE_PAINT = frozenset({'scatter'})
+
+
+def resolve_paint(device, differentiable=False):
     """The effective paint configuration on ``device``: current options
     with every ``'auto'`` resolved (no tuner: ``mxu`` + ``radix`` on a
-    CUDA device, ``scatter`` + ``argsort`` on the CPU)."""
+    CUDA device, ``scatter`` + ``argsort`` on the CPU). ``source`` is
+    ``'default'`` when the method was ``'auto'``, else ``'explicit'``.
+
+    ``differentiable=True`` is the grad-mode resolution: a method
+    outside :data:`DIFFERENTIABLE_PAINT` (the mxu deposit has no
+    backward) is demoted to ``'scatter'``, with ``source`` set to
+    ``'grad-fallback'``, the demoted method in ``winner_name`` and one
+    warning logged, as the JAX package's resolver does."""
     cuda = device.type == 'cuda'
     method = _global_options['paint_method']
+    source = 'default' if method == 'auto' else 'explicit'
     if method == 'auto':
         method = 'mxu' if cuda else 'scatter'
     order = _global_options['paint_order']
     if order == 'auto':
         order = 'radix' if cuda else 'argsort'
-    return {'paint_method': method, 'paint_order': order,
-            'paint_bucket_slack': _global_options['paint_bucket_slack'],
-            'paint_chunk_size': _global_options['paint_chunk_size']}
+    cfg = {'paint_method': method, 'paint_order': order,
+           'paint_bucket_slack': _global_options['paint_bucket_slack'],
+           'paint_chunk_size': _global_options['paint_chunk_size'],
+           'source': source}
+    if differentiable and method not in DIFFERENTIABLE_PAINT:
+        cfg['winner_name'] = method
+        cfg['paint_method'] = 'scatter'
+        cfg['source'] = 'grad-fallback'
+        logging.getLogger('nbodykit_tpu_torch.tune').warning(
+            "grad-mode paint resolution: demoting %r (not natively "
+            "differentiable) to 'scatter' for this call "
+            "(tune.grad_fallback)", method)
+    return cfg
 
 
 # ---------------------------------------------------------------------------
@@ -176,3 +200,26 @@ def timer(name, logger=None):
     yield
     msg = "%s: %.3f s" % (name, time.time() - t0)
     (logger or logging.getLogger('timer')).info(msg)
+
+
+@contextmanager
+def profile(path=None, host=False):
+    """Trace the enclosed block with ``torch.profiler`` (the card's
+    kernels as well as the host when CUDA is present) and write a
+    Chrome trace to ``path`` on exit (default: ``nbodykit-torch-trace
+    .json`` in the system's temporary directory). Yields the path;
+    ``host`` is accepted for the JAX signature (the host is always
+    traced)."""
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile as _profile
+    if path is None:
+        path = os.path.join(tempfile.gettempdir(),
+                            'nbodykit-torch-trace.json')
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with _profile(activities=acts) as prof:
+        yield path
+    prof.export_chrome_trace(path)

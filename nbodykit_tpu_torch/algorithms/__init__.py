@@ -13,3 +13,4 @@ from .threeptcf import SimulationBox3PCF, SurveyData3PCF  # noqa: F401
 from .kdtree import KDDensity  # noqa: F401
 from .cgm import CylindricalGroups  # noqa: F401
 from .fibercollisions import FiberCollisions  # noqa: F401
+from .bispectrum import Bispectrum  # noqa: F401

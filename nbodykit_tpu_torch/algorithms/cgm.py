@@ -135,7 +135,7 @@ class CylindricalGroups(object):
             box = np.ones(3) * np.asarray(BoxSize)
             self.attrs['BoxSize'] = box
 
-        N = len(source)
+        N = source.csize
         # descending rank order on the host (small 1-D keys)
         if rankby:
             keys = tuple(as_numpy(source[c]) for c in reversed(rankby))

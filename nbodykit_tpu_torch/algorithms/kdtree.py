@@ -54,7 +54,7 @@ class KDDensity(object):
         BoxSize = np.ones(3) * np.asarray(source.attrs['BoxSize'],
                                           dtype='f8')
         self.attrs = dict(margin=margin, BoxSize=BoxSize)
-        N = len(source)
+        N = source.csize
         mean_sep = (np.prod(BoxSize) / N) ** (1.0 / 3)
         r = margin * mean_sep
         self.attrs['kernel_radius'] = r

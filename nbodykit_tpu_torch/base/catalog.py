@@ -111,6 +111,55 @@ class CatalogSourceBase(object):
         obj.base = self
         return obj
 
+    def compute(self, *args):
+        """The named columns (names resolve to tensors, anything else
+        passes through); one argument gives one value. Columns are
+        already computed, so nothing else happens."""
+        out = [self[a] if isinstance(a, str) else a for a in args]
+        return out[0] if len(out) == 1 else out
+
+    def get_hardcolumn(self, col):
+        return self[col]
+
+    def __finalize__(self, other):
+        self.attrs.update(getattr(other, 'attrs', {}))
+        return self
+
+    @staticmethod
+    def make_column(array):
+        """An array-like as a column tensor (on its own device; setting
+        it on a catalog moves it to the catalog's)."""
+        return torch.as_tensor(array)
+
+    @staticmethod
+    def create_instance(cls, device=None):
+        """A bare instance of ``cls`` with only the base state set: no
+        columns, empty ``attrs``."""
+        obj = object.__new__(cls)
+        CatalogSourceBase.__init__(obj, device=device)
+        return obj
+
+    def copy(self):
+        """A shallow copy holding the current columns, with an
+        ``attrs`` of its own."""
+        toret = CatalogSourceBase.create_instance(self.__class__,
+                                                  device=self.device)
+        toret._size = len(self)
+        toret.__finalize__(self)
+        for col in self.columns:
+            toret[col] = self[col]
+        toret.attrs = dict(self.attrs)
+        return toret
+
+    def persist(self, columns=None):
+        """An ArrayCatalog of the selected columns (default: all) with
+        this catalog's ``attrs``."""
+        from ..source.catalog.array import ArrayCatalog
+        cols = {key: self[key] for key in (columns or self.columns)}
+        c = ArrayCatalog(cols, device=self.device)
+        c.attrs.update(self.attrs)
+        return c
+
     def _promote(self, value, col=None):
         """Coerce a column value to a tensor of length len(self) on the
         catalog's device (scalars broadcast)."""
@@ -192,6 +241,11 @@ class CatalogSource(CatalogSourceBase):
     def size(self):
         return self._size
 
+    @property
+    def csize(self):
+        """The collective size: the size, on one device."""
+        return self._size
+
     def __repr__(self):
         return "%s(size=%d)" % (self.__class__.__name__, self._size)
 
@@ -213,6 +267,16 @@ class CatalogSource(CatalogSourceBase):
     def Index(self):
         return torch.arange(self._size, dtype=torch.int64,
                             device=self.device)
+
+    def gslice(self, start, stop, step=1):
+        """The rows ``start:stop:step`` as an ArrayCatalog."""
+        return self._select(slice(start, stop, step))
+
+    def concatenate(self, *others):
+        """This catalog and ``others`` end to end
+        (:func:`~nbodykit_tpu_torch.transform.ConcatenateSources`)."""
+        from ..transform import ConcatenateSources
+        return ConcatenateSources(self, *others)
 
     def sort(self, keys, reverse=False, usecols=None):
         """An ArrayCatalog of the ``usecols`` columns (default: all)

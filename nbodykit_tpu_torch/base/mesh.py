@@ -151,6 +151,20 @@ class MeshSource(object):
         """The queue of deferred (mode, func, kind) actions."""
         return self._actions
 
+    def view(self):
+        """A shallow copy of this mesh with its own ``attrs``; ``base``
+        is this mesh."""
+        view = copy.copy(self)
+        view.attrs = self.attrs.copy()
+        view.base = self
+        return view
+
+    def to_mesh(self):
+        return self
+
+    def __len__(self):
+        return 0
+
     def apply(self, func, kind='wavenumber', mode='complex'):
         """A *view* of this mesh with ``func(coords, value)`` appended to
         the action queue; it runs on the ``mode``-space field with

@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 The system holds no model weights: what crosses is a catalog's columns,
-a field, or a PRNG key. All cross as numpy arrays
+a field, a PRNG key, the forward model's state (its whitenoise leaf and
+linear modes) or a result's saved state. All cross as numpy arrays
 (``nbodykit_tpu.utils.as_numpy`` or ``jax.random.key_data`` on the JAX
 side), so this module imports nothing of JAX.
 """
@@ -51,3 +52,39 @@ def key_from_numpy(raw):
         raise ValueError("JAX threefry key data is a (2,) uint32 array, "
                          "got %s %s" % (raw.dtype, raw.shape))
     return raw.copy()
+
+
+def _lattice_tensor(array, model, kind):
+    lat = model.lattice
+    array = np.asarray(array)
+    shape = lat.shape_real if kind == 'real' else lat.shape_complex
+    if tuple(array.shape) != tuple(shape):
+        raise ValueError("the %s state of this model has shape %s, got %s"
+                         % (kind, shape, array.shape))
+    dtype = lat.torch_dtype if kind == 'real' else lat.complex_dtype
+    return torch.as_tensor(np.array(array)).to(device=lat.device,
+                                               dtype=dtype)
+
+
+def white_from_numpy(array, model):
+    """A :class:`~nbodykit_tpu_torch.forward.ForwardModel`'s real
+    whitenoise leaf (the lattice's real shape) from numpy, on the
+    model's device."""
+    return _lattice_tensor(array, model, 'real')
+
+
+def modes_from_numpy(array, model):
+    """A :class:`~nbodykit_tpu_torch.forward.ForwardModel`'s linear modes
+    from numpy, in the transposed hermitian layout (N1, N0, N2//2+1)
+    that the JAX package and the port share, on the model's device."""
+    return _lattice_tensor(array, model, 'complex')
+
+
+def bispectrum_from_state(state):
+    """A :class:`~nbodykit_tpu_torch.algorithms.bispectrum.Bispectrum`
+    from the state of a JAX one (``b.__getstate__()``, its
+    BinnedStatistic state and attrs as numpy)."""
+    from .algorithms.bispectrum import Bispectrum
+    b = object.__new__(Bispectrum)
+    b.__setstate__(state)
+    return b

@@ -37,6 +37,16 @@ ARGTYPES = ([_D, _D, _I, _P, _P, _P, _P,            # background grid
              _I, _P, _P, ctypes.POINTER(ctypes.c_long)])
 
 
+def native_available():
+    """True when the library builds and loads here (``g++`` present);
+    the solve itself raises on a failed build."""
+    try:
+        _lib()
+    except Exception:
+        return False
+    return True
+
+
 def _lib():
     lib = _build.load_host(LIBRARY)
     lib.nbk_solve_mode.restype = ctypes.c_int

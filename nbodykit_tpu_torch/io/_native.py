@@ -26,6 +26,16 @@ LIBRARY = 'bigfile_io'
 _UBYTES = ctypes.POINTER(ctypes.c_ubyte)
 
 
+def native_available():
+    """True when the library builds and loads here (``g++`` present);
+    the solve itself raises on a failed build."""
+    try:
+        _lib()
+    except Exception:
+        return False
+    return True
+
+
 def _lib():
     lib = _build.load_host(LIBRARY)
     lib.nbk_bigfile_read.restype = ctypes.c_int

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from .paint_cuda import deposit_blocks
 from .radix import order_keys
-from .window import window_base, window_support, window_weights
+from .window import (window_base, window_support, window_weights,
+                     window_weights_grad)
 
 # cap on the one-hot Z expansion of one piece (bytes); it sizes the
 # mxu paint's pieces exactly as in the JAX package
@@ -39,21 +40,30 @@ def _out_dtype(pos, mass, out):
     return mass.dtype if isinstance(mass, torch.Tensor) else pos.dtype
 
 
-def _axis_terms(pos_ax, resampler, period):
+def _axis_terms(pos_ax, resampler, period, grad=False):
     """Per-axis neighbour indices (int64, wrapped mod period) and
-    weights, shapes (n, s)."""
-    idx, w = window_weights(pos_ax, resampler)
+    weights, shapes (n, s); ``grad=True`` gives the derivative weights
+    dW/dx (cell units) instead."""
+    weights = window_weights_grad if grad else window_weights
+    idx, w = weights(pos_ax, resampler)
     return torch.remainder(idx, period).long(), w
 
 
-def _offset_terms(pos, mass, resampler, period, origin, n0l):
+def _offset_terms(pos, mass, resampler, period, origin, n0l,
+                  grad_axis=None):
     """Yield (lin_index int64, weight) per window offset (i, j, k) in
-    s^3, all 1-D over particles; rows outside the block get weight 0."""
+    s^3, all 1-D over particles; rows outside the block get weight 0.
+    ``grad_axis`` (0/1/2) swaps that axis's window for its derivative
+    dW/dx, so a gather with these weights is d(readout)/d(pos[axis]) in
+    cell units."""
     s = window_support(resampler)
     N1, N2 = period[1], period[2]
-    i0, w0 = _axis_terms(pos[:, 0], resampler, period[0])
-    i1, w1 = _axis_terms(pos[:, 1], resampler, period[1])
-    i2, w2 = _axis_terms(pos[:, 2], resampler, period[2])
+    i0, w0 = _axis_terms(pos[:, 0], resampler, period[0],
+                         grad=grad_axis == 0)
+    i1, w1 = _axis_terms(pos[:, 1], resampler, period[1],
+                         grad=grad_axis == 1)
+    i2, w2 = _axis_terms(pos[:, 2], resampler, period[2],
+                         grad=grad_axis == 2)
     for a in range(s):
         row = torch.remainder(i0[:, a] - origin, period[0])
         valid = row < n0l
@@ -94,15 +104,18 @@ def paint_local(pos, mass, shape, resampler='cic', period=None, origin=0,
     return flat.reshape(n0l, N1, N2)
 
 
-def readout_local(block, pos, resampler='cic', period=None, origin=0):
+def readout_local(block, pos, resampler='cic', period=None, origin=0,
+                  grad_axis=None):
     """Interpolate a local mesh block at particle positions (gather);
-    rows outside the block contribute 0. Returns (n,) values."""
+    rows outside the block contribute 0. Returns (n,) values; with
+    ``grad_axis``, their derivative along that axis in cell units."""
     n0l = int(block.shape[0])
     period = tuple(int(p) for p in (block.shape if period is None
                                     else period))
     flat = block.reshape(-1)
     vals = torch.zeros(pos.shape[0], dtype=block.dtype, device=pos.device)
-    for lin, w in _offset_terms(pos, None, resampler, period, origin, n0l):
+    for lin, w in _offset_terms(pos, None, resampler, period, origin, n0l,
+                                grad_axis=grad_axis):
         vals = vals + flat[lin] * w.to(block.dtype)
     return vals
 

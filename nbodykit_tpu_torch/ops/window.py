@@ -14,6 +14,14 @@ The operations are written in the JAX package's order (one rounding
 per operation), so the weights agree with it to the last bit or two;
 the deposit kernel in ``csrc/paint_deposit.cu`` evaluates the same
 expressions.
+
+The ops are also chosen so that ``torch.autograd`` differentiates the
+windows as ``jax.grad`` does at their kinks, where a particle sits on
+a node (every particle of the forward model's lattice at zero
+displacement): ``|x|`` is ``where(x >= 0, x, -x)`` (derivative 1 at 0,
+JAX's ``abs``) and ``max(t, 0)`` is ``torch.maximum`` (a tie splits the
+gradient in half, as ``jnp.maximum`` does; ``clamp`` would give it
+all to ``t``).
 """
 
 import math
@@ -46,25 +54,57 @@ def bspline(d, s):
     support ``s``."""
     if s == 1:
         return torch.ones_like(d)
+    zero = d.new_zeros(())
     if s == 2:
-        return torch.clamp(1.0 - d, min=0.0)
+        return torch.maximum(1.0 - d, zero)
     if s == 3:
-        t = torch.clamp(1.5 - d, min=0.0)
+        t = torch.maximum(1.5 - d, zero)
         return torch.where(d <= 0.5, 0.75 - d * d, 0.5 * (t * t))
-    t = torch.clamp(2.0 - d, min=0.0)
+    t = torch.maximum(2.0 - d, zero)
     return torch.where(d <= 1.0,
                        (4.0 - 6.0 * d * d + 3.0 * (d * d * d)) / 6.0,
                        (t * t * t) / 6.0)
 
 
-def window_weights(x, resampler):
-    """Per-axis neighbour indices (int32, NOT wrapped) and weights,
-    shapes (..., s), for particles at cell coordinate ``x``."""
+def bspline_deriv(d, s):
+    """dW/dd of :func:`bspline` at |distance| ``d`` (cell units): the
+    JAX package's piecewise derivative, with its choices at the
+    kinks."""
+    if s == 1:
+        return torch.zeros_like(d)
+    zero = d.new_zeros(())
+    if s == 2:
+        return torch.where(d < 1.0, -torch.ones_like(d), zero)
+    if s == 3:
+        return torch.where(d <= 0.5, -2.0 * d,
+                           -torch.maximum(1.5 - d, zero))
+    t = torch.maximum(2.0 - d, zero)
+    return torch.where(d <= 1.0, (-12.0 * d + 9.0 * d * d) / 6.0,
+                       -0.5 * (t * t))
+
+
+def _stencil(x, resampler):
     s = window_support(resampler)
     base = window_base(x, resampler)
     offs = torch.arange(s, dtype=torch.int32, device=x.device)
     idx = base[..., None] + offs
-    d = torch.abs(x[..., None] - idx.to(x.dtype))
+    return s, idx, x[..., None] - idx.to(x.dtype)
+
+
+def window_weights_grad(x, resampler):
+    """Per-axis neighbour indices and dW/dx weights (cell units), the
+    derivative companion of :func:`window_weights` that the gradient
+    readout (``ops/paint.py`` ``grad_axis``) uses:
+    dw = W'(|x - idx|) * sign(x - idx)."""
+    s, idx, delta = _stencil(x, resampler)
+    return idx, bspline_deriv(torch.abs(delta), s) * torch.sign(delta)
+
+
+def window_weights(x, resampler):
+    """Per-axis neighbour indices (int32, NOT wrapped) and weights,
+    shapes (..., s), for particles at cell coordinate ``x``."""
+    s, idx, delta = _stencil(x, resampler)
+    d = torch.where(delta >= 0, delta, -delta)
     return idx, bspline(d, s)
 
 

@@ -322,9 +322,12 @@ class ParticleMesh(object):
             block = block + out.to(block.dtype)
         return block.to(self.torch_dtype)
 
-    def readout(self, real, pos, resampler=None):
-        """Interpolate a real field at particle positions."""
+    def readout(self, real, pos, resampler=None, grad_axis=None):
+        """Interpolate a real field at particle positions. ``grad_axis``
+        (0/1/2) reads d(readout)/d(pos[grad_axis]) instead, in cell
+        units (times Nmesh/BoxSize for box units): the position
+        cotangent of the paint's adjoint."""
         resampler = resampler or _global_options['resampler']
         return readout_local(real, self._to_cell_units(pos),
                              resampler=resampler, period=self.shape_real,
-                             origin=0)
+                             origin=0, grad_axis=grad_axis)

@@ -99,3 +99,29 @@ class CatalogMesh(MeshSource):
                               "uniform", RuntimeWarning)
                 field = torch.ones_like(field)
         return Field(field, pm, 'real', attrs)
+
+    def to_mesh(self):
+        return self
+
+
+# The named compensations users pass to ``mesh.apply(func,
+# kind='circular', mode='complex')``: the plain names are the pure
+# sinc^p kernels (the interlaced choice of ``compensated=True``), the
+# *Shotnoise names the aliasing-corrected forms (its choice without
+# interlacing).
+
+def _named_compensation(name, resampler, pure_sinc):
+    func = compensation_transfer(resampler, interlaced=pure_sinc)
+    func.__name__ = func.__qualname__ = name
+    return func
+
+
+CompensateCIC = _named_compensation('CompensateCIC', 'cic', True)
+CompensateTSC = _named_compensation('CompensateTSC', 'tsc', True)
+CompensatePCS = _named_compensation('CompensatePCS', 'pcs', True)
+CompensateCICShotnoise = _named_compensation(
+    'CompensateCICShotnoise', 'cic', False)
+CompensateTSCShotnoise = _named_compensation(
+    'CompensateTSCShotnoise', 'tsc', False)
+CompensatePCSShotnoise = _named_compensation(
+    'CompensatePCSShotnoise', 'pcs', False)

@@ -56,6 +56,71 @@ def as_numpy(arr):
     return np.asarray(arr)
 
 
+def attrs_to_dict(attrs, prefix=''):
+    """``attrs`` with every key prefixed by ``prefix``."""
+    return {prefix + k: v for k, v in attrs.items()}
+
+
+def is_structured_array(arr):
+    """True if ``arr`` is a numpy structured array."""
+    return getattr(getattr(arr, 'dtype', None), 'names', None) is not None
+
+
+def split_size_3d(s):
+    """Split ``s`` into (a, b, c) with a*b*c == s and a <= b <= c, the
+    3-D grid factorization of the JAX package."""
+    a = int(s ** (1.0 / 3)) + 1
+    while a > 1 and s % a:
+        a -= 1
+    rest = s // a
+    b = int(rest ** 0.5) + 1
+    while b > 1 and rest % b:
+        b -= 1
+    c = rest // b
+    return tuple(sorted((a, b, c)))
+
+
+def get_data_bounds(data, comm=None, selection=None):
+    """(min, max) of an array along its first axis, as host numpy;
+    with ``selection``, over the selected rows only (an empty selection
+    gives the dtype's extremes, as in the JAX package). ``comm`` is
+    accepted for the JAX signature: a column lives on one device."""
+    import torch
+    arr = torch.as_tensor(data)
+    lo = hi = arr
+    if selection is not None:
+        sel = torch.as_tensor(selection, device=arr.device).bool()
+        if arr.is_floating_point():
+            big, small = float('inf'), float('-inf')
+        else:
+            big, small = torch.iinfo(arr.dtype).max, torch.iinfo(arr.dtype).min
+        mask = sel[:, None] if arr.ndim > 1 else sel
+        lo = torch.where(mask, arr, torch.tensor(big, dtype=arr.dtype,
+                                                 device=arr.device))
+        hi = torch.where(mask, arr, torch.tensor(small, dtype=arr.dtype,
+                                                 device=arr.device))
+    return as_numpy(torch.amin(lo, dim=0)), as_numpy(torch.amax(hi, dim=0))
+
+
+class captured_output(object):
+    """Context manager capturing Python-level stdout and stderr; yields
+    the (stdout, stderr) StringIO buffers."""
+
+    def __enter__(self):
+        import io as _io
+        import sys
+        self._sys = sys
+        self._old = (sys.stdout, sys.stderr)
+        self.stdout = _io.StringIO()
+        self.stderr = _io.StringIO()
+        sys.stdout, sys.stderr = self.stdout, self.stderr
+        return self.stdout, self.stderr
+
+    def __exit__(self, *exc):
+        self._sys.stdout, self._sys.stderr = self._old
+        return False
+
+
 class JSONEncoder(json.JSONEncoder):
     """JSON encoder for numpy scalars/arrays, tensors and complex values:
     arrays become {'__dtype__': ..., '__shape__': ..., '__data__': ...}

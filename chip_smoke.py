@@ -54,8 +54,13 @@ drives ten paths through the user entry points:
   1e6 uniform randoms (seed 84), SimulationBox3PCF at poles 0-4; the
   catalog and the randoms on the sky from the box centre, SurveyData2PCF
   ('2d'), an angular SurveyDataPairCount and FiberCollisions at 62";
-  KDDensity and CylindricalGroups (rperp 2, rpar 10); both particle
-  kernels against their plain versions on every count's grid;
+  KDDensity and CylindricalGroups (rperp 2, rpar 10); every pair count
+  the flow launched replayed (strided queries against the plain
+  version, an auto count once a pair against every pair, the kernel
+  timed beside its first design from ``csrc/variants/`` and its bound),
+  the 1d auto count against the plain version on all queries, the 3PCF
+  moments of the first chunk whole against theirs and timed beside
+  their first design;
 - the bispectrum path (after the particles path): Bispectrum(
   UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42), nbins=16,
   Nmesh=256, method='fft') (564 triangles, alias-free), the deposit and
@@ -101,6 +106,9 @@ F64_FLOPS = 34e12
 # pair kernels, built with -fmad=false, whose operation counts count
 # each add, multiply and compare as one
 F64_UNFUSED_OPS = F64_FLOPS / 2
+# F64 on the tensor cores (the same data sheet, a fused multiply-add
+# counted as two): the 3PCF drain's matrix product
+F64_TC_FLOPS = 67e12
 # Integer issue on compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput): IADD3, LOP3 and SHF go to the ALU
 # pipe and IMAD to the FMA pipe, each 64 results per clock per SM, and
@@ -160,10 +168,11 @@ def spread(fn, reps):
                  'max': max(ts)}
 
 
-def bound(nbytes, flops, peak_flops):
-    """(ms, 'bytes' or 'operations'): the least time of the work."""
+def bound(nbytes, flops, peak_flops, more=()):
+    """(ms, 'bytes' or 'operations'): the least time of the work; ``more``
+    (operations, peak) of the work's other units, their times added."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = (flops / peak_flops + sum(o / p for o, p in more)) * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -2570,8 +2579,12 @@ PB_EDGES = np.linspace(5, 150, 30)
 PB_RP_EDGES, PB_PIMAX = np.logspace(0, 2, 21), 60
 PB_3PT_EDGES, PB_POLES = np.linspace(20, 150, 14), [0, 1, 2, 3, 4]
 PB_THETA = np.logspace(-1, 0.5, 11)                 # degrees
-# queries of the kernels' checks against their plain versions
-PB_CHECK_PAIRS, PB_CHECK_3PT = 20000, 5000
+# queries of the strided checks of every pair count against the plain
+# version (the 1d auto count and the 3PCF chunk are checked whole)
+PB_CHECK_PAIRS = 20000
+# the path's pair counts, in the order the flow launches them
+PB_SHAPES = ('box_1d', 'box_2d', 'box_projected', 'box_cross_1d',
+             'survey_DD', 'survey_DR', 'survey_RR', 'survey_angular')
 PB_RTOL = 1e-12
 
 
@@ -2732,119 +2745,210 @@ def candidates(grid, ci1, live1):
     return total
 
 
-def pair_kernel_check(label, args, kwargs):
-    """paircount_hist on PB_CHECK_PAIRS strided queries against all
-    secondaries: the kernel against its plain version (npairs bit for
-    bit, wpairs to PB_RTOL of the largest), with both times."""
+PC_KW = ('nb2', 'pimax', 'los', 'origin', 'is_auto')
+
+
+@contextlib.contextmanager
+def captured_pair_counts():
+    """The (args, kwargs) of every paircount_hist_cuda call inside, in
+    order. The wrapper is called through; it counts its launches on the
+    module's name, the spy while it is installed, and the count goes
+    back to the wrapper on exit."""
     from nbodykit_tpu_torch.ops import paircount_cuda as pc
-    grid, w2_s, p1, w1, live, ci1, r2edges, mode = args
-    q = strided(p1.shape[0], PB_CHECK_PAIRS)
-    sub = (grid, w2_s, p1[q].contiguous(), w1[q].contiguous(), live[q],
-           ci1[q].contiguous(), r2edges, mode)
-    (kn, kw), k_ms = timed(lambda: pc.paircount_hist_cuda(*sub, **kwargs))
-    (pn, pw), p_ms = timed(lambda: pc.paircount_hist_plain(*sub, **kwargs,
-                                                           block=128))
+    orig = pc.paircount_hist_cuda
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append((a[:8], dict(zip(PC_KW, a[8:]), **kw)))
+        return orig(*a, **kw)
+    spy.launches = orig.launches
+    pc.paircount_hist_cuda = spy
+    try:
+        yield calls
+    finally:
+        pc.paircount_hist_cuda = orig
+        orig.launches = spy.launches
+
+
+def first_designs():
+    """The particle kernels' first designs (csrc/variants/), built beside
+    the kernels: {name: ctypes library}."""
+    from nbodykit_tpu_torch.kernel_variants import _build_variants
+    return _build_variants(['paircount_first_design',
+                            'threept_first_design'])
+
+
+def launch_ms(fn, args, reset=(), reps=3):
+    """CUDA-event ms of a kernel's launch alone (``fn(*args)`` of a
+    ctypes function, the outputs ``reset`` zeroed before each)."""
+    from nbodykit_tpu_torch import _build
+
+    def go():
+        for o in reset:
+            o.zero_()
+        _build.check('launch', fn(*args))
+    return cuda_ms(go, reps=reps)
+
+
+def pair_check(label, got, want, plain_ms=None):
+    """The kernel's histograms ``got`` against ``want`` (npairs bit for
+    bit, wpairs to PB_RTOL of the largest)."""
+    (kn, kw), (pn, pw) = got, want
     nd = int((kn != pn).sum())
     err = float((kw - pw).abs().max())
     scale = float(pw.abs().max())
     assert nd == 0, "%s: %d npairs bins differ" % (label, nd)
     assert err <= PB_RTOL * scale, (label, err, scale)
-    return dict(case=label, queries=int(q.numel()), npairs_equal=True,
-                wpairs_max_abs_err=err, wpairs_max=scale, kernel_ms=k_ms,
-                plain_ms=p_ms, pairs=float(kn.sum()))
+    return dict(case=label, npairs_equal=True, wpairs_max_abs_err=err,
+                wpairs_max=scale, plain_ms=plain_ms)
 
 
-def particles_kernels(cat, randoms):
-    """Both new kernels against their plain versions on every count's
-    shapes, then their times at the path's shapes beside the bounds."""
-    from nbodykit_tpu_torch.algorithms.pair_counters.core import \
-        paircount_inputs
-    from nbodykit_tpu_torch.algorithms.threeptcf import se_inputs
+def pair_shape(label, call, lib):
+    """One pair count of the path, replayed: the kernel on PB_CHECK_PAIRS
+    strided queries, in the grid's cell order and shuffled, against the
+    plain version; an auto count of the grid's own points counted once a
+    pair (as launched) against every query counting every candidate, on
+    all queries, and with dead queries against a copy; then the kernel
+    (through the wrapper, and its launch alone) and the first design
+    (``lib``) timed in turns, with the candidates, the bound and the
+    share."""
+    from nbodykit_tpu_torch.ops import paircount_cuda as pc
+    args, kwargs = call
+    grid, w2_s, p1, w1, live, ci1, r2edges, mode = args
+    once = pc.each_pair_once(grid, w2_s, p1, w1, kwargs['is_auto']) \
+        and bool(live.all())
+    q = strided(p1.shape[0], PB_CHECK_PAIRS)
+    sub = (grid, w2_s, p1[q].contiguous(), w1[q].contiguous(), live[q],
+           ci1[q].contiguous(), r2edges, mode)
+    kern = pc.paircount_hist_cuda(*sub, **kwargs)
+    plain, p_ms = timed(lambda: pc.paircount_hist_plain(*sub, **kwargs,
+                                                        block=128))
+    checks = [pair_check(label + ' strided', kern, plain, p_ms)]
+    # the same queries out of the grid's cell order (a seeded shuffle)
+    qs = q[torch.randperm(q.numel(), generator=torch.Generator().manual_seed(
+        0)).to(q.device)]
+    shuffled = (grid, w2_s, p1[qs].contiguous(), w1[qs].contiguous(),
+                live[qs], ci1[qs].contiguous(), r2edges, mode)
+    checks.append(pair_check(label + ' strided, shuffled',
+                             pc.paircount_hist_cuda(*shuffled, **kwargs),
+                             plain))
+    got = pc.paircount_hist_cuda(*args, **kwargs)
+    if once:
+        # a copy of the grid's points: every query counts every candidate
+        every = pc.paircount_hist_cuda(grid, w2_s, p1.clone(), *args[3:],
+                                       **kwargs)
+        checks.append(pair_check(label + ' once a pair vs every pair', got,
+                                 every))
+        # a seventh of the queries dead: the kernel reads so on the card
+        # and counts every pair from both ends, as for a copy
+        dead = live.clone()
+        dead[::7] = False
+        checks.append(pair_check(
+            label + ' dead queries, own points vs a copy',
+            pc.paircount_hist_cuda(grid, w2_s, p1, w1, dead, *args[5:],
+                                   **kwargs),
+            pc.paircount_hist_cuda(grid, w2_s, p1.clone(), w1, dead,
+                                   *args[5:], **kwargs)))
+    nb2 = kwargs['nb2']
+    nbins = pc.hist_bins(len(r2edges), nb2)
+    outs = (torch.zeros(nbins, dtype=torch.int64, device='cuda'),
+            torch.zeros(nbins, dtype=torch.float64, device='cuda'))
+    largs, keep = pc.launch_args(*args[:8], nb2, kwargs['pimax'],
+                                 kwargs['los'], kwargs['origin'],
+                                 kwargs['is_auto'], *outs)
+    first = lib.nbk_paircount_hist
+    first.argtypes = pc.ARGTYPES
+    built = pc._fn()
+    t = {'first': [], 'kernel': []}
+    for name in ('first', 'kernel', 'kernel', 'first'):
+        t[name].append(launch_ms(first if name == 'first' else built,
+                                 largs, outs))
+    first_n = outs[0].double()
+    assert torch.equal(first_n, got[0]), label
+    ms = cuda_ms(lambda: pc.paircount_hist_cuda(*args, **kwargs), reps=3)
+    n = p1.shape[0]
+    cand = candidates(grid, ci1, live)
+    visited = pc.visited_candidates(cand, n, once)
+    ops = visited * pc.candidate_ops(mode, kwargs['los']) \
+        + pc.weight_products(visited, n, nbins)
+    nbytes = pc.hist_bytes(n, grid.pos_s.shape[0],
+                           grid.flat_s.element_size(),
+                           grid.columns().numel(), len(r2edges), nb2)
+    b_ms, b_by = bound(nbytes, ops, F64_UNFUSED_OPS)
+    inrange = int(got[0].reshape(-1, nb2)[1:-1].sum())
+    return dict(
+        shape=label, mode=mode, los=kwargs['los'], n1=n,
+        n2=grid.pos_s.shape[0], periodic=bool(grid.periodic),
+        each_pair_once=once, candidates=cand,
+        visited=visited, pairs_in_range=inrange, ms=ms,
+        kernel_ms=float(np.mean(t['kernel'])),
+        first_design_ms=float(np.mean(t['first'])), bound_ms=b_ms,
+        bound_by=b_by, ops=ops, bytes=nbytes, share_of_bound=b_ms / ms,
+        checks=checks)
+
+
+def particles_kernels(cat, calls, stage_ms):
+    """Both kernels on the path's shapes: every pair count the flow
+    launched (``calls``) checked, timed beside its first design and its
+    bound; the 1d auto count against the plain version on all queries;
+    the 3PCF moments on the path's first chunk, checked whole and timed
+    beside their first design."""
+    from nbodykit_tpu_torch.algorithms.threeptcf import CHUNK, se_inputs
     from nbodykit_tpu_torch.ops import paircount_cuda as pc
     from nbodykit_tpu_torch.ops import threept_cuda as tc
-    box = np.full(3, PB_BOX)
-    pos, w = cat['Position'], cat['Weight']
-    counts = {
-        'box_1d': ((pos, w, pos, w, box, PB_EDGES), dict(is_auto=True)),
-        'box_2d': ((pos, w, pos, w, box, PB_EDGES),
-                   dict(mode='2d', Nmu=10, is_auto=True)),
-        'box_projected': ((pos, w, pos, w, box, PB_RP_EDGES),
-                          dict(mode='projected', pimax=PB_PIMAX,
-                               is_auto=True)),
-        'box_cross_1d': ((pos, w, randoms['Position'], randoms['Weight'],
-                          box, PB_EDGES), {}),
-    }
-    checks, cands = [], {}
-    for label, (a, kw) in counts.items():
-        args, kwargs, _, _ = paircount_inputs(*a, **kw)
-        checks.append(pair_kernel_check(label, args, kwargs))
-        cands[label] = candidates(args[0], args[5], args[4])
-        if label == 'box_1d':
-            full = (args, kwargs)
-        del args
-    # the survey counts, on the sky catalog's Cartesian positions
-    from nbodykit_tpu_torch.cosmology import Planck15
-    from nbodykit_tpu_torch.transform import SkyToCartesian, SkyToUnitSphere
-    sky = sky_catalog(cat)
-    xyz = SkyToCartesian(sky['RA'], sky['DEC'], sky['Redshift'], Planck15)
-    lo = xyz.min(dim=0).values.cpu().numpy()
-    sbox = (xyz.max(dim=0).values.cpu().numpy() - lo) * 1.001 + 1e-3
-    args, kwargs, _, _ = paircount_inputs(
-        xyz, sky['Weight'], xyz, sky['Weight'], sbox, PB_EDGES, mode='2d',
-        Nmu=10, periodic=False, is_auto=True, grid_origin=lo,
-        pair_los='midpoint')
-    checks.append(pair_kernel_check('survey_2d_midpoint', args, kwargs))
-    cands['survey_2d_midpoint'] = candidates(args[0], args[5],
-                                             args[4])
-    unit = SkyToUnitSphere(sky['RA'], sky['DEC'])
-    args, kwargs, _, _ = paircount_inputs(unit, None, unit, None, None,
-                                          PB_THETA, mode='angular',
-                                          is_auto=True)
-    checks.append(pair_kernel_check('survey_angular', args, kwargs))
-    cands['survey_angular'] = candidates(args[0], args[5], args[4])
-    del args, xyz, unit, sky
-
-    # paircount_hist at the path's largest shape: the 1d auto count
-    args, kwargs = full
-    grid = args[0]
-    (kn, kw), _ = timed(lambda: pc.paircount_hist_cuda(*args, **kwargs))
-    ms = cuda_ms(lambda: pc.paircount_hist_cuda(*args, **kwargs), reps=3)
-    n = args[2].shape[0]
-    cand = cands['box_1d']
-    ops = cand * pc.candidate_ops('1d', len(PB_EDGES), 2, True)
-    nbytes = pc.hist_bytes(n, n, grid.flat_s.element_size(),
-                           grid.columns().numel(), len(PB_EDGES), 1)
-    b_ms, b_by = bound(nbytes, ops, F64_UNFUSED_OPS)
-    worst = max(checks, key=lambda c: c['wpairs_max_abs_err'])
-    check_1d = checks[0]
+    assert len(calls) == len(PB_SHAPES), len(calls)
+    libs = first_designs()
+    shapes = [pair_shape(label, call, libs['paircount_first_design'])
+              for label, call in zip(PB_SHAPES, calls)]
+    for s in shapes:
+        emit({'phase': 'particles_pair_shape', **s})
+    # the 1d auto count, once a pair, against the plain version on every
+    # query
+    args, kwargs = calls[0]
+    got = pc.paircount_hist_cuda(*args, **kwargs)
+    want, p_ms = timed(lambda: pc.paircount_hist_plain(*args, **kwargs,
+                                                       block=128))
+    whole = pair_check('box_1d all %d queries' % args[2].shape[0], got,
+                       want, p_ms)
+    emit({'phase': 'particles_pair_whole', **whole})
+    one = shapes[0]
+    worst = max((c for s in shapes for c in s['checks']),
+                key=lambda c: c['wpairs_max_abs_err'] / c['wpairs_max'])
     pair_rec = dict(
-        ms=ms, plain_ms=check_1d['plain_ms'], library_ms=None,
-        bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=worst['wpairs_max_abs_err'],
-        plain_queries=check_1d['queries'],
-        ms_at_plain_queries=check_1d['kernel_ms'],
-        at='1d auto, f64, n=%d, %s cells, %d candidates, %d pairs in '
-           'range' % (n, 'x'.join(str(int(c)) for c in grid.ncell_np), cand,
-                      int(kn[1:-1].sum())),
-        candidates=cand, ops=ops, bytes=nbytes, checks=checks,
-        candidates_by_count=cands)
-    del args, full, grid, kn, kw
+        ms=one['ms'], kernel_ms=one['kernel_ms'],
+        first_design_ms=one['first_design_ms'], plain_ms=p_ms,
+        library_ms=None, bound_ms=one['bound_ms'], bound_by=one['bound_by'],
+        max_abs_err=max(whole['wpairs_max_abs_err'],
+                        worst['wpairs_max_abs_err']),
+        at='1d auto, f64, n=%d, %s cells, %d candidates, %d visited, %d '
+           'pairs in range' % (one['n1'], 'x'.join(
+               str(int(c)) for c in args[0].ncell_np), one['candidates'],
+               one['visited'], one['pairs_in_range']),
+        whole_check=whole, shapes=shapes)
+    del args, got, want
 
-    # threept_alm: the 3PCF's grid, a strided check, then one chunk
+    # threept_alm: the 3PCF's grid and its first chunk, whole
+    pos, w = cat['Position'], cat['Weight']
     edges = PB_3PT_EDGES
-    grid, w_s, p, live, ci = se_inputs(pos.double(), w, edges, box, True)
-    q = strided(p.shape[0], PB_CHECK_3PT)
-    sub = (grid, w_s, p[q].contiguous(), live[q], ci[q].contiguous(),
-           edges ** 2, PB_POLES)
-    a, k_ms = timed(lambda: tc.threept_alm_cuda(*sub))
-    b, p_ms = timed(lambda: tc.threept_alm_plain(*sub, block=128))
+    grid, w_s, p, live, ci = se_inputs(pos.double(), w, edges,
+                                       np.full(3, PB_BOX), True)
+    nq = min(CHUNK, p.shape[0])
+    chunk = (grid, w_s, p[:nq], live[:nq], ci[:nq], edges ** 2, PB_POLES)
+    a = tc.threept_alm_cuda(*chunk)
+    b, p3_ms = timed(lambda: tc.threept_alm_plain(*chunk, block=128))
     err = float((a - b).abs().max())
     scale = float(b.abs().max())
     assert err <= PB_RTOL * scale, ('threept_alm', err, scale)
-    del a, b
-    from nbodykit_tpu_torch.algorithms.threeptcf import CHUNK
-    nq = min(CHUNK, p.shape[0])
-    chunk = (grid, w_s, p[:nq], live[:nq], ci[:nq], edges ** 2, PB_POLES)
+    del b
+    out = torch.empty_like(a)
+    largs, keep = tc.launch_args(*chunk, out)
+    first = libs['threept_first_design'].nbk_threept_alm
+    first.argtypes = tc.ARGTYPES
+    t = {'first': [], 'kernel': []}
+    for name in ('first', 'kernel', 'kernel', 'first'):
+        t[name].append(launch_ms(first if name == 'first' else tc._fn(),
+                                 largs))
+    assert float((out - a).abs().max()) <= PB_RTOL * scale
     ms3 = cuda_ms(lambda: tc.threept_alm_cuda(*chunk), reps=3)
     # the chunk's in-bin pairs: a pair count of its queries on its grid
     hn, _ = pc.paircount_hist_cuda(grid, w_s, chunk[2], w_s[:nq],
@@ -2853,22 +2957,30 @@ def particles_kernels(cat, randoms):
     inbin = int(hn[1:-1].sum())
     cand3 = candidates(grid, chunk[4], chunk[3])
     nlm = len(tc.lm_table(PB_POLES)[0])
-    ops3 = cand3 * (pc.candidate_ops('1d', len(edges), 2, True) - 2) \
+    # a candidate as a pair count's without the weight's sum; an in-bin
+    # pair's harmonics on the FP64 lanes, their weight products and sums
+    # into the moments as a matrix product on the tensor cores
+    ops3 = cand3 * (pc.candidate_ops('1d', 2) - 1) \
         + inbin * tc.ylm_ops(PB_POLES)
+    mma3 = inbin * tc.ylm_mma_ops(PB_POLES)
     nbytes3 = tc.alm_bytes(nq, p.shape[0], grid.flat_s.element_size(),
                            grid.columns().numel(), len(edges) - 1, nlm)
-    b3, b3_by = bound(nbytes3, ops3, F64_UNFUSED_OPS)
+    b3, b3_by = bound(nbytes3, ops3, F64_UNFUSED_OPS,
+                      more=[(mma3, F64_TC_FLOPS)])
     alm_rec = dict(
-        ms=ms3, plain_ms=p_ms, library_ms=None, bound_ms=b3, bound_by=b3_by,
-        max_abs_err=err, alm_max=scale, plain_queries=int(q.numel()),
-        ms_at_plain_queries=k_ms,
+        ms=ms3, kernel_ms=float(np.mean(t['kernel'])),
+        first_design_ms=float(np.mean(t['first'])), plain_ms=p3_ms,
+        library_ms=None, bound_ms=b3, bound_by=b3_by, max_abs_err=err,
+        alm_max=scale, plain_queries=nq,
         at='poles 0-4 (%d Y_lm), %d bins, chunk of %d queries of n=%d, '
            '%d candidates, %d in-bin pairs' % (nlm, len(edges) - 1, nq,
                                                p.shape[0], cand3, inbin),
         launches_per_3pcf=-(-p.shape[0] // CHUNK), candidates=cand3,
-        inbin_pairs=inbin, ops=ops3, bytes=nbytes3)
-    emit({'phase': 'particles_kernels', 'paircount_hist': pair_rec,
-          'threept_alm': alm_rec})
+        inbin_pairs=inbin, ops=ops3, tensor_core_ops=mma3, bytes=nbytes3,
+        stage_3pcf_ms=stage_ms['box_3pcf'])
+    emit({'phase': 'particles_kernels', 'paircount_hist': {
+        k: v for k, v in pair_rec.items() if k != 'shapes'},
+        'threept_alm': alm_rec})
     return pair_rec, alm_rec
 
 
@@ -2877,7 +2989,7 @@ def particles_path():
     counted and its peak memory; the gates; the kernel checks and times;
     a profile of the box 2PCF and 3PCF. Returns (launches, paircount
     record, threept record)."""
-    with counted_launches() as launches:
+    with counted_launches() as launches, captured_pair_counts() as calls:
         torch.cuda.reset_peak_memory_stats()
         res, ms = particles_flow()
         torch.cuda.synchronize()
@@ -2906,7 +3018,8 @@ def particles_path():
                                SimulationBox3PCF(cat, PB_POLES,
                                                  PB_3PT_EDGES)),
                       'particles_boss_2pcf_3pcf')
-    pair_rec, alm_rec = particles_kernels(cat, randoms)
+    del randoms
+    pair_rec, alm_rec = particles_kernels(cat, calls, ms)
     return launches, pair_rec, alm_rec
 
 

@@ -86,7 +86,7 @@ def paircount_inputs(pos1, w1, pos2, w2, box, edges, mode='1d', Nmu=None,
     a count (the parameters of :func:`paircount`): (args, kwargs, nb1,
     nb2), args = (grid, w2_s, p1, w1, live, ci1, r2edges, mode) with the
     queries in the grid's cell order (an auto count queries the grid's
-    own sorted points)."""
+    own sorted points, whose pairs the kernel counts once and doubles)."""
     dev = pos1.device if isinstance(pos1, torch.Tensor) \
         else resolve_device(device)
     pos1 = _as_f64(pos1, dev)

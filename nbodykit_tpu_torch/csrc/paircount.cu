@@ -20,43 +20,80 @@
 // dlos is |d[los]| for an axis, or |d . mid| / |mid| for the 'midpoint'
 // line of sight, mid = 0.5 * (p1 + p2) + origin. Rows 0 and nb1 + 1 hold
 // the pairs below the first and above the last edge, as the JAX bincount
-// leaves them; a masked candidate adds nothing (it adds 0 to the overflow
-// slot there). The histograms are (nb1 + 2) * nb2 long: npairs as exact
+// leaves them. The histograms are (nb1 + 2) * nb2 long: npairs as exact
 // 64-bit integer counts, wpairs f64.
 //
-// What bounds it: f64 arithmetic. At the boss_like sample (1e6 points,
-// r_max = 150 in a box of 2500: 16^3 cells of ~244) every query visits
-// ~6.6e3 candidates, 6.6e9 in all, of 13 to 40 f64 operations each
-// (paircount_cuda.candidate_ops); the inputs are 1e6 * 45 bytes. Design:
-//  - One warp per query, warps striding over the cell-ordered queries, so
-//    the warps in flight share their neighbour columns in L1/L2. The
-//    column table of fof_sweep.cu (the first slot of every (a, b) column)
-//    gives each query its 9 columns; two short binary searches inside a
-//    column bound each run of up to 3 consecutive cells along c, and the
-//    32 lanes take 32 consecutive slots of a run at a time: coalesced
-//    loads, no per-thread walk.
-//  - A histogram pair in shared memory per CTA (u64 counts, f64 sums),
-//    flushed once per CTA with global atomics. The candidates of one
-//    warp step land in few bins, so the step aggregates first: lanes with
-//    one bin find each other (__match_any_sync), each sums its group's
-//    weights in lane order by shuffles, and the lowest lane adds the
-//    count and the sum. Shared f64 atomicAdd is a compare-and-swap loop
-//    on Hopper: one per group keeps its retries rare.
-//  - Past r_max lie ~5/6 of the candidates, all in the overflow row. With
-//    one column ('1d', 'angular') that row is one bin, and its group of
-//    ~27 lanes made the shuffle loop the step's largest cost; there each
-//    lane keeps the row's count and sum in registers, reduced over the
-//    warp once at the end; a count with more columns runs the kernel
-//    without it (ONE_COLUMN false; kernel_variants.py paircount takes it
-//    back).
-//  - The minimum image divides only where |d| > box / 4: below that
-//    rint(d / box) is 0 and d is unchanged, bit for bit.
+// What bounds it: f64 arithmetic, at the least. At the boss_like sample
+// (1e6 points, r_max = 150 in a box of 2500: 16^3 cells of ~244) every
+// query visits ~6.6e3 candidates, 6.6e9 in all (3.3e9 when an auto count
+// takes each pair once), ~5/6 of them past r_max; each costs the
+// separation and r2 (8 f64 operations) and a compare, an in-range one a
+// few more (paircount_cuda.candidate_ops). The first design (a warp a
+// query, csrc/variants/paircount_first_design.cu) spent ~86 SM cycles a
+// warp step against ~11 of arithmetic: each query re-read its candidates
+// from L1/L2 with a load's latency on every step, searched the edges for
+// every candidate, grouped the step's lanes by bin (match, shuffles, shared
+// f64 compare-and-swap adds) and searched 9 columns twice a query. This
+// design is bound by latency: each thread's chain of dependent f64
+// operations and shared loads a candidate, hidden only by the warps an SM
+// holds, which its shared memory sets (kernel_variants.py probes: more
+// CTAs an SM, or more candidates a loop step, buy time, and every
+// instruction on the chain costs more than its issue slot). Design:
+//  - A CTA takes an item: up to PC_THREADS consecutive queries of one grid
+//    cell (the wrapper's list, ops/paircount_cuda.query_items; queries in
+//    the grid's cell order fill them), a thread a query, CTAs striding
+//    over the items. The cell's 9 columns are searched once
+//    an item (grid_columns.cuh column_runs), not once a query.
+//  - The candidates of each run are staged in shared memory, PC_TILE at a
+//    time, double-buffered: each thread loads one candidate of the next
+//    tile (x, y, z, w: coalesced) into registers before the current tile
+//    is computed, and stores it after. Every thread of a warp then reads
+//    the same candidate: a broadcast, two 16-byte shared loads a warp step
+//    of 32 pairs.
+//  - The bin: one compare against the last edge sends a pair to the
+//    overflow row, one against the first to row 0; inside, the wrapper's
+//    bucket table of r2's bits gives a lower bound that one compare makes
+//    exact where the table holds at most one edge in a bucket (a walk
+//    where it is coarser; grid_columns.cuh table_digitize): the bin is
+//    np.digitize's, edges <= x, bit for bit.
+//  - Privatised histograms, no match or shuffle on the warp step. '1d'
+//    and 'angular': the overflow row of a thread's query stays in its
+//    registers, rows 0..nb1 in its own column of shared memory
+//    ([row][thread]: conflict-free, no atomics). '2d': the overflow row's
+//    nb2 columns, where 5/6 of the pairs go, are the thread's own column
+//    the same way, rows 0..nb1 one histogram a CTA fed by shared atomics
+//    (f64 sums by compare-and-swap on Hopper, u32 counts native, moved to
+//    u64 totals when an item ends; a copy a warp measured slower: its
+//    shared memory cost CTAs on the SM); 'projected' every bin by those
+//    atomics. A thread's own rows sum w2[j] in f64 (8 bytes a row a
+//    thread) and count in u32 a warp (4 bytes a row a warp), by shared
+//    atomics no thread waits on: five '1d' CTAs fit an SM, where 12 bytes
+//    a row a thread fitted four. When the item ends each sum is scaled
+//    once by w1[i], summed over the warp by shuffles and added to the
+//    CTA's totals with the counts. The totals and the shared histogram go
+//    to the outputs once, by global atomics.
+//  - The '2d' column without a division: an f32 estimate of mu nb2 decides
+//    trunc(mu nb2) wherever it is more than its error bound from an
+//    integer; the plain version's f64 sqrt and division run only near a
+//    boundary (mu_col), so the column is the plain one bit for bit.
+//  - Each pair once in an auto count of the grid's own points (the
+//    wrapper's paircount_cuda.each_pair_once), every one live (a flag the
+//    wrapper computes on the card, read here): a query counts
+//    only the slots after its own, runs wholly before the item are
+//    skipped, and the counts and sums are doubled when added to the
+//    outputs (exact). The pair's bin is the same
+//    from either end: d is negated exactly, rint and fabs are symmetric,
+//    the midpoint sum commutes, and w1 w2 = w2 w1.
+//  - The minimum image is computed only on the runs where it can change a
+//    separation (grid_columns.cuh column_runs: image); elsewhere it is the
+//    identity, bit for bit, and only divides where |d| > box / 4.
 //
-// Float arithmetic is the plain version's, operation by operation, in its
-// order; _build.py compiles with -fmad=false, so nothing is fused into an
-// FMA and a pair whose r2 sits on an edge bins as it does there. Counts
-// are exact; the f64 sums differ from the plain version's by the order of
-// the additions (the atomics).
+// Float arithmetic of the bins is the plain version's, operation by
+// operation, in its order; _build.py compiles with -fmad=false, so nothing
+// is fused into an FMA and a pair whose r2 sits on an edge bins as it does
+// there. Counts are exact; the f64 sums differ from the plain version's by
+// the order of the additions, the query weight factored out of a '1d'
+// row's sum, and the atomics.
 //
 // Built by nbodykit_tpu_torch/_build.py into a shared library with a plain
 // C interface; nbk_paircount_hist returns the launch's cudaError_t.
@@ -66,10 +103,12 @@
 
 #include "grid_columns.cuh"
 
-#define PC_THREADS 256
+#define PC_THREADS 128
 #define PC_WARPS (PC_THREADS / 32)
-// CTAs a streaming multiprocessor of the grid-stride launch
-#define PC_CTAS_PER_SM 8
+// candidates a staged tile
+#define PC_TILE PC_THREADS
+// the largest bin table the wrapper builds (entries)
+#define PC_TAB_MAX 1024
 
 enum { MODE_1D = 0, MODE_2D = 1, MODE_PROJECTED = 2 };
 
@@ -80,119 +119,208 @@ struct PcGeo {
   double origin[3];
   double pimax;
   int nb1, nb2;
-  int mode;     // MODE_*; 'angular' is MODE_1D
   int los;      // the axis, or -1 for the midpoint line of sight
   int is_auto, periodic;
+  int self;     // queries are the grid's own points: each pair once
+  // with self, the card's flag that every query is live (read by the
+  // kernel: a dead query's pairs count once, from their other end)
+  const unsigned char* all_live;
+  BinTable tab;
 };
 
-// The bin of one candidate, or -1 where it is masked.
-__device__ __forceinline__ int pair_bin(const PcGeo& g,
-                                        const double* __restrict__ e,
-                                        double px, double py, double pz,
-                                        double sx, double sy, double sz) {
-  double dx = sx - px, dy = sy - py, dz = sz - pz;
-  if (g.periodic) {
-    dx = min_image(dx, g.box[0]);
-    dy = min_image(dy, g.box[1]);
-    dz = min_image(dz, g.box[2]);
-  }
-  const double r2 = (dx * dx + dy * dy) + dz * dz;
-  if (g.is_auto ? !(r2 > 0.0) : !(r2 >= 0.0)) return -1;
-  const int nedges = g.nb1 + 1;
-  int row = 0, col = 0;
-  if (g.mode == MODE_1D) return digitize(e, nedges, r2) * g.nb2;
-  // d = -dn: primary minus secondary
-  const double ex = -dx, ey = -dy, ez = -dz;
-  double dlos;
+// The row of x among the edges e[0..nb1]: 0 below, nb1 + 1 from the last
+// edge on (and NaN), else np.digitize by the table.
+template <bool ONE_STEP>
+__device__ __forceinline__ int row_of(const PcGeo& g,
+                                      const double* __restrict__ e,
+                                      const int4* __restrict__ tab,
+                                      double x) {
+  if (!(x < e[g.nb1])) return g.nb1 + 1;
+  if (x < e[0]) return 0;
+  return table_digitize<ONE_STEP>(e, tab, g.tab, x);
+}
+
+// dlos of a pair: |d[los]|, or |d . mid| / |mid| for the midpoint line of
+// sight (mid = 0.5 (p1 + p2) + origin), as the plain version computes it.
+// (ex, ey, ez) = d, primary minus secondary.
+__device__ __forceinline__ double pair_dlos(const PcGeo& g, double px,
+                                            double py, double pz, double sx,
+                                            double sy, double sz, double ex,
+                                            double ey, double ez) {
   if (g.los < 0) {
     const double mx = 0.5 * (px + sx) + g.origin[0];
     const double my = 0.5 * (py + sy) + g.origin[1];
     const double mz = 0.5 * (pz + sz) + g.origin[2];
     const double mnorm = sqrt((mx * mx + my * my) + mz * mz);
     const double dot = (ex * mx + ey * my) + ez * mz;
-    dlos = fabs(dot) / (mnorm == 0.0 ? 1.0 : mnorm);
-  } else {
-    dlos = fabs(g.los == 0 ? ex : (g.los == 1 ? ey : ez));
+    return fabs(dot) / (mnorm == 0.0 ? 1.0 : mnorm);
   }
-  if (g.mode == MODE_2D) {
-    row = digitize(e, nedges, r2);
+  return fabs(g.los == 0 ? ex : (g.los == 1 ? ey : ez));
+}
+
+// The '2d' column of a pair, trunc(mu nb2) clipped, mu = dlos / sqrt(r2)
+// (0 where r2 == 0), exactly as the plain version computes it. An f32
+// estimate t of mu nb2 (relative error below 1e-6: the conversions, the
+// rsqrt and the products) decides it where it lies more than 4e-6 t +
+// 1e-6 from an integer: there the f64 value, within 1e-15 of the same
+// real number, truncates alike. Elsewhere (inside that band around an
+// integer, and r2 == 0, a zero dlos or |mid|) the plain version's f64
+// operations run.
+__device__ __forceinline__ int mu_col(const PcGeo& g, double px, double py,
+                                      double pz, double sx, double sy,
+                                      double sz, double ex, double ey,
+                                      double ez, double r2) {
+  float t;
+  if (g.los < 0) {
+    const double mx = 0.5 * (px + sx) + g.origin[0];
+    const double my = 0.5 * (py + sy) + g.origin[1];
+    const double mz = 0.5 * (pz + sz) + g.origin[2];
+    const double m2 = (mx * mx + my * my) + mz * mz;
+    const double dot = (ex * mx + ey * my) + ez * mz;
+    t = fabsf(__double2float_rn(dot)) * rsqrtf(__double2float_rn(m2)) *
+        rsqrtf(__double2float_rn(r2));
+  } else {
+    t = __double2float_rn(fabs(g.los == 0 ? ex : (g.los == 1 ? ey : ez))) *
+        rsqrtf(__double2float_rn(r2));
+  }
+  t = t * (float)g.nb2;
+  // floor(t) for 0 <= t < 2^23: the sum rounded down keeps it in the low
+  // mantissa bits
+  const float big = __fadd_rd(t, 8388608.0f);
+  const float frac = t - (big - 8388608.0f);
+  const float eps = 4e-6f * t + 1e-6f;
+  int col;
+  if (frac > eps && frac < 1.0f - eps && t < 8388608.0f) {
+    col = __float_as_int(big) & 0x7fffff;
+  } else {
+    const double dlos = pair_dlos(g, px, py, pz, sx, sy, sz, ex, ey, ez);
     const double rr = sqrt(r2 == 0.0 ? 1.0 : r2);
     const double mu = r2 == 0.0 ? 0.0 : dlos / rr;
     col = (int)(mu * (double)g.nb2);
-  } else {  // MODE_PROJECTED
-    if (!(dlos < g.pimax)) return -1;
-    const double drp2 = r2 - dlos * dlos;
-    row = digitize(e, nedges, drp2);
-    col = (int)dlos;
   }
-  col = col < 0 ? 0 : (col > g.nb2 - 1 ? g.nb2 - 1 : col);
-  return row * g.nb2 + col;
+  return col < 0 ? 0 : (col > g.nb2 - 1 ? g.nb2 - 1 : col);
 }
 
-// Adds one warp step's candidates to the CTA's histograms: the lanes of
-// one bin sum their weights in lane order, and the lowest adds count and
-// sum. Every lane of the warp calls it (bin -1: nothing to add).
-__device__ __forceinline__ void warp_add(int bin, double w,
-                                         unsigned long long* hn,
-                                         double* hw) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const unsigned peers = __match_any_sync(full, bin);
-  const int size = __popc(peers);
-  // the largest group that adds anything (masked lanes add nothing)
-  const int steps = (int)__reduce_max_sync(full, bin >= 0 ? size : 0);
-  double s = 0.0;
-  unsigned rest = peers;
-  for (int t = 0; t < steps; ++t) {
-    const int src = rest ? __ffs(rest) - 1 : lane;
-    const double o = __shfl_sync(full, w, src);
-    if (rest) {
-      s += o;
-      rest &= rest - 1;
+// A thread's query and its private accumulators.
+struct Query {
+  double x, y, z, w;
+  bool on;
+  int lim;               // MASKED: count candidate c of the tile if c > lim
+  unsigned far_n;        // '1d': row nb1 + 1 of this query, the sum
+  double far_w;          // of w2[j]
+};
+
+// The candidates [0, cnt) of a staged tile against the thread's query.
+// IMAGE: minimum-image the separation; MASKED: only candidates c > q.lim.
+// '1d': the overflow row into q's registers. pw: the thread's private
+// rows (stride PC_THREADS), sums of w2[j]; pn: their u32 counts, one
+// copy a warp, by shared atomics whose result no one waits for: '1d'
+// rows 0..nb1, '2d' the columns of row nb1 + 1.
+// (hw, hn): the CTA's shared histogram, f64 sums and u32 counts ('2d'
+// rows 0..nb1, 'projected' every bin; the counts go to the CTA's u64
+// totals when an item ends).
+template <int MODE, bool IMAGE, bool MASKED, bool ONE_STEP>
+__device__ __forceinline__ void count_tile(
+    const PcGeo& g, const double* __restrict__ e,
+    const int4* __restrict__ tab, const double2* __restrict__ tile, int cnt,
+    Query& q, double* pw, unsigned* pn, double* hw,
+    unsigned* hn) {
+  const double elast = e[g.nb1], efirst = e[0];
+  // r2 > rmin: r2 > 0 in an auto count, else r2 >= 0 (NaN fails both)
+  const double rmin = g.is_auto ? 0.0 : -1.0;
+  auto one = [&](int c) {
+    const double2 xy = tile[2 * c], zw = tile[2 * c + 1];
+    double dx = xy.x - q.x, dy = xy.y - q.y, dz = zw.x - q.z;
+    if (IMAGE) {
+      dx = min_image(dx, g.box[0]);
+      dy = min_image(dy, g.box[1]);
+      dz = min_image(dz, g.box[2]);
     }
-  }
-  if (bin >= 0 && lane == __ffs(peers) - 1) {
-    atomicAdd(&hn[bin], (unsigned long long)size);
-    atomicAdd(&hw[bin], s);
+    const double r2 = (dx * dx + dy * dy) + dz * dz;
+    const bool ok = q.on && (!MASKED || c > q.lim) && r2 > rmin;
+    if (MODE == MODE_1D) {
+      // past the last edge: the registers, by selects
+      const bool far = ok && r2 >= elast;
+      q.far_n += far ? 1u : 0u;
+      q.far_w += far ? zw.y : 0.0;
+      if (ok && r2 < elast) {
+        const int k =
+            r2 < efirst ? 0 : table_digitize<ONE_STEP>(e, tab, g.tab, r2);
+        pw[k * PC_THREADS] += zw.y;
+        atomicAdd(pn + k, 1u);
+      }
+    } else if (MODE == MODE_2D) {
+      if (ok) {
+        const int col = mu_col(g, q.x, q.y, q.z, xy.x, xy.y, zw.x, -dx, -dy,
+                               -dz, r2);
+        if (r2 >= elast) {
+          pw[col * PC_THREADS] += zw.y;
+          atomicAdd(pn + col, 1u);
+        } else {
+          const int bin = (r2 < efirst ? 0
+                                       : table_digitize<ONE_STEP>(
+                                             e, tab, g.tab, r2)) *
+                              g.nb2 +
+                          col;
+          atomicAdd(hn + bin, 1u);
+          atomicAdd(hw + bin, q.w * zw.y);
+        }
+      }
+    } else {  // MODE_PROJECTED
+      if (ok) {
+        const double dlos =
+            pair_dlos(g, q.x, q.y, q.z, xy.x, xy.y, zw.x, -dx, -dy, -dz);
+        if (dlos < g.pimax) {
+          int col = (int)dlos;
+          col = col < 0 ? 0 : (col > g.nb2 - 1 ? g.nb2 - 1 : col);
+          const int bin =
+              row_of<ONE_STEP>(g, e, tab, r2 - dlos * dlos) * g.nb2 + col;
+          atomicAdd(hn + bin, 1u);
+          atomicAdd(hw + bin, q.w * zw.y);
+        }
+      }
+    }
+  };
+#pragma unroll 2
+  for (int c = 0; c < cnt; ++c) one(c);
+}
+
+// Loads candidate base + threadIdx.x of the run (if below hi) into v.
+__device__ __forceinline__ void load_candidate(
+    const double* __restrict__ pos, const double* __restrict__ w2, int base,
+    int hi, double (&v)[4]) {
+  const int j = base + (int)threadIdx.x;
+  if (j < hi) {
+    const size_t j3 = (size_t)3 * j;
+    v[0] = pos[j3];
+    v[1] = pos[j3 + 1];
+    v[2] = pos[j3 + 2];
+    v[3] = w2[j];
   }
 }
 
-// The slots [lo, hi) against query (px, py, pz) of weight wq, 32 at once.
-// With one column (ONE_COLUMN: nb2 = 1) the overflow row, the pairs past
-// the last edge (5/6 of a 1d count's candidates at boss_like), goes to the
-// lane's own sums far_n and far_w, added once at the end, not through
-// warp_add.
-template <bool ONE_COLUMN>
-__device__ __forceinline__ void count_run(const PcGeo& g,
-                                          const double* __restrict__ e,
-                                          const double* __restrict__ pos,
-                                          const double* __restrict__ w2,
-                                          int lo, int hi, double px,
-                                          double py, double pz, double wq,
-                                          unsigned long long* hn,
-                                          double* hw,
-                                          unsigned long long& far_n,
-                                          double& far_w) {
-  const int lane = threadIdx.x & 31;
-  for (int base = lo; base < hi; base += 32) {
-    const int j = base + lane;
-    int bin = -1;
-    double w = 0.0;
-    if (j < hi) {
-      const size_t j3 = (size_t)3 * j;
-      bin = pair_bin(g, e, px, py, pz, pos[j3], pos[j3 + 1], pos[j3 + 2]);
-      if (bin >= 0) w = wq * w2[j];
-    }
-    if (ONE_COLUMN && bin == g.nb1 + 1) {
-      far_n += 1;
-      far_w += w;
-      bin = -1;
-    }
-    warp_add(bin, w, hn, hw);
-  }
+// The thread's private rows: '1d' rows 0..nb1, '2d' the nb2 columns of
+// row nb1 + 1, 'projected' none.
+__host__ __device__ static int private_rows(int mode, int nb1, int nb2) {
+  return mode == MODE_1D ? nb1 + 1 : (mode == MODE_2D ? nb2 : 0);
 }
 
-template <typename K, bool ONE_COLUMN>
+// Shared memory of a CTA: the two staged tiles, the bin table (16 bytes
+// an entry), the edges and the CTA's totals (f64, then u64), the shared
+// histogram's sums ('2d', 'projected': every bin, f64), the threads'
+// private rows (f64) and their counts a warp (u32), the shared
+// histogram's counts (u32) and the runs (int).
+__host__ __device__ static size_t smem_bytes(int mode, int nb1, int nb2,
+                                             int tab_len) {
+  const size_t nbins = (size_t)(nb1 + 2) * nb2;
+  size_t b = (size_t)2 * PC_TILE * 32 + (size_t)tab_len * 16 +
+             (size_t)(nb1 + 1) * 8 + nbins * 16;
+  if (mode != MODE_1D) b += nbins * 12;
+  b += (size_t)private_rows(mode, nb1, nb2) * (PC_THREADS * 8 + PC_WARPS * 4);
+  return b + (size_t)3 * GC_RUNS * 4;
+}
+
+template <typename K, int MODE, bool ONE_STEP>
 __global__ void __launch_bounds__(PC_THREADS)
 paircount_kernel(const double* __restrict__ pos, const double* __restrict__ w2,
                  const K* __restrict__ flat, const int* __restrict__ cols,
@@ -200,103 +328,246 @@ paircount_kernel(const double* __restrict__ pos, const double* __restrict__ w2,
                  const double* __restrict__ w1,
                  const unsigned char* __restrict__ live,
                  const int* __restrict__ ci, int n1,
+                 const int* __restrict__ items, int max_items,
                  const double* __restrict__ r2edges,
+                 const int4* __restrict__ tab_g,
                  unsigned long long* __restrict__ out_n,
                  double* __restrict__ out_w, const PcGeo g) {
-  extern __shared__ double smem[];
-  const int nbins = (g.nb1 + 2) * g.nb2;
-  double* hw = smem;
-  unsigned long long* hn = (unsigned long long*)(smem + nbins);
-  double* e = smem + 2 * nbins;
-  for (int b = threadIdx.x; b < nbins; b += PC_THREADS) {
-    hw[b] = 0.0;
-    hn[b] = 0ull;
-  }
-  for (int b = threadIdx.x; b <= g.nb1; b += PC_THREADS) e[b] = r2edges[b];
-  __syncthreads();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nb1 = g.nb1, nb2 = g.nb2, nbins = (nb1 + 2) * nb2;
+  const int hsize = MODE == MODE_1D ? 0 : nbins;
+  const int prows = private_rows(MODE, nb1, nb2);
+  double2* tiles = (double2*)smem;                        // 2 x PC_TILE x 2
+  int4* tab = (int4*)(smem + 2 * PC_TILE * 32);           // g.tab.len
+  double* e = (double*)(tab + g.tab.len);                 // nb1 + 1
+  double* tot_w = e + nb1 + 1;                            // nbins
+  unsigned long long* tot_n = (unsigned long long*)(tot_w + nbins);
+  double* hw = (double*)(tot_n + nbins);                  // hsize
+  double* pw_all = hw + hsize;                            // prows x threads
+  unsigned* pn_all = (unsigned*)(pw_all + prows * PC_THREADS);
+  unsigned* hn = pn_all + prows * PC_WARPS;               // hsize
+  int* run_lo = (int*)(hn + hsize);
+  int* run_hi = run_lo + GC_RUNS;
+  int* run_im = run_hi + GC_RUNS;
 
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = gridDim.x * PC_WARPS;
-  const int nc1 = g.ncell[1];
-  const K nc2 = (K)g.ncell[2];
-  unsigned long long far_n = 0ull;
-  double far_w = 0.0;
-  for (int q = blockIdx.x * PC_WARPS + warp; q < n1; q += nwarps) {
-    if (!live[q]) continue;
-    const size_t q3 = (size_t)3 * q;
-    const double px = p1[q3], py = p1[q3 + 1], pz = p1[q3 + 2];
-    const double wq = w1[q];
-    const Cells ca = axis_cells(ci[q3], g.ncell[0], g.dlo[0], g.dhi[0],
-                                g.periodic);
-    const Cells cb = axis_cells(ci[q3 + 1], g.ncell[1], g.dlo[1], g.dhi[1],
-                                g.periodic);
-    const Runs rc = axis_runs(ci[q3 + 2], g.ncell[2], g.dlo[2], g.dhi[2],
-                              g.periodic);
-    for (int t = 0; t < 9; ++t) {
-      const int ka = t / 3, kb = t % 3;
-      if (ka >= ca.m || kb >= cb.m) continue;
-      const int col = ca.v[ka] * nc1 + cb.v[kb];
-      const K base = (K)col * nc2;
-      const int end = cols[col + 1];
-      int lo = lower_bound<K>(flat, cols[col], end, base + (K)rc.lo0);
-      int hi = lower_bound<K>(flat, lo, end, base + (K)rc.hi0 + 1);
-      count_run<ONE_COLUMN>(g, e, pos, w2, lo, hi, px, py, pz, wq, hn, hw,
-                            far_n, far_w);
-      if (rc.m == 2) {
-        lo = lower_bound<K>(flat, hi, end, base + (K)rc.lo1);
-        hi = lower_bound<K>(flat, lo, end, base + (K)rc.hi1 + 1);
-        count_run<ONE_COLUMN>(g, e, pos, w2, lo, hi, px, py, pz, wq, hn,
-                              hw, far_n, far_w);
+  for (int b = tid; b <= nb1; b += PC_THREADS) e[b] = r2edges[b];
+  for (int k = tid; k < g.tab.len; k += PC_THREADS) tab[k] = tab_g[k];
+  for (int b = tid; b < nbins; b += PC_THREADS) {
+    tot_w[b] = 0.0;
+    tot_n[b] = 0ull;
+  }
+  for (int b = tid; b < hsize; b += PC_THREADS) {
+    hw[b] = 0.0;
+    hn[b] = 0u;
+  }
+  for (int b = tid; b < prows * PC_WARPS; b += PC_THREADS) pn_all[b] = 0u;
+  // this thread's private rows, and their counts (this warp's)
+  double* pw = pw_all + tid;
+  unsigned* pn = pn_all + (tid >> 5) * prows;
+  // where the private rows go: '1d' row r, '2d' bin (nb1 + 1) nb2 + r
+  const int prow0 = MODE == MODE_1D ? 0 : (nb1 + 1) * nb2;
+  // each pair once: the grid's own points, every one live
+  const bool once = g.self && *g.all_live;
+
+  for (int item = blockIdx.x; item < max_items; item += gridDim.x) {
+    const int q0 = items[item];
+    if (q0 >= n1) break;  // items past the last hold n1
+    const int q1 = items[item + 1];
+    __syncthreads();  // the previous item's runs and tiles are read
+    if (tid < 9) {
+      const size_t c3 = (size_t)3 * q0;
+      column_runs<K>(tid, flat, cols, ci[c3], ci[c3 + 1], ci[c3 + 2], g.dlo,
+                     g.dhi, g.ncell, g.periodic, run_lo, run_hi, run_im);
+    }
+    Query q;
+    const int qi = q0 + tid;
+    q.on = qi < q1 && live[qi];
+    q.x = q.on ? p1[(size_t)3 * qi] : 0.0;
+    q.y = q.on ? p1[(size_t)3 * qi + 1] : 0.0;
+    q.z = q.on ? p1[(size_t)3 * qi + 2] : 0.0;
+    q.w = q.on ? w1[qi] : 0.0;
+    q.far_n = 0u;
+    q.far_w = 0.0;
+    for (int r = 0; r < prows; ++r) pw[r * PC_THREADS] = 0.0;
+    __syncthreads();
+    if (once && tid < GC_RUNS) {
+      // each pair once: slots after the item's first query only
+      if (run_lo[tid] <= q0) run_lo[tid] = q0 + 1;
+      if (run_hi[tid] < run_lo[tid]) run_hi[tid] = run_lo[tid];
+    }
+    __syncthreads();
+
+    // the tiles of the runs in turn; the next one loaded into registers
+    // while the current one is counted
+    int r = 0;
+    while (r < GC_RUNS && run_lo[r] >= run_hi[r]) ++r;
+    if (r < GC_RUNS) {
+      int base = run_lo[r];
+      double v[4] = {0.0, 0.0, 0.0, 0.0};
+      load_candidate(pos, w2, base, run_hi[r], v);
+      int cur = 0;
+      double2* t0 = tiles + cur * 2 * PC_TILE;
+      t0[2 * tid] = make_double2(v[0], v[1]);
+      t0[2 * tid + 1] = make_double2(v[2], v[3]);
+      __syncthreads();
+      while (true) {
+        // the next tile: the rest of this run, or the next non-empty run
+        int rn = r, bn = base + PC_TILE;
+        if (bn >= run_hi[r]) {
+          rn = r + 1;
+          while (rn < GC_RUNS && run_lo[rn] >= run_hi[rn]) ++rn;
+          bn = rn < GC_RUNS ? run_lo[rn] : 0;
+        }
+        if (rn < GC_RUNS) load_candidate(pos, w2, bn, run_hi[rn], v);
+        const int hi = run_hi[r];
+        const int cnt = hi - base < PC_TILE ? hi - base : PC_TILE;
+        const double2* tile = tiles + cur * 2 * PC_TILE;
+        const bool image = run_im[r];
+        // MASKED where the run reaches below the item's last query
+        const bool masked = once && base < q1;
+        q.lim = qi - base;
+        if (image) {
+          if (masked)
+            count_tile<MODE, true, true, ONE_STEP>(g, e, tab, tile, cnt, q,
+                                                   pw, pn, hw, hn);
+          else
+            count_tile<MODE, true, false, ONE_STEP>(g, e, tab, tile, cnt, q,
+                                                    pw, pn, hw, hn);
+        } else {
+          if (masked)
+            count_tile<MODE, false, true, ONE_STEP>(g, e, tab, tile, cnt, q,
+                                                    pw, pn, hw, hn);
+          else
+            count_tile<MODE, false, false, ONE_STEP>(g, e, tab, tile, cnt, q,
+                                                     pw, pn, hw, hn);
+        }
+        if (rn == GC_RUNS) break;
+        cur ^= 1;
+        double2* tn = tiles + cur * 2 * PC_TILE;
+        tn[2 * tid] = make_double2(v[0], v[1]);
+        tn[2 * tid + 1] = make_double2(v[2], v[3]);
+        __syncthreads();
+        r = rn;
+        base = bn;
+      }
+    }
+    // the warp's counts of the private rows into the CTA's totals; the
+    // query's private sums (and '1d' its far row), scaled by its weight
+    // once, summed over the warp, into the CTA's totals
+    __syncwarp();
+    for (int row = lane; row < prows; row += 32) {
+      const unsigned n = pn[row];
+      pn[row] = 0u;
+      if (n) atomicAdd(&tot_n[prow0 + row], (unsigned long long)n);
+    }
+    const int rows = MODE == MODE_1D ? prows + 1 : prows;
+    for (int row = 0; row < rows; ++row) {
+      unsigned long long n = row < prows ? 0ull : q.far_n;
+      double s = row < prows ? pw[row * PC_THREADS] : q.far_w;
+      s = q.on ? q.w * s : 0.0;
+      for (int o = 16; o > 0; o >>= 1) {
+        n += __shfl_down_sync(0xffffffffu, n, o);
+        s += __shfl_down_sync(0xffffffffu, s, o);
+      }
+      if (lane == 0) {
+        if (n) atomicAdd(&tot_n[prow0 + row], n);
+        if (s != 0.0) atomicAdd(&tot_w[prow0 + row], s);
+      }
+    }
+    if (MODE != MODE_1D) {
+      // the shared histogram's u32 counts into the u64 totals (its bins
+      // are not the private rows': no other writer)
+      __syncthreads();
+      for (int b = tid; b < hsize; b += PC_THREADS) {
+        const unsigned n = hn[b];
+        if (n) {
+          hn[b] = 0u;
+          tot_n[b] += n;
+        }
       }
     }
   }
-  if (ONE_COLUMN) {
-    // the lanes' overflow-row sums: a tree over the warp, one add a warp
-    for (int o = 16; o > 0; o >>= 1) {
-      far_n += __shfl_down_sync(0xffffffffu, far_n, o);
-      far_w += __shfl_down_sync(0xffffffffu, far_w, o);
-    }
-    if ((threadIdx.x & 31) == 0 && far_n) {
-      atomicAdd(&hn[g.nb1 + 1], far_n);
-      atomicAdd(&hw[g.nb1 + 1], far_w);
-    }
-  }
   __syncthreads();
-  for (int b = threadIdx.x; b < nbins; b += PC_THREADS) {
-    if (hn[b]) {
-      atomicAdd(&out_n[b], hn[b]);
-      atomicAdd(&out_w[b], hw[b]);
+  // each pair once: every count and sum doubled (exact)
+  const unsigned long long mult = once ? 2ull : 1ull;
+  for (int b = tid; b < nbins; b += PC_THREADS) {
+    unsigned long long n = tot_n[b];
+    double s = tot_w[b];
+    if (MODE != MODE_1D) s += hw[b];
+    if (n) {
+      atomicAdd(&out_n[b], mult * n);
+      atomicAdd(&out_w[b], (double)mult * s);
     }
   }
 }
 
-// Shared memory a CTA takes for nbins bins and nb1 + 1 edges.
-static size_t smem_bytes(int nbins, int nb1) {
-  return (size_t)nbins * 16 + (size_t)(nb1 + 1) * 8;
-}
-
-template <typename K, bool ONE_COLUMN>
+template <typename K, int MODE, bool ONE_STEP>
 static int launch(const double* pos, const double* w2, const void* flat,
                   const int* cols, const double* p1, const double* w1,
                   const unsigned char* live, const int* ci, int n1,
-                  const double* r2edges, unsigned long long* out_n,
-                  double* out_w, const PcGeo& g, cudaStream_t s) {
-  const int nbins = (g.nb1 + 2) * g.nb2;
-  const size_t smem = smem_bytes(nbins, g.nb1);
+                  const int* items, int max_items, const double* r2edges,
+                  const int4* tab, unsigned long long* out_n, double* out_w,
+                  const PcGeo& g, cudaStream_t s) {
+  const size_t smem = smem_bytes(MODE, g.nb1, g.nb2, g.tab.len);
+  auto kernel = paircount_kernel<K, MODE, ONE_STEP>;
   cudaError_t err = cudaFuncSetAttribute(
-      paircount_kernel<K, ONE_COLUMN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long need = ((long long)n1 + PC_WARPS - 1) / PC_WARPS;
-  const long long cap = (long long)sms * PC_CTAS_PER_SM;
-  const int blocks = (int)(need < cap ? need : cap);
-  paircount_kernel<K, ONE_COLUMN><<<blocks, PC_THREADS, smem, s>>>(
-      pos, w2, (const K*)flat, cols, p1, w1, live, ci, n1, r2edges, out_n,
-      out_w, g);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      PC_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) per_sm = 1;
+  const long long cap = (long long)sms * per_sm;
+  const int blocks = (int)(max_items < cap ? max_items : cap);
+  if (blocks < 1) return 0;
+  kernel<<<blocks, PC_THREADS, smem, s>>>(pos, w2, (const K*)flat, cols, p1,
+                                          w1, live, ci, n1, items, max_items,
+                                          r2edges, tab, out_n, out_w, g);
   return (int)cudaGetLastError();
+}
+
+template <typename K, bool ONE_STEP>
+static int launch_mode(int mode, const double* pos, const double* w2,
+                       const void* flat, const int* cols, const double* p1,
+                       const double* w1, const unsigned char* live,
+                       const int* ci, int n1, const int* items, int max_items,
+                       const double* r2edges, const int4* tab,
+                       unsigned long long* out_n, double* out_w,
+                       const PcGeo& g, cudaStream_t s) {
+  if (mode == MODE_1D)
+    return launch<K, MODE_1D, ONE_STEP>(pos, w2, flat, cols, p1, w1, live,
+                                        ci, n1, items, max_items, r2edges,
+                                        tab, out_n, out_w, g, s);
+  if (mode == MODE_2D)
+    return launch<K, MODE_2D, ONE_STEP>(pos, w2, flat, cols, p1, w1, live,
+                                        ci, n1, items, max_items, r2edges,
+                                        tab, out_n, out_w, g, s);
+  return launch<K, MODE_PROJECTED, ONE_STEP>(pos, w2, flat, cols, p1, w1,
+                                             live, ci, n1, items, max_items,
+                                             r2edges, tab, out_n, out_w, g,
+                                             s);
+}
+
+template <typename K>
+static int launch_steps(int one_step, int mode, const double* pos,
+                        const double* w2, const void* flat, const int* cols,
+                        const double* p1, const double* w1,
+                        const unsigned char* live, const int* ci, int n1,
+                        const int* items, int max_items,
+                        const double* r2edges, const int4* tab,
+                        unsigned long long* out_n, double* out_w,
+                        const PcGeo& g, cudaStream_t s) {
+  if (one_step)
+    return launch_mode<K, true>(mode, pos, w2, flat, cols, p1, w1, live, ci,
+                                n1, items, max_items, r2edges, tab, out_n,
+                                out_w, g, s);
+  return launch_mode<K, false>(mode, pos, w2, flat, cols, p1, w1, live, ci,
+                               n1, items, max_items, r2edges, tab, out_n,
+                               out_w, g, s);
 }
 
 extern "C" int nbk_paircount_hist(
@@ -306,11 +577,18 @@ extern "C" int nbk_paircount_hist(
     const double* r2edges, int nb1, int nb2, int mode, int los,
     const double* origin, double pimax, int is_auto, int periodic,
     const int* dlo, const int* dhi, const int* ncell, const double* box,
-    unsigned long long* out_n, double* out_w, void* stream) {
+    unsigned long long* out_n, double* out_w, const int* items,
+    int max_items, const void* tab, int tab_len, int tab_shift,
+    long long tab_base, int tab_steps, int each_pair_once,
+    const unsigned char* all_live, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n1 <= 0 || n2 <= 0) return 0;
   if (n1 >= (1LL << 31) || n2 >= (1LL << 31) || nb1 < 1 || nb2 < 1 ||
-      mode < MODE_1D || mode > MODE_PROJECTED || los < -1 || los > 2)
+      mode < MODE_1D || mode > MODE_PROJECTED || los < -1 || los > 2 ||
+      max_items < 1 || tab_len < 2 || tab_len > PC_TAB_MAX + 1 ||
+      tab_shift < 0 || tab_shift > 63 || tab_steps < 0 ||
+      (mode == MODE_1D && nb2 != 1) ||
+      (each_pair_once && (n1 != n2 || !is_auto || !all_live)))
     return (int)cudaErrorInvalidValue;
   PcGeo g;
   for (int k = 0; k < 3; ++k) {
@@ -326,22 +604,26 @@ extern "C" int nbk_paircount_hist(
   g.pimax = pimax;
   g.nb1 = nb1;
   g.nb2 = nb2;
-  g.mode = mode;
   g.los = los;
   g.is_auto = is_auto;
   g.periodic = periodic;
+  g.self = each_pair_once;
+  g.all_live = all_live;
+  g.tab.base = tab_base;
+  g.tab.shift = tab_shift;
+  g.tab.len = tab_len;
+  g.tab.nedges = nb1 + 1;
   const int m = (int)n1;
-  if (key_bytes != 4 && key_bytes != 8) return (int)cudaErrorInvalidValue;
+  const int one = tab_steps <= 1;
   if (key_bytes == 4)
-    return nb2 == 1 ? launch<int, true>(pos, w2, flat, cols, p1, w1, live, ci,
-                                        m, r2edges, out_n, out_w, g, s)
-                    : launch<int, false>(pos, w2, flat, cols, p1, w1, live,
-                                         ci, m, r2edges, out_n, out_w, g, s);
-  return nb2 == 1
-             ? launch<long long, true>(pos, w2, flat, cols, p1, w1, live, ci,
-                                       m, r2edges, out_n, out_w, g, s)
-             : launch<long long, false>(pos, w2, flat, cols, p1, w1, live,
-                                        ci, m, r2edges, out_n, out_w, g, s);
+    return launch_steps<int>(one, mode, pos, w2, flat, cols, p1, w1, live, ci,
+                             m, items, max_items, r2edges, (const int4*)tab,
+                             out_n, out_w, g, s);
+  if (key_bytes == 8)
+    return launch_steps<long long>(one, mode, pos, w2, flat, cols, p1, w1,
+                                   live, ci, m, items, max_items, r2edges,
+                                   (const int4*)tab, out_n, out_w, g, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* nbk_error_string(int e) {

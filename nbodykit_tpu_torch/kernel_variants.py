@@ -9,13 +9,16 @@ of ``UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42)`` at 512^3, the
 Poisson draw (both output modes) on the lognormal path's 1024^3 lam,
 the FOF's link count, link fill and search sweep on the FOF flow's grid
 and on a clustered 2e6 catalog, the pair count's '1d' and '2d' counts of
-the particles path's boss_like sample. Run from the repository root on
-a CUDA machine::
+the particles path's boss_like sample and the 3PCF moments of its first
+chunk (65,536 queries). The particle kernels' first designs are whole
+sources under ``csrc/variants/``, timed as variants of the kernels they
+were (with probes that take one of their elements out, whose results
+differ). Run from the repository root on a CUDA machine::
 
     python -m nbodykit_tpu_torch.kernel_variants [kernel ...]
 
 (kernels: radix_rank, paint_deposit, poisson, fof_sweep, paircount,
-pipes; default all). It
+threept, pipes; default all). It
 prints one JSON line per timing: the mean CUDA-event time of 20
 launches into preallocated outputs, the kernels in turn (as built,
 each variant, as built again), and whether the variant's result
@@ -122,6 +125,107 @@ def fof_columns_side_by_side(lanes):
   }'''.replace('LANES', str(int(lanes)))
 
 
+# the first designs' binary search over the edges, and a stand-in of one
+# compare (a probe: wrong bins)
+SEARCH_DIGITIZE = '''  int lo = 0, hi = nedges;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (e[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;'''
+CHEAP_DIGITIZE = '  return x < e[nedges - 1] ? 1 : nedges;'
+# parts of the redesigned kernels that the probes drop
+PRIVATE_ADDS = '''        pw[k * PC_THREADS] += zw.y;
+        atomicAdd(pn + k, 1u);
+'''
+TABLE_ROW = '''        const int k =
+            r2 < efirst ? 0 : table_digitize<ONE_STEP>(e, tab, g.tab, r2);
+'''
+YLM_CALL = '''  if (lane < np)
+    all_ylm<LMAX>(g.lmax, tb.lbase, tb.norms, tb.wmm, tb.rcp, wm.qx[lane],
+                  wm.qy[lane], wm.qz[lane], wm.qw[lane],
+                  wm.ys + lane * g.nlm);
+'''
+# the 3PCF drain on the tensor cores, and the same with a switch on each
+# pair's bin into a lane's register row
+MMA_DRAIN = '''  if (REG) {
+    // moments[lm][bin] += sum_p Y[p][lm] [bin_p == bin], 4 pairs a step:
+    // A (8 x 4) = Y of the step's pairs for 8 lm, B (4 x 8) = their
+    // one-hot bins for 8 bins (exact 0 and 1: the products are exact)
+    // every step of a full batch, unrolled, so that the loads go first
+    // (the pairs past np add exact zeros)
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int k = 0; k < QBATCH; k += 4) {
+      const int p = k + tig;
+      const int b = p < np ? wm.qb[p] : -1;
+      const double b0 = b == gid ? 1.0 : 0.0;
+      const double b1 = b == 8 + gid ? 1.0 : 0.0;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int lm = mt * 8 + gid;
+        const double a = p < np && lm < g.nlm ? wm.ys[p * g.nlm + lm] : 0.0;
+        mma_f64(acc[4 * mt], acc[4 * mt + 1], a, b0);
+        mma_f64(acc[4 * mt + 2], acc[4 * mt + 3], a, b1);
+      }
+    }
+'''
+SWITCH_DRAIN = '''  if (REG) {
+    for (int p = 0; p < np; ++p) {
+      const int b = wm.qb[p];
+      const double v = lane < g.nlm ? wm.ys[p * g.nlm + lane] : 0.0;
+      switch (b) {
+#define TA_CASE(k) case k: acc[k] += v; break;
+        TA_CASE(0) TA_CASE(1) TA_CASE(2) TA_CASE(3) TA_CASE(4) TA_CASE(5)
+        TA_CASE(6) TA_CASE(7) TA_CASE(8) TA_CASE(9) TA_CASE(10) TA_CASE(11)
+        TA_CASE(12) TA_CASE(13) TA_CASE(14) TA_CASE(15)
+#undef TA_CASE
+        default: break;
+      }
+    }
+'''
+MMA_OUT = '''#pragma unroll
+        for (int i = 0; i < TA_NB; ++i) {
+          const int lm = 8 * (i / 4) + (lane >> 2);
+          const int b = 8 * ((i / 2) % 2) + 2 * (lane & 3) + i % 2;
+          if (lm < g.nlm && b < g.nbins) wm.ys[lm * g.nbins + b] = acc[i];
+        }
+'''
+ROWS_OUT = '''        if (lane < g.nlm) {
+#pragma unroll
+          for (int b = 0; b < TA_NB; ++b)
+            if (b < g.nbins) wm.ys[lane * g.nbins + b] = acc[b];
+        }
+'''
+# the redesigned kernels' table lookup replaced by that search
+GRID_INCLUDE = '#include "grid_columns.cuh"\n'
+SEARCH_TABLE = ('template <bool ONE_STEP>\n'
+                '__device__ __forceinline__ int search_table_digitize('
+                'const double* __restrict__ e, const int4* __restrict__, '
+                'const BinTable& t, double x) {\n'
+                '  const int nedges = t.nedges;\n'
+                + SEARCH_DIGITIZE + '\n}\n'
+                '#define table_digitize search_table_digitize\n')
+WARP_ADD_BODY = '''  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(full, bin);'''
+NO_WARP_ADD = '''  if (bin == 0x7fffffff) hn[0] = (unsigned long long)w;
+  return;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(full, bin);'''
+THREEPT_NO_DIVISIONS = [
+    ('(double)(l + m - 1) * Wp) / (double)(l - m);',
+     '(double)(l + m - 1) * Wp) * (double)(l - m);'),
+    ('''          ux = dx / rr;
+          uy = dy / rr;
+          uz = dz / rr;''', '''          ux = dx * rr;
+          uy = dy * rr;
+          uz = dz * rr;''')]
+DRAIN_ADD = ('    for (int t = lane; t < g.nlm; t += 32) '
+             'wm.acc[t * g.nbins + b] += y[t] * w;\n')
+
+
 # name: (source, [(text, replacement)], what the substitution takes back)
 VARIANTS = {
     'rank_match_any': ('radix_rank', [
@@ -190,16 +294,162 @@ VARIANTS = {
         (FOF_COLUMN_LOOP, fof_columns_side_by_side(3))],
         'the neighbour columns\' table loads and searches three at a time '
         '(one row of the table), not one column after another'),
-    'paircount_overflow_row_by_groups': ('paircount', [
+    'paircount_overflow_row_by_groups': ('variants/paircount_first_design', [
         ('''    if (ONE_COLUMN && bin == g.nb1 + 1) {
       far_n += 1;
       far_w += w;
       bin = -1;
     }
 ''', '')],
-        'the overflow row of a one-column count through the warp step\'s '
-        'groups (a shuffle loop over ~27 lanes), not in the lanes\' '
-        'registers'),
+        'the first design\'s step: the overflow row of a one-column count '
+        'through the warp step\'s groups (a shuffle loop over ~27 lanes), '
+        'not in the lanes\' registers'),
+    # the redesigned particle kernels, one element taken back each
+    'paircount_binary_search_bin': ('paircount', [
+        (GRID_INCLUDE, GRID_INCLUDE + SEARCH_TABLE)],
+        'the bin inside the edges by a binary search over them, not the '
+        'bucket table and its walk'),
+    'paircount_every_pair_twice': ('paircount', [
+        ('  g.self = each_pair_once;', '  g.self = 0;')],
+        'an auto count of the grid\'s points counts every pair from both '
+        'ends, not once and doubled'),
+    'paircount_image_everywhere': ('paircount', [
+        ('const bool image = run_im[r];', 'const bool image = g.periodic;')],
+        'the minimum image tested on every candidate of a periodic grid, '
+        'not only on the runs where it can change a separation'),
+    'paircount_far_row_by_atomics': ('paircount', [
+        ('''        if (r2 >= elast) {
+          pw[col * PC_THREADS] += zw.y;
+          atomicAdd(pn + col, 1u);
+        } else {
+          const int bin = (r2 < efirst ? 0
+                                       : table_digitize<ONE_STEP>(
+                                             e, tab, g.tab, r2)) *
+                              g.nb2 +
+                          col;''', '''        {
+          const int bin = row_of<ONE_STEP>(g, e, tab, r2) * g.nb2 + col;''')],
+        '\'2d\': the overflow row through the warp\'s copy and its shared '
+        'atomics, not the thread\'s own columns'),
+    'paircount_mu_exact': ('paircount', [
+        ('if (frac > eps && frac < 1.0f - eps && t < 8388608.0f) {',
+         'if (false) {')],
+        '\'2d\': every column by the f64 sqrt and division, not the f32 '
+        'estimate'),
+    'paircount_walk_loop': ('paircount', [
+        ('  const int one = tab_steps <= 1;', '  const int one = 0;')],
+        'the table\'s walk as a loop, not one compare'),
+    'threept_moments_in_shared_memory': ('threept_alm', [
+        ('  return nbins <= TA_NB && lmax <= TA_LMAX;', '  return 0;')],
+        'the moments in shared memory, a lane a row read-modify-written '
+        'for every pair, not in the lanes\' registers'),
+    'threept_divisions': ('threept_alm', [
+        ('(double)(l + m - 1) * Wp) * rcp[l - m];',
+         '(double)(l + m - 1) * Wp) / (double)(l - m);'),
+        ('''        const double inv = 1.0 / sqrt(r2);
+        ux = dx * inv;
+        uy = dy * inv;
+        uz = dz * inv;''', '''        const double rr = sqrt(r2);
+        ux = dx / rr;
+        uy = dy / rr;
+        uz = dz / rr;''')],
+        'f64 divisions by (l - m) in the recurrence and three by |d| for '
+        'the unit vector, not products with reciprocals'),
+    'threept_binary_search_bin': ('threept_alm', [
+        (GRID_INCLUDE, GRID_INCLUDE + SEARCH_TABLE)],
+        'the bin inside the edges by a binary search over them, not the '
+        'bucket table and its walk'),
+    'threept_drain_by_switch': ('threept_alm', [
+        (MMA_DRAIN, SWITCH_DRAIN), (MMA_OUT, ROWS_OUT)],
+        'each drained pair added into a lane\'s register row (lm = lane) '
+        'through a switch on the pair\'s bin, not the batch on the FP64 '
+        'tensor cores'),
+    'threept_ylm_loops': ('threept_alm', [
+        ('  const int lmax = LMAX >= 0 ? LMAX : lmax_rt;',
+         '  const int lmax = lmax_rt;')],
+        'the recurrences of all_ylm as loops over a run-time lmax, not '
+        'unrolled at the register path\'s lmax'),
+    'threept_walk_loop': ('threept_alm', [
+        ('  const int one = tab_steps <= 1;', '  const int one = 0;')],
+        'the table\'s walk as a loop, not one compare'),
+    'threept_image_everywhere': ('threept_alm', [
+        ('          if (run_im[r])', '          if (g.periodic)')],
+        'the minimum image tested on every candidate of a periodic grid, '
+        'not only on the runs where it can change a separation'),
+    # the particle kernels' first designs (csrc/variants/), whole
+    'paircount_first_design': ('variants/paircount_first_design', [],
+        'the first design: a warp a query, its neighbour runs found by '
+        'binary searches per query, the bin by a binary search over the '
+        'edges, one histogram a CTA fed by __match_any_sync groups'),
+    'threept_first_design': ('variants/threept_alm_first_design', [],
+        'the first design: a warp a query, per-query run searches, the bin '
+        'by a binary search, the moments in shared memory (a lane a row, '
+        'read-modify-write), f64 divisions in the recurrence and the unit '
+        'vector'),
+    # probes of the first designs, not designs (their results differ):
+    # what each element of them costs
+    'probe_paircount_first_no_bin_search': (
+        'variants/paircount_first_design', [(SEARCH_DIGITIZE, CHEAP_DIGITIZE)],
+        'the binary search over the edges replaced by one compare (wrong '
+        'bins): what the search costs'),
+    'probe_paircount_first_no_group_add': (
+        'variants/paircount_first_design', [(WARP_ADD_BODY, NO_WARP_ADD)],
+        'the warp step\'s match/shuffle groups and shared atomics dropped '
+        '(no histogram): what the aggregation costs'),
+    'probe_threept_first_no_bin_search': (
+        'variants/threept_alm_first_design',
+        [(SEARCH_DIGITIZE, CHEAP_DIGITIZE)],
+        'the binary search over the edges replaced by one compare (wrong '
+        'bins): what the search costs'),
+    'probe_threept_first_no_divisions': (
+        'variants/threept_alm_first_design', THREEPT_NO_DIVISIONS,
+        'every f64 division multiplied instead (wrong values): what the '
+        'divisions cost'),
+    'probe_threept_first_no_drain_adds': (
+        'variants/threept_alm_first_design', [(DRAIN_ADD, '')],
+        'the drain\'s shared read-modify-writes dropped (the harmonics '
+        'still computed and stored): what the adds cost'),
+    # probes of the redesigned kernels, not designs (their results
+    # differ): what each part of the '1d' loop and of the 3PCF costs
+    'probe_paircount_no_private_adds': ('paircount', [
+        (PRIVATE_ADDS, '        q.far_n += (unsigned)k;\n')],
+        'the in-range pairs\' shared read-modify-writes dropped (the bin '
+        'still found)'),
+    'probe_paircount_no_table': ('paircount', [
+        (TABLE_ROW, '        const int k = 0;\n')],
+        'the in-range pairs\' table lookup dropped (row 0)'),
+    'probe_paircount_far_only': ('paircount', [
+        ('      if (ok && r2 < elast) {', '      if (false) {')],
+        'nothing done for the in-range pairs: the separation and the far '
+        'row only'),
+    'probe_paircount_staging_only': ('paircount', [
+        ('  for (int c = 0; c < cnt; ++c) one(c);',
+         '  for (int c = cnt; c < cnt; ++c) one(c);')],
+        'no pair computed: the items, runs and staged tiles only'),
+    'probe_paircount_far_only_unroll_8': ('paircount', [
+        ('      if (ok && r2 < elast) {', '      if (false) {'),
+        ('#pragma unroll 2\n  for (int c = 0; c < cnt; ++c) one(c);',
+         '#pragma unroll 8\n  for (int c = 0; c < cnt; ++c) one(c);')],
+        'the far-only probe with 8 candidates a loop step, not 2: what '
+        'more independent work a warp buys'),
+    'probe_paircount_far_only_no_private_rows': ('paircount', [
+        ('      if (ok && r2 < elast) {', '      if (false) {'),
+        ('  return mode == MODE_1D ? nb1 + 1 : (mode == MODE_2D ? nb2 : 0);',
+         '  return mode == MODE_1D ? 0 : (mode == MODE_2D ? nb2 : 0);')],
+        'the far-only probe without the 46 KB of private rows: what more '
+        'CTAs on an SM buy'),
+    'probe_threept_no_ylm': ('threept_alm', [(YLM_CALL, '')],
+        'the harmonics not computed (the drain adds stale values)'),
+    'probe_threept_no_drain_adds': ('threept_alm', [
+        ('        mma_f64(acc[4 * mt], acc[4 * mt + 1], a, b0);\n'
+         '        mma_f64(acc[4 * mt + 2], acc[4 * mt + 3], a, b1);',
+         '        if (b == 12345) acc[0] += a;')],
+        'the drain\'s tensor-core steps dropped (the harmonics and the '
+        'one-hot factors still loaded)'),
+    'probe_threept_no_drain': ('threept_alm', [
+        ('    if (qn >= QBATCH) {', '    if (qn >= QBATCH) qn -= QBATCH;\n'
+         '    if (false) {'),
+        ('        if (qn > 0) drain<REG, LMAX>(g, tb, wm, qn, acc);', '')],
+        'no drain: the candidate pass and the queue only'),
     # a probe, not a design: what the ordered look-back costs (its list is
     # out of raster order, so it does not match)
     'poisson_unordered_bases': ('threefry', [
@@ -211,6 +461,18 @@ VARIANTS = {
         'tile bases in raster order: each tile takes its base from an '
         'atomic counter instead (timing probe; the list is unordered)'),
 }
+
+
+# the kernels timed and the source each is built from
+SOURCE = {'radix_rank': 'radix_rank', 'paint_deposit': 'paint_deposit',
+          'poisson': 'threefry', 'fof_sweep': 'fof_sweep',
+          'paircount': 'paircount', 'threept': 'threept_alm'}
+
+
+def built_source(src):
+    """The kernel source a variant's source is timed against: itself, or
+    for a first design under ``variants/`` the source it was."""
+    return os.path.basename(src).replace('_first_design', '')
 
 
 def _build_variants(names):
@@ -335,40 +597,53 @@ def _lognormal_lam():
     return mockmaker.lognormal_lambda(delta, pm, nbar, 2.0), nbar * box ** 3
 
 
+_BOSS = {}
+
+
+def _boss_like():
+    """The particles path's boss_like sample on the card (LogNormalCatalog,
+    1e6 in a box of 2500, seed 42, numpy-seeded weights): (pos, w, box),
+    built once."""
+    if not _BOSS:
+        import numpy as np
+        from . import cosmology
+        from .source.catalog import LogNormalCatalog
+        box = 2500.0
+        plin = cosmology.LinearPower(cosmology.Planck15, 0.55,
+                                     'EisensteinHu')
+        cat = LogNormalCatalog(plin, nbar=1e6 / box ** 3, BoxSize=box,
+                               Nmesh=1024, bias=2.0, seed=42)
+        _BOSS['pos'] = cat['Position'].double()
+        _BOSS['w'] = torch.as_tensor(
+            np.random.RandomState(7).uniform(0.5, 1.5, len(cat)),
+            device='cuda')
+        _BOSS['box'] = box
+    return _BOSS['pos'], _BOSS['w'], _BOSS['box']
+
+
 def _paircount_cases():
     """(label, run, same) of the pair-count kernel on the particles path's
-    boss_like sample (LogNormalCatalog, 1e6 in a box of 2500, seed 42,
-    numpy-seeded weights): the '1d' auto count (one column) and the '2d'
-    one (Nmu 10) on r in linspace(5, 150, 30), the histograms zeroed
-    before each launch (in the timing, alike for every variant)."""
+    boss_like sample: the '1d' auto count (one column) and the '2d' one
+    (Nmu 10) on r in linspace(5, 150, 30), the histograms zeroed before
+    each launch (in the timing, alike for every variant)."""
     import numpy as np
-    from . import cosmology
     from .algorithms.pair_counters.core import paircount_inputs
     from .ops import paircount_cuda as pc
-    from .source.catalog import LogNormalCatalog
-    box = 2500.0
-    plin = cosmology.LinearPower(cosmology.Planck15, 0.55, 'EisensteinHu')
-    cat = LogNormalCatalog(plin, nbar=1e6 / box ** 3, BoxSize=box,
-                           Nmesh=1024, bias=2.0, seed=42)
-    pos = cat['Position']
-    w = torch.as_tensor(np.random.RandomState(7).uniform(0.5, 1.5, len(cat)),
-                        device='cuda')
-    del cat
+    pos, w, box = _boss_like()
     edges = np.linspace(5, 150, 30)
     cases = []
     for label, kw in (('1d', {}), ('2d', dict(mode='2d', Nmu=10))):
         args, kwargs, _, _ = paircount_inputs(pos, w, pos, w, np.full(3, box),
                                               edges, is_auto=True, **kw)
         ref_n, ref_w = pc.paircount_hist_cuda(*args, **kwargs)
-        e = torch.as_tensor(args[6], dtype=torch.float64, device='cuda')
         out_n = torch.zeros(ref_n.numel(), dtype=torch.int64, device='cuda')
         out_w = torch.zeros_like(ref_w)
-        call = pc.launch_args(*args[:6], e, args[7], kwargs['nb2'],
-                              kwargs['pimax'], kwargs['los'],
-                              kwargs['origin'], True, out_n, out_w)
+        call, made = pc.launch_args(*args[:7], args[7], kwargs['nb2'],
+                                    kwargs['pimax'], kwargs['los'],
+                                    kwargs['origin'], True, out_n, out_w)
 
         # the closure holds the tensors behind the pointers
-        def run(lib, call=call, out=(out_n, out_w), keep=(args, e)):
+        def run(lib, call=call, out=(out_n, out_w), keep=(args, made)):
             fn = lib.nbk_paircount_hist
             fn.argtypes = pc.ARGTYPES
 
@@ -384,6 +659,35 @@ def _paircount_cases():
                 ref_w.abs().max())
         cases.append(('paircount_hist %s boss_like' % label, run, same))
     return cases
+
+
+def _threept_case():
+    """(label, run, same) of the 3PCF moments kernel at the particles
+    path's chunk: the first 65,536 of the boss_like sample's cell-ordered
+    points against all of them, poles 0-4, r in linspace(20, 150, 14)
+    (moments within 1e-12 of their largest)."""
+    import numpy as np
+    from .algorithms.threeptcf import CHUNK, se_inputs
+    from .ops import threept_cuda as tc
+    pos, w, box = _boss_like()
+    edges = np.linspace(20, 150, 14)
+    poles = [0, 1, 2, 3, 4]
+    grid, w_s, p, live, ci = se_inputs(pos, w, edges, box, True)
+    nq = min(CHUNK, p.shape[0])
+    chunk = (grid, w_s, p[:nq], live[:nq], ci[:nq], edges ** 2, poles)
+    ref = tc.threept_alm_cuda(*chunk)
+    out = torch.zeros_like(ref)
+    call, keep = tc.launch_args(*chunk, out)
+
+    def run(lib, keep=(chunk, keep)):
+        fn = lib.nbk_threept_alm
+        fn.argtypes = tc.ARGTYPES
+        return lambda: _build.check('threept_alm', fn(*call))
+
+    def same():
+        return float((out - ref).abs().max()) <= 1e-12 * float(
+            ref.abs().max())
+    return [('threept_alm chunk of %d boss_like' % nq, run, same)]
 
 
 def clustered_catalog(n=2 * 10 ** 6, box=1000.0, blobs=10 ** 4, seed=42):
@@ -656,6 +960,8 @@ def _cases(kernel):
         return _fof_cases()
     if kernel == 'paircount':
         return _paircount_cases()
+    if kernel == 'threept':
+        return _threept_case()
     run, same = _deposit_case()
     return [('paint_deposit', run, same)]
 
@@ -665,19 +971,20 @@ def main(argv=()):
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
     which = list(argv) or ['radix_rank', 'paint_deposit', 'poisson',
-                           'fof_sweep', 'paircount', 'pipes']
+                           'fof_sweep', 'paircount', 'threept', 'pipes']
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({'device': torch.cuda.get_device_name(0),
                       'nvidia_smi': smi}), flush=True)
-    _build.build_all()
-    source = {'radix_rank': 'radix_rank', 'paint_deposit': 'paint_deposit',
-              'poisson': 'threefry', 'fof_sweep': 'fof_sweep',
-              'paircount': 'paircount'}
-    names = sorted(n for n in VARIANTS if VARIANTS[n][0] in
-                   [source[k] for k in which if k in source])
+    # the kernels timed, and those that make their inputs (the grid's
+    # order, the catalogs' draws, the column table)
+    _build.build_all(sorted({SOURCE[k] for k in which if k in SOURCE}
+                            | {'radix_rank', 'threefry', 'fof_sweep'}))
+    names = sorted(n for n in VARIANTS
+                   if built_source(VARIANTS[n][0]) in
+                   [SOURCE[k] for k in which if k in SOURCE])
     libs = _build_variants(names)
     for kernel in which:
         if kernel == 'pipes':
@@ -690,12 +997,13 @@ def main(argv=()):
                                            unfused), ('as_built', fused)]
         else:
             cases = _cases(kernel)
-        src = source[kernel]
+        src = SOURCE[kernel]
         built = _build.load(src)
         for label, run, same in cases:
             order = [('as_built', run(built))] + [
                 (n, run(libs[n])) for n in names
-                if VARIANTS[n][0] == src] + [('as_built', run(built))]
+                if built_source(VARIANTS[n][0]) == src] + [
+                ('as_built', run(built))]
             for name, fn in order:
                 ms = _ms(fn)
                 rec = {'kernel': label, 'variant': name, 'ms': ms,

@@ -22,9 +22,15 @@ edges, as the JAX bincounts leave them.
 
 :func:`paircount_hist_plain` is that fold in torch on
 :meth:`.devicehash.DeviceGridHash.fold`, in blocks of slots;
-:func:`paircount_hist_cuda` launches ``csrc/paircount.cu`` (one warp a
-query over the column table, shared-memory histograms per CTA).
-:func:`paircount_hist` dispatches on the queries' device.
+:func:`paircount_hist_cuda` launches ``csrc/paircount.cu`` (a CTA an item
+of queries of one cell, a thread a query, the cell's candidates staged in
+shared memory, the bin by one compare at each end and a bucket table,
+privatised histograms; an auto count of the grid's own points counts each
+pair once and doubles). :func:`paircount_hist` dispatches on the queries'
+device. The host-side pieces of the kernel's design are here and tested
+on the CPU: the bin table (:func:`bin_table`, :func:`table_digitize`),
+the items (:func:`query_items`) and the shared-memory plan
+(:func:`smem_bytes`).
 """
 
 import ctypes
@@ -32,8 +38,11 @@ import ctypes
 import numpy as np
 import torch
 
-# threads a CTA of the kernel (csrc/paircount.cu PC_THREADS)
-PC_THREADS = 256
+# threads a CTA of the kernel, and queries an item (csrc/paircount.cu
+# PC_THREADS)
+PC_THREADS = 128
+# entries of the largest bin table (csrc/paircount.cu PC_TAB_MAX)
+PC_TAB_MAX = 1024
 # the modes of the kernel (csrc/paircount.cu MODE_*)
 MODES = {'1d': 0, 'angular': 0, '2d': 1, 'projected': 2}
 # dynamic shared memory a CTA may take on sm_90
@@ -48,10 +57,151 @@ def hist_bins(nedges, nb2):
     return (int(nedges) + 1) * int(nb2)
 
 
-def smem_bytes(nedges, nb2):
-    """Shared memory of one CTA of the kernel: 16 bytes a bin (count and
-    sum) and 8 an edge."""
-    return 16 * hist_bins(nedges, nb2) + 8 * int(nedges)
+def private_rows(mode, nedges, nb2):
+    """Rows of a thread's private histogram in the kernel: '1d' and
+    'angular' rows 0..nb1 (the overflow row is in registers), '2d' the
+    nb2 columns of the overflow row, 'projected' none."""
+    return {0: int(nedges), 1: int(nb2), 2: 0}[MODES[mode]]
+
+
+def smem_bytes(mode, nedges, nb2, tab_len):
+    """Shared memory of one CTA of the kernel: the two staged tiles (32
+    bytes a candidate), the edges, the CTA's totals (16 bytes a bin), the
+    shared histogram ('2d', 'projected': 12 bytes a bin), the threads'
+    private rows (8 bytes a row a thread, their counts 4 bytes a row a
+    warp), the runs and the device bin table (``tab_len`` entries of 16
+    bytes, :func:`device_table`)."""
+    nbins = hist_bins(nedges, nb2)
+    b = 2 * PC_THREADS * 32 + 16 * int(tab_len) + 8 * int(nedges) \
+        + 16 * nbins
+    if MODES[mode] != 0:
+        b += 12 * nbins
+    b += private_rows(mode, nedges, nb2) * (8 * PC_THREADS
+                                            + 4 * (PC_THREADS // 32))
+    return b + 3 * 18 * 4
+
+
+def _bits(x):
+    return np.asarray(x, dtype='f8').view('i8')
+
+
+def bin_table(r2edges, cap=PC_TAB_MAX):
+    """The kernels' bucket table of increasing edges (``csrc/
+    grid_columns.cuh`` table_digitize): (tab, shift, base). A positive
+    double's bits order as its value, so bucket ``k = (bits(x) >> shift)
+    - base`` of x grows with x; ``base`` is the bucket of the smallest
+    positive edge, and ``tab[k]`` (int16) the number of edges <= the
+    bucket's least value. ``shift`` is the largest that leaves at most
+    one edge inside any bucket (a walk of one step: :func:`table_steps`),
+    within ``cap`` entries."""
+    e = np.asarray(r2edges, dtype='f8')
+    if len(e) >= 2 ** 15:
+        raise ValueError("at most 32767 edges")
+    posv = e[e > 0]
+    if len(posv) == 0 or posv[0] >= e[-1]:
+        # no bucket is ever looked up (x < the first positive edge)
+        return np.ones(1, dtype='i2'), 52, int(_bits(e[-1]) >> 52)
+    lo, top = _bits(posv[0]), _bits(e[-1])
+    best = None
+    for frac in range(-10, 53):
+        shift = 52 - frac
+        base = int(lo >> shift)
+        n = int(top >> shift) - base + 1
+        if n > cap:
+            break
+        starts = ((np.arange(n, dtype='i8') + base) << shift).view('f8')
+        best = (np.searchsorted(e, starts, side='right').astype('i2'), shift,
+                base)
+        if _inside(e, *best).max() <= 1:
+            break
+    return best
+
+
+def _inside(e, tab, shift, base):
+    """Per bucket of the table, the edges past its guess below the next
+    bucket."""
+    starts = ((np.arange(len(tab), dtype='i8') + int(base))
+              << int(shift)).view('f8')
+    nxt = np.append(starts[1:], np.inf)
+    return np.searchsorted(e, nxt, side='left') - np.asarray(tab, 'i8')
+
+
+def table_steps(r2edges, tab, shift, base):
+    """The most edges the kernels' walk passes after the table's guess:
+    inside a bucket, or below the first bucket (from 1, when e[0] is 0).
+    The kernels take one compare, no loop, where it is at most 1."""
+    e = np.asarray(r2edges, dtype='f8')
+    posv = e[e > 0]
+    below = int((e < posv[0]).sum()) - 1 if len(posv) else 0
+    return int(max(below, _inside(e, tab, shift, base).max(), 0))
+
+
+def device_table(r2edges, tab):
+    """The kernels' table (``csrc/grid_columns.cuh`` table_digitize): an
+    (len(tab) + 1, 4) int32 array, entry k + 1 the bucket's guess g and
+    e[g] (+inf past the last edge) as the two int32 halves of its f64,
+    entry 0 the guess 1 below the first bucket: one 16-byte load gives
+    the guess and the edge its one-step walk compares."""
+    e = np.append(np.asarray(r2edges, dtype='f8'), np.inf)
+    g = np.concatenate([[1], np.asarray(tab, dtype='i8')])
+    out = np.zeros((len(g), 4), dtype='i4')
+    out[:, 0] = g
+    out[:, 2:] = np.ascontiguousarray(e[g]).view('i4').reshape(-1, 2)
+    return out
+
+
+def table_digitize(e, tab, shift, base, x):
+    """A torch model of the kernels' lookup: np.digitize(x, e) for x in
+    [e[0], e[-1]) (f64 tensors; ``tab`` from :func:`bin_table`), the
+    walk up taken by every element until none moves."""
+    tab = torch.as_tensor(np.asarray(tab, dtype='i8'), device=x.device)
+    k = (x.view(torch.int64) >> int(shift)) - int(base)
+    g = torch.where(k < 0, torch.ones_like(k),
+                    tab[torch.clamp(k, 0, tab.numel() - 1)])
+    while True:
+        step = (e[g] <= x).to(torch.int64)
+        if not bool(step.any()):
+            return g
+        g = g + step
+
+
+def row_of(e, tab, shift, base, x):
+    """The kernels' row of x among the edges e: 0 below e[0], len(e) from
+    e[-1] on (and NaN), else :func:`table_digitize`."""
+    nb1 = e.numel() - 1
+    inside = (x >= e[0]) & (x < e[nb1])
+    xs = torch.where(inside, x, e[0])
+    g = table_digitize(e, tab, shift, base, xs)
+    return torch.where(inside, g, torch.where(x < e[0], 0, nb1 + 1))
+
+
+def query_items(flat, per):
+    """The items of the kernels (csrc/paircount.cu, csrc/threept_alm.cu):
+    runs of at most ``per`` consecutive queries with one cell id
+    ``flat``, as (items, max_items): ``items`` int32 of max_items + 2,
+    entry i the first query of item i, m past the last item (entry
+    max_items + 1 a scratch slot); ``max_items`` = m bounds their number
+    in any query order without a host sync. Queries in the grid's cell
+    order make ceil(m / per) full items and at most one partial item a
+    cell."""
+    m = int(flat.shape[0])
+    dev = flat.device
+    bound = max(m, 1)
+    items = torch.full((bound + 2,), m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return items, bound
+    q = torch.arange(m, dtype=torch.int64, device=dev)
+    new = torch.ones(m, dtype=torch.bool, device=dev)
+    new[1:] = flat[1:] != flat[:-1]
+    # each query's run of one cell id, and the run's first query
+    run = torch.cumsum(new.to(torch.int64), 0) - 1
+    start = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    start.scatter_(0, torch.where(new, run, m), q)
+    first = (q - start[run]) % int(per) == 0
+    idx = torch.cumsum(first.to(torch.int64), 0) - 1
+    items.scatter_(0, torch.where(first, idx, bound + 1), q.to(torch.int32))
+    items[bound + 1] = m
+    return items, bound
 
 
 def _check_mode(mode, nb2, pimax, los):
@@ -124,9 +274,10 @@ def paircount_hist_plain(grid, w2_s, p1, w1, live1, ci1, r2edges, mode,
     mu or pi bins; pimax : 'projected' only; los : axis or 'midpoint';
     origin : (3,) f64 added to the midpoint (the observer at the
     coordinate origin before the grid's shift); is_auto : drop every
-    pair with r2 == 0. Returns (npairs, wpairs), flat (nb1 + 2) * nb2
-    f64 tensors. Queries go :data:`PLAIN_CHUNK` at a time, slots
-    ``block`` at a time."""
+    pair with r2 == 0. Every query counts every candidate, as the JAX
+    fold does. Returns (npairs, wpairs), flat (nb1 + 2) * nb2 f64
+    tensors. Queries go :data:`PLAIN_CHUNK` at a time, slots ``block``
+    at a time."""
     _check_mode(mode, nb2, pimax, los)
     dev = p1.device
     e = torch.as_tensor(r2edges, dtype=torch.float64, device=dev)
@@ -147,13 +298,17 @@ def paircount_hist_plain(grid, w2_s, p1, w1, live1, ci1, r2edges, mode,
 
 # pos, w2, flat, cols; n2, key bytes; p1, w1, live, ci; n1; r2edges; nb1,
 # nb2, mode, los; origin; pimax; is_auto, periodic; dlo, dhi, ncell, box;
-# out_n, out_w; stream
+# out_n, out_w; items, max items; bin table, its length, shift, base and
+# steps; each pair once (:func:`each_pair_once`) and the flag that every
+# query is live; stream
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
             + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
             + [ctypes.c_void_p] + [ctypes.c_int] * 4
             + [ctypes.c_void_p, ctypes.c_double] + [ctypes.c_int] * 2
             + [ctypes.c_void_p] * 4 + [ctypes.c_void_p] * 2
-            + [ctypes.c_void_p])
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
 
 _fns = {}
 
@@ -168,18 +323,59 @@ def _fn():
     return _fns['hist']
 
 
-def launch_args(grid, w2_s, p1, w1, live1, ci1, e, mode, nb2, pimax, los,
-                origin, is_auto, out_n, out_w):
+_TABLES = {}
+
+
+def edges_and_table(r2edges, device):
+    """The squared edges on ``device`` (f64, contiguous) and their bin
+    table (:func:`device_table` of :func:`bin_table`, on the device), made
+    from a host copy (an array's own, no sync): (e, tab, shift, base,
+    steps). Kept for the edges and device last asked for, so that the
+    counts of one flow, which share their edges, copy them once."""
+    host = r2edges.cpu().numpy() if torch.is_tensor(r2edges) \
+        else np.asarray(r2edges, dtype='f8')
+    key = (str(device), host.tobytes())
+    if key not in _TABLES:
+        e = torch.as_tensor(host, dtype=torch.float64, device=device)
+        tab, shift, base = bin_table(host)
+        steps = table_steps(host, tab, shift, base)
+        dev_tab = torch.as_tensor(device_table(host, tab), device=device)
+        _TABLES.clear()
+        _TABLES[key] = (e.contiguous(), dev_tab, shift, base, steps)
+    return _TABLES[key]
+
+
+def each_pair_once(grid, w2_s, p1, w1, is_auto):
+    """Whether the kernel may count each pair once and double: an auto
+    count whose queries are the grid's own points (``p1`` is
+    ``grid.pos_s``, ``w1`` is ``w2_s``). It does so only if every query
+    is live too, which it reads from a flag made on the card
+    (:func:`launch_args`, no host sync): a dead query's pairs count once
+    in the plain version, from their other end, so then the kernel
+    visits every pair from both ends."""
+    return bool(is_auto) and p1.data_ptr() == grid.pos_s.data_ptr() \
+        and p1.shape == grid.pos_s.shape and p1.stride() == \
+        grid.pos_s.stride() and w1.data_ptr() == w2_s.data_ptr() \
+        and w1.shape == w2_s.shape
+
+
+def launch_args(grid, w2_s, p1, w1, live1, ci1, r2edges, mode, nb2, pimax,
+                los, origin, is_auto, out_n, out_w):
     """The arguments of ``nbk_paircount_hist`` (:data:`ARGTYPES`) for
-    checked tensors, the squared edges ``e`` on the device and int64 /
-    f64 outputs of :func:`hist_bins` zeros; the caller keeps every tensor
-    alive until the launch has run."""
+    checked tensors and int64 / f64 outputs of :func:`hist_bins` zeros,
+    and the tensors made here (the edges on the device, the items and the
+    bin table): (args, keep). The caller keeps every tensor alive until
+    the launch has run."""
     from .fof_cuda import axis_offsets
     dlo, dhi = axis_offsets(grid.offsets)
     ints = ctypes.c_int * 3
     dbls = ctypes.c_double * 3
     org = np.zeros(3) if origin is None else np.asarray(origin, 'f8')
-    return (
+    once = each_pair_once(grid, w2_s, p1, w1, is_auto)
+    all_live = live1.all().to(torch.uint8) if once else None
+    items, max_items = query_items(grid._flatten(ci1), PC_THREADS)
+    e, tab, shift, base, steps = edges_and_table(r2edges, p1.device)
+    args = (
         grid.pos_s.data_ptr(), w2_s.data_ptr(), grid.flat_s.data_ptr(),
         grid.columns().data_ptr(), grid.pos_s.shape[0],
         grid.flat_s.element_size(), p1.data_ptr(), w1.data_ptr(),
@@ -190,7 +386,11 @@ def launch_args(grid, w2_s, p1, w1, live1, ci1, e, mode, nb2, pimax, los,
         int(bool(grid.periodic)), ints(*dlo), ints(*dhi),
         ints(*[int(v) for v in grid.ncell_np]),
         dbls(*[float(v) for v in grid.box_np]), out_n.data_ptr(),
-        out_w.data_ptr(), torch.cuda.current_stream(p1.device).cuda_stream)
+        out_w.data_ptr(), items.data_ptr(), max_items, tab.data_ptr(),
+        tab.shape[0], shift, base, steps, int(once),
+        None if all_live is None else all_live.data_ptr(),
+        torch.cuda.current_stream(p1.device).cuda_stream)
+    return args, (e, items, tab, all_live)
 
 
 def paircount_hist_cuda(grid, w2_s, p1, w1, live1, ci1, r2edges, mode,
@@ -199,7 +399,10 @@ def paircount_hist_cuda(grid, w2_s, p1, w1, live1, ci1, r2edges, mode,
     """The histograms on the CUDA kernel (``paircount_kernel``): the
     contract of :func:`paircount_hist_plain`, ``npairs`` equal to it,
     ``wpairs`` up to the order of the f64 sums. All tensors contiguous
-    on one CUDA device, n < 2**31 on both sides."""
+    on one CUDA device, n < 2**31 on both sides; queries in the grid's
+    cell order fill the kernel's items. An auto count of the grid's own
+    points, every one live, counts each pair once and doubles
+    (:func:`each_pair_once`)."""
     from .._build import check
     from .fof_cuda import _check_cuda
     _check_mode(mode, nb2, pimax, los)
@@ -221,21 +424,19 @@ def paircount_hist_cuda(grid, w2_s, p1, w1, live1, ci1, r2edges, mode,
                             tuple(w2_s.shape)))
     if m >= 2 ** 31 or n2 >= 2 ** 31:
         raise ValueError("paircount_hist_cuda takes n < 2**31")
-    e = torch.as_tensor(r2edges, dtype=torch.float64,
-                        device=p1.device).contiguous()
-    if e.numel() < 2:
+    nedges = len(r2edges)
+    if nedges < 2:
         raise ValueError("at least two edges")
-    if smem_bytes(e.numel(), nb2) > SMEM_LIMIT:
-        raise ValueError("%d bins do not fit a CTA's shared memory"
-                         % hist_bins(e.numel(), nb2))
-    nbins = hist_bins(e.numel(), nb2)
+    nbins = hist_bins(nedges, nb2)
+    if smem_bytes(mode, nedges, nb2, PC_TAB_MAX + 1) > SMEM_LIMIT:
+        raise ValueError("%d bins do not fit a CTA's shared memory" % nbins)
     out_n = torch.zeros(nbins, dtype=torch.int64, device=p1.device)
     out_w = torch.zeros(nbins, dtype=torch.float64, device=p1.device)
     if m == 0 or n2 == 0:
         return out_n.double(), out_w
-    check('paircount', _fn()(*launch_args(
-        grid, w2_s, p1, w1, live1, ci1, e, mode, nb2, pimax, los, origin,
-        is_auto, out_n, out_w)))
+    args, keep = launch_args(grid, w2_s, p1, w1, live1, ci1, r2edges, mode,
+                             nb2, pimax, los, origin, is_auto, out_n, out_w)
+    check('paircount', _fn()(*args))
     paircount_hist_cuda.launches += 1
     return out_n.double(), out_w
 
@@ -256,21 +457,39 @@ def paircount_hist(grid, w2_s, p1, w1, live1, ci1, r2edges, mode, nb2=1,
                                nb2, pimax, los, origin, is_auto)
 
 
-def candidate_ops(mode, nedges, los, periodic):
-    """f64 operations of one candidate in the kernel: the difference,
-    the min-image tests (2 an axis when periodic), r2 (5), the mask,
-    the binary search over the edges, the mode's dlos, mu or rp2 and
-    bin (midpoint: 21 more), and the weight's product and sum."""
-    ops = 3 + 5 + 1 + int(np.ceil(np.log2(int(nedges) + 1))) + 2
-    if periodic:
-        ops += 6
+def candidate_ops(mode, los):
+    """f64 operations of one visited candidate, the least the count
+    needs: the difference (3), r2 (5), the compares at both ends of the
+    edges (2), the weight's sum (1); '2d' adds mu's sqrt, division,
+    product and its bin (4), 'projected' rp2 and its compares (5), the
+    midpoint line of sight 21 more. The minimum image adds nothing where
+    it leaves d as it is (csrc/grid_columns.cuh column_runs), and the
+    table's walk inside the edges is not counted. The products w1 w2 are
+    counted apart (:func:`weight_products`)."""
+    ops = 3 + 5 + 2 + 1
     if mode == '2d':
-        ops += 1 + 3
+        ops += 4
     elif mode == 'projected':
-        ops += 1 + 1 + 2 + int(np.ceil(np.log2(int(nedges) + 1)))
+        ops += 5
     if mode in ('2d', 'projected') and los == 'midpoint':
         ops += 21
     return ops
+
+
+def weight_products(visited, n1, nbins):
+    """The products w1 w2 a weighted count needs, the fewer of two ways:
+    one a visited candidate, or one a (query, bin) with the candidates'
+    w2 summed in each bin first (as the kernel's '1d' rows do)."""
+    return min(int(visited), int(n1) * int(nbins))
+
+
+def visited_candidates(candidates, n, once):
+    """The candidates the kernel visits: all of them, or where it counts
+    each pair once (:func:`each_pair_once`, an auto count of the grid's
+    own n points) (candidates - n) / 2 (the neighbour cells are symmetric
+    and every point is its own candidate once)."""
+    return (int(candidates) - int(n)) // 2 if once \
+        else int(candidates)
 
 
 def hist_bytes(n1, n2, key_bytes, ncols, nedges, nb2):

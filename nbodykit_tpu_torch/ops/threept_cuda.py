@@ -15,10 +15,11 @@ over the candidates ``j`` of its neighbour cells with ``r2 > 1e-20``,
 
 :func:`threept_alm_plain` is that body in torch on
 :meth:`.devicehash.DeviceGridHash.fold` (blocks of slots, an einsum a
-block); :func:`threept_alm_cuda` launches ``csrc/threept_alm.cu`` (one
-warp a query, its in-bin pairs queued and taken 32 at a time, a lane
-evaluating all the Y_lm of one pair). :func:`threept_alm` dispatches on
-the queries' device.
+block); :func:`threept_alm_cuda` launches ``csrc/threept_alm.cu`` (a CTA
+an item of queries of one cell, a warp a query, its in-bin pairs queued
+and taken 32 at a time, a lane evaluating all the Y_lm of one pair, the
+moments in the lanes' registers, added on the FP64 tensor cores).
+:func:`threept_alm` dispatches on the queries' device.
 """
 
 import ctypes
@@ -28,10 +29,14 @@ import numpy as np
 import torch
 
 # threads a CTA of the kernel (csrc/threept_alm.cu TA_THREADS, TA_WARPS),
-# a warp's queue of in-bin pairs and the pairs a batch takes (QCAP,
-# QBATCH)
+# queries an item (TA_ITEM), the bins a lane's register moments take
+# (TA_NB) and the largest ell of the register path (TA_LMAX), a warp's
+# queue of in-bin pairs and the pairs a batch takes (QCAP, QBATCH)
 TA_THREADS = 128
 TA_WARPS = TA_THREADS // 32
+TA_ITEM = 16
+TA_NB = 16
+TA_LMAX = 4
 QCAP, QBATCH = 64, 32
 SMEM_LIMIT = 232448
 PLAIN_BLOCK = 32
@@ -58,13 +63,25 @@ def lm_table(ells):
     return ls, ms, norms, wmms
 
 
-def smem_bytes(nbins, nlm, lmax):
-    """Shared memory of one CTA of the kernel: the edges, the norms, W_mm
-    and each l's first index, then every warp's queue (36 bytes a pair),
-    a batch's harmonics and the nlm x nbins f64 moments."""
-    warp = QCAP * 36 + QBATCH * int(nlm) * 8 + int(nlm) * int(nbins) * 8
-    return 8 * (int(nbins) + 1) + 8 * int(nlm) + 16 * (int(lmax) + 1) \
-        + TA_WARPS * warp
+def moments_in_registers(nbins, lmax):
+    """Whether the kernel keeps the moments in the lanes' registers (at
+    most TA_NB bins, and ell at most TA_LMAX: 25 harmonics over 32
+    lanes), else in shared memory."""
+    return int(nbins) <= TA_NB and int(lmax) <= TA_LMAX
+
+
+def smem_bytes(nbins, nlm, lmax, tab_len):
+    """Shared memory of one CTA of the kernel: the device bin table (16
+    bytes an entry), the edges, the norms, W_mm, 1 / k and each l's first
+    index and the runs (rounded to 16 bytes), then every warp's queue (36
+    bytes a pair), a batch's harmonics and, for moments not in
+    registers, the nlm x nbins f64 moments."""
+    head = 16 * int(tab_len) + 8 * (int(nbins) + 1) + 8 * int(nlm) \
+        + 24 * (int(lmax) + 1) + 3 * 18 * 4
+    warp = QCAP * 36 + QBATCH * int(nlm) * 8
+    if not moments_in_registers(nbins, lmax):
+        warp += int(nlm) * int(nbins) * 8
+    return -(-head // 16) * 16 + TA_WARPS * warp
 
 
 def threept_alm_plain(grid, w_s, p, live, ci, r2edges, ells,
@@ -102,6 +119,17 @@ def threept_alm_plain(grid, w_s, p, live, ci, r2edges, ells,
     return grid.fold(p, ci, body, alm, block=block)
 
 
+# pos, w, flat, cols; n2, key bytes; p, live, ci; m; r2edges; nbins; l,
+# m, norm, W_mm; nlm, lmax, periodic; dlo, dhi, ncell, box; out; items,
+# max items; bin table, its length, shift, base and steps; stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+            + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int]
+            + [ctypes.c_void_p])
+
 _fns = {}
 
 
@@ -109,27 +137,68 @@ def _fn():
     if 'alm' not in _fns:
         from .._build import load
         fn = load('threept_alm').nbk_threept_alm
-        # pos, w, flat, cols; n2, key bytes; p, live, ci; m; r2edges;
-        # nbins; l, m, norm, W_mm; nlm, lmax, periodic; dlo, dhi, ncell,
-        # box; out; stream
-        fn.argtypes = ([ctypes.c_void_p] * 4
-                       + [ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_void_p]
-                       + [ctypes.c_void_p])
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         _fns['alm'] = fn
     return _fns['alm']
 
 
+_LM = {}
+
+
+def device_lm_table(ells, device):
+    """:func:`lm_table` on ``device`` (int32 l and m, f64 norms and W_mm),
+    kept for the poles and device last asked for (a 3PCF's chunks share
+    them)."""
+    key = (str(device), tuple(sorted(ells)))
+    if key not in _LM:
+        ls, ms, norms, wmms = lm_table(ells)
+        _LM.clear()
+        _LM[key] = (torch.tensor(ls, dtype=torch.int32, device=device),
+                    torch.tensor(ms, dtype=torch.int32, device=device),
+                    torch.tensor(norms, dtype=torch.float64, device=device),
+                    torch.tensor(wmms, dtype=torch.float64, device=device))
+    return _LM[key]
+
+
+def launch_args(grid, w_s, p, live, ci, r2edges, ells, out):
+    """The arguments of ``nbk_threept_alm`` (:data:`ARGTYPES`) for checked
+    tensors and an (m, nlm, nbins) f64 output, and the tensors made here
+    (the edges on the device, the lm table, the items, the bin table),
+    which the caller keeps alive until the launch has run: (args,
+    keep)."""
+    from .fof_cuda import axis_offsets
+    from .paircount_cuda import edges_and_table, query_items
+    dev = p.device
+    ls = lm_table(ells)[0]
+    lm_l, lm_m, lm_norm, lm_wmm = device_lm_table(ells, dev)
+    items, max_items = query_items(grid._flatten(ci), TA_ITEM)
+    e, tab, shift, base, steps = edges_and_table(r2edges, dev)
+    dlo, dhi = axis_offsets(grid.offsets)
+    ints = ctypes.c_int * 3
+    args = (
+        grid.pos_s.data_ptr(), w_s.data_ptr(), grid.flat_s.data_ptr(),
+        grid.columns().data_ptr(), grid.pos_s.shape[0],
+        grid.flat_s.element_size(), p.data_ptr(), live.data_ptr(),
+        ci.data_ptr(), p.shape[0], e.data_ptr(), e.numel() - 1,
+        lm_l.data_ptr(), lm_m.data_ptr(), lm_norm.data_ptr(),
+        lm_wmm.data_ptr(), len(ls), max(ls), int(bool(grid.periodic)),
+        ints(*dlo), ints(*dhi), ints(*[int(v) for v in grid.ncell_np]),
+        (ctypes.c_double * 3)(*[float(v) for v in grid.box_np]),
+        out.data_ptr(), items.data_ptr(), max_items, tab.data_ptr(),
+        tab.shape[0], shift, base, steps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    return args, (e, lm_l, lm_m, lm_norm, lm_wmm, items, tab)
+
+
 def threept_alm_cuda(grid, w_s, p, live, ci, r2edges, ells):
     """The moments on the CUDA kernel (``threept_alm_kernel``): the
     contract of :func:`threept_alm_plain`, equal to it up to the order of
-    the f64 sums. All tensors contiguous on one CUDA device."""
+    the f64 sums. All tensors contiguous on one CUDA device; queries in
+    the grid's cell order fill the kernel's items."""
     from .._build import check
-    from .fof_cuda import _check_cuda, axis_offsets
+    from .fof_cuda import _check_cuda
+    from .paircount_cuda import PC_TAB_MAX
     cols = grid.columns()
     m = p.shape[0]
     n2 = grid.pos_s.shape[0]
@@ -147,35 +216,19 @@ def threept_alm_cuda(grid, w_s, p, live, ci, r2edges, ells):
                             tuple(ci.shape), tuple(w_s.shape)))
     if m >= 2 ** 31 or n2 >= 2 ** 31:
         raise ValueError("threept_alm_cuda takes n < 2**31")
-    e = torch.as_tensor(r2edges, dtype=torch.float64,
-                        device=p.device).contiguous()
-    nbins = e.numel() - 1
-    ls, ms, norms, wmms = lm_table(ells)
+    nbins = len(r2edges) - 1
+    ls = lm_table(ells)[0]
     nlm = len(ls)
     lmax = max(ls)
-    if nbins < 1 or smem_bytes(nbins, nlm, lmax) > SMEM_LIMIT:
+    if nbins < 1 or smem_bytes(nbins, nlm, lmax, PC_TAB_MAX + 1) \
+            > SMEM_LIMIT:
         raise ValueError("%d bins x %d harmonics do not fit a CTA's shared "
                          "memory" % (nbins, nlm))
     out = torch.empty((m, nlm, nbins), dtype=torch.float64, device=p.device)
     if m == 0:
         return out
-    dev = p.device
-    lm_l = torch.tensor(ls, dtype=torch.int32, device=dev)
-    lm_m = torch.tensor(ms, dtype=torch.int32, device=dev)
-    lm_norm = torch.tensor(norms, dtype=torch.float64, device=dev)
-    lm_wmm = torch.tensor(wmms, dtype=torch.float64, device=dev)
-    dlo, dhi = axis_offsets(grid.offsets)
-    ints = ctypes.c_int * 3
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check('threept_alm', _fn()(
-        grid.pos_s.data_ptr(), w_s.data_ptr(), grid.flat_s.data_ptr(),
-        cols.data_ptr(), n2, grid.flat_s.element_size(), p.data_ptr(),
-        live.data_ptr(), ci.data_ptr(), m, e.data_ptr(), nbins,
-        lm_l.data_ptr(), lm_m.data_ptr(), lm_norm.data_ptr(),
-        lm_wmm.data_ptr(), nlm, lmax, int(bool(grid.periodic)), ints(*dlo),
-        ints(*dhi), ints(*[int(v) for v in grid.ncell_np]),
-        (ctypes.c_double * 3)(*[float(v) for v in grid.box_np]),
-        out.data_ptr(), stream))
+    args, keep = launch_args(grid, w_s, p, live, ci, r2edges, ells, out)
+    check('threept_alm', _fn()(*args))
     threept_alm_cuda.launches += 1
     return out
 
@@ -194,18 +247,27 @@ def threept_alm(grid, w_s, p, live, ci, r2edges, ells):
 
 
 def ylm_ops(ells):
-    """f64 operations of one in-bin pair in the kernel: the unit vector
-    (a sqrt and 3 divisions); for each |m| up to the largest ell a power
-    of x + iy (6 past the first) and the recurrence in l (2, then 5 a
-    step); for every requested Y_lm its 2 products and the weighted sum
-    (2)."""
+    """f64 operations of one in-bin pair outside a matrix product, the
+    least it needs: the unit vector (a sqrt, one division and 3
+    products); for each |m| up to the largest ell a power of x + iy (6
+    past the first) and the recurrence in l (2, then 5 a step); for every
+    requested Y_lm its 2 products (norm, azimuthal factor). The weight's
+    product and the sum into the moments are :func:`ylm_mma_ops`."""
     ls, ms = lm_table(ells)[:2]
     lmax = max(ls)
-    ops = 4
+    ops = 5
     for m in range(lmax + 1):
         ops += 6 if m >= 2 else 0
         ops += sum(2 if ell == m + 1 else 5 for ell in range(m + 1, lmax + 1))
-    return ops + 4 * len(ls)
+    return ops + 2 * len(ls)
+
+
+def ylm_mma_ops(ells):
+    """f64 operations of one in-bin pair that a matrix product on the
+    FP64 tensor cores can do: each Y_lm times the weight and summed into
+    its moment, one fused multiply-add (2) a Y_lm (moments += Y^T (w
+    one-hot of the bin), the kernel's drain with the weight folded in)."""
+    return 2 * len(lm_table(ells)[0])
 
 
 def alm_bytes(m, n2, key_bytes, ncols, nbins, nlm):

@@ -248,42 +248,99 @@ def test_particle_kernels_match_their_sources():
     from nbodykit_tpu_torch.ops import paircount_cuda as pc
     from nbodykit_tpu_torch.ops import threept_cuda as tc
     assert _define('paircount.cu', 'PC_THREADS') == pc.PC_THREADS
+    assert _define('paircount.cu', 'PC_TAB_MAX') == pc.PC_TAB_MAX
     assert _define('threept_alm.cu', 'TA_THREADS') == tc.TA_THREADS
+    assert _define('threept_alm.cu', 'TA_ITEM') == tc.TA_ITEM
+    assert _define('threept_alm.cu', 'TA_NB') == tc.TA_NB
+    assert _define('threept_alm.cu', 'TA_LMAX') == tc.TA_LMAX
+    assert _define('threept_alm.cu', 'TA_TAB_MAX') == pc.PC_TAB_MAX
+    assert _define('grid_columns.cuh', 'GC_RUNS') == 18
     with open(os.path.join(CSRC, 'paircount.cu')) as f:
         src = f.read()
     assert 'enum { MODE_1D = 0, MODE_2D = 1, MODE_PROJECTED = 2 };' in src
     assert pc.MODES == {'1d': 0, 'angular': 0, '2d': 1, 'projected': 2}
-    # '1d' with 30 edges: 31 bins of 16 bytes and 30 edges of 8
-    assert pc.smem_bytes(30, 1) == 31 * 16 + 30 * 8
+    # '1d' with 30 edges: two tiles of 128 candidates (32 bytes each), a
+    # table of 158 entries (16 bytes), 30 edges, 31 bins of totals (16
+    # bytes), rows 0..29 private to each thread (8 bytes a row, the
+    # counts 4 bytes a row a warp) and 18 runs (3 ints): five CTAs an SM
+    assert pc.smem_bytes('1d', 30, 1, 158) == 2 * 128 * 32 + 158 * 16 \
+        + 30 * 8 + 31 * 16 + 30 * (128 * 8 + 4 * 4) + 18 * 12
+    assert 5 * (pc.smem_bytes('1d', 30, 1, 158) + 1024) <= 228 * 1024
+    # '2d' (31 x 10 bins): a shared histogram and the 10 columns of the
+    # overflow row private to each thread; 'projected' (22 x 60): the
+    # shared histogram, nothing private
+    assert pc.private_rows('2d', 30, 10) == 10
+    assert pc.private_rows('projected', 21, 60) == 0
+    assert pc.smem_bytes('2d', 30, 10, 158) == 2 * 128 * 32 + 158 * 16 \
+        + 30 * 8 + 310 * 16 + 310 * 12 + 10 * (128 * 8 + 4 * 4) + 18 * 12
+    assert pc.smem_bytes('projected', 21, 60, 28) == 2 * 128 * 32 \
+        + 28 * 16 + 21 * 8 + 1320 * 16 + 1320 * 12 + 18 * 12
     assert pc.hist_bins(21, 60) == 22 * 60
+    for mode, nedges, nb2 in (('1d', 30, 1), ('2d', 30, 10),
+                              ('projected', 21, 60), ('angular', 11, 1)):
+        assert pc.smem_bytes(mode, nedges, nb2, pc.PC_TAB_MAX + 1) \
+            <= pc.SMEM_LIMIT
     assert (_define('threept_alm.cu', 'QCAP'),
             _define('threept_alm.cu', 'QBATCH')) == (tc.QCAP, tc.QBATCH)
-    # poles 0-4 (25 harmonics, lmax 4), 13 bins: 4 warps, each a queue of
-    # 64 pairs, a batch's 32 x 25 harmonics and 25 x 13 moments
-    assert tc.smem_bytes(13, 25, 4) == 8 * 14 + 8 * 25 + 16 * 5 \
-        + 4 * (64 * 36 + 32 * 25 * 8 + 25 * 13 * 8)
-    assert tc.smem_bytes(13, 25, 4) < tc.SMEM_LIMIT
+    # poles 0-4 (25 harmonics, lmax 4), 13 bins: the moments in
+    # registers; the head (a table of 48 entries, edges, norms, W_mm,
+    # 1/k, l's first index, runs) rounded to 16, 4 warps of a queue of 64
+    # pairs and a batch's 32 x 25 harmonics
+    assert tc.moments_in_registers(13, 4)
+    head = 48 * 16 + 8 * 14 + 8 * 25 + 24 * 5 + 18 * 12
+    assert tc.smem_bytes(13, 25, 4, 48) == -(-head // 16) * 16 \
+        + 4 * (64 * 36 + 32 * 25 * 8)
+    # poles 0-6 (49 harmonics), pole 5 alone (11) and 17 bins: the
+    # moments in shared memory
+    assert not tc.moments_in_registers(13, 6)
+    assert not tc.moments_in_registers(13, 5)
+    assert not tc.moments_in_registers(17, 4)
+    head = 48 * 16 + 8 * 14 + 8 * 11 + 24 * 6 + 18 * 12
+    assert tc.smem_bytes(13, 11, 5, 48) == -(-head // 16) * 16 \
+        + 4 * (64 * 36 + 32 * 11 * 8 + 11 * 13 * 8)
+    assert tc.smem_bytes(13, 49, 6, 48) > tc.smem_bytes(13, 25, 4, 48)
+    assert tc.smem_bytes(13, 25, 4, pc.PC_TAB_MAX + 1) < tc.SMEM_LIMIT
 
 
 @pytest.mark.parametrize('mode,los,periodic,ops', [
-    ('1d', 2, True, 22), ('2d', 'midpoint', False, 41),
-    ('projected', 2, True, 31)])
+    ('1d', 2, True, 11), ('2d', 'midpoint', False, 36),
+    ('projected', 2, True, 16)])
 def test_candidate_ops(mode, los, periodic, ops):
     from nbodykit_tpu_torch.ops.paircount_cuda import candidate_ops
-    assert candidate_ops(mode, 30, los, periodic) == ops
+    # the minimum image costs nothing where it leaves d as it is
+    assert candidate_ops(mode, los) == ops
+
+
+def test_weight_products():
+    from nbodykit_tpu_torch.ops.paircount_cuda import weight_products
+    # one product a candidate, or one a (query, bin) with w2 summed first
+    assert weight_products(4500, 1000, 31) == 4500
+    assert weight_products(6.6e9, 10 ** 6, 31) == 31 * 10 ** 6
+
+
+def test_visited_candidates():
+    from nbodykit_tpu_torch.ops.paircount_cuda import visited_candidates
+    # every point is its own candidate once; the rest are pairs seen
+    # from both ends
+    assert visited_candidates(1000 + 2 * 4500, 1000, True) == 4500
+    assert visited_candidates(7000, 1000, False) == 7000
 
 
 def test_ylm_ops_and_bytes():
     from nbodykit_tpu_torch.ops import paircount_cuda as pc
     from nbodykit_tpu_torch.ops import threept_cuda as tc
-    # ell 0: the unit vector (4) and one Y_00 (its product, sum: 4)
-    assert tc.ylm_ops([0]) == 8
-    # ell 1: the recurrence's first step (2), 3 harmonics of 4 each, the
-    # unit vector (4)
-    assert tc.ylm_ops([1]) == 4 + 2 + 12
+    # ell 0: the unit vector (5) and one Y_00 (norm and azimuthal
+    # products: 2); its weight product and sum on the tensor cores (2)
+    assert tc.ylm_ops([0]) == 7
+    assert tc.ylm_mma_ops([0]) == 2
+    # ell 1: the recurrence's first step (2), 3 harmonics of 2 each, the
+    # unit vector (5)
+    assert tc.ylm_ops([1]) == 5 + 2 + 6
+    assert tc.ylm_mma_ops([1]) == 6
     # poles 0-4: m = 0 steps 2 + 5 * 3, m = 1 2 + 5 * 2, m = 2 6 + 2 + 5,
     # m = 3 6 + 2, m = 4 6; 25 harmonics
-    assert tc.ylm_ops([0, 1, 2, 3, 4]) == 4 + 17 + 12 + 13 + 8 + 6 + 100
+    assert tc.ylm_ops([0, 1, 2, 3, 4]) == 5 + 17 + 12 + 13 + 8 + 6 + 50
+    assert tc.ylm_mma_ops([0, 1, 2, 3, 4]) == 50
     assert tc.alm_bytes(10, 20, 4, 5, 3, 4) == 10 * (37 + 96) + 20 * 36 \
         + 20 + 32
     assert pc.hist_bytes(10, 20, 8, 5, 4, 2) == 450 + 800 + 20 + 32 + 160

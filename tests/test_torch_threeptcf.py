@@ -186,13 +186,15 @@ def test_ylm_cache_matches_jax():
 
 
 def kernel_ylm(ell, m, norm, wmm, x, y, z):
-    """The kernel's real_ylm (csrc/threept_alm.cu) in Python floats."""
+    """The kernel's all_ylm (csrc/threept_alm.cu) for one Y_lm in Python
+    floats: the recurrence multiplies by 1 / (l - m)."""
     ma = abs(m)
     W = wmm
     if ell > ma:
         Wp, W = W, z * (2 * ma + 1) * wmm
         for ll in range(ma + 2, ell + 1):
-            Wp, W = W, ((2 * ll - 1) * z * W - (ll + ma - 1) * Wp) / (ll - ma)
+            Wp, W = W, ((2 * ll - 1) * z * W - (ll + ma - 1) * Wp) \
+                * (1.0 / (ll - ma))
     if ma == 0:
         return norm * W * 1.0
     re, im = x, y

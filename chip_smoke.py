@@ -11,7 +11,13 @@ drives ten paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
-  multipoles; then FFTCorr and ProjectedFFTPower once on its mesh;
+  multipoles; then FFTCorr and ProjectedFFTPower once on its mesh; then
+  the other paint families on it (``paint_families``: sort, segsum by
+  radix and by argsort, streams with 4 replicas; each field against the
+  scatter field, FFTPower's gates, times, peaks and stages; the rank
+  pass at the segsum paint's 2^27-cell alphabet) and bf16 storage
+  (``mesh_bf16``: FFTPower at ``mesh_dtype='bf16'`` against the f8 run,
+  mass, the peaks of paint + r2c at 1024^3 in f4 and bf16);
 - the lognormal path, the repo's FFTPower benchmark flow
   (``benchmarks/test_fftpower.py`` at its ``desi_like`` scale):
   LogNormalCatalog(LinearPower(Planck15, 0.55, 'EisensteinHu'),
@@ -72,9 +78,11 @@ drives ten paths through the user entry points:
 - the forward path (last): ForwardModel(128, 128^3, BoxSize=1000,
   pm_steps=2, delta_rms=0.36, dtype='f8') (the grad-mode paint demoted
   from mxu to scatter), the density's and one value-and-gradient's
-  times, 40 Adam steps (lr 0.01) from the linear start beating
-  FFTRecon on mean_cross_correlation, and the loss's directional
-  derivative against central differences (eps 1e-6) at 32^3;
+  times, one value and gradient with each custom-VJP paint (sort,
+  segsum, streams) against scatter's, 40 Adam steps (lr 0.01) from the
+  linear start beating FFTRecon on mean_cross_correlation, and the
+  loss's directional derivative against central differences (eps 1e-6)
+  at 32^3;
 
 and LinearMesh at the same scale against its exact expectation. Every
 check is an ``assert`` or a raise, so any failure exits non-zero.
@@ -576,8 +584,24 @@ def main_path(cat, nmesh):
     # the result: finite, the expected shape, and flat shot noise
     shot = r.attrs['shotnoise']
     P = r.power['power'].real
-    modes = r.power['modes']
     assert P.shape == (len(edges[0]) - 1, 5), P.shape
+    ratio = pole_ratios(r, nmesh, cat)
+    emit({'phase': 'main_path', 'nmesh': nmesh, 'npart': len(cat),
+          'launches': launches, 'wall_s': wall_s, 'reps': REPS,
+          'phases_ms': phases, 'field_mean': mean,
+          'mxu_vs_scatter_max_abs': diff, 'shotnoise': shot,
+          'P_over_shot_mean_k_lt_half_nyq': ratio,
+          'nbins_k': int(P.shape[0])})
+    return launches, run
+
+
+def pole_ratios(r, nmesh, cat):
+    """The main path's gates on an FFTPower of the uniform catalog
+    (mode '2d', poles 0, 2, 4): finite power, and the mode-weighted
+    P0 / shot noise within 0.02 of 1 below k_Nyquist / 2, P2 and P4
+    within 0.02 of 0. Returns the three ratios."""
+    shot = r.attrs['shotnoise']
+    P, modes = r.power['power'].real, r.power['modes']
     assert np.isfinite(P[modes > 0]).all()
     knyq = np.pi * nmesh / float(cat.attrs['BoxSize'][0])
     poles = r.poles
@@ -589,13 +613,7 @@ def main_path(cat, nmesh):
     # P2, P4 of a Poisson sample vanish in expectation; the mode-weighted
     # means over ~1e6 modes scatter by ~1e-3 of the shot noise
     assert abs(ratio[2]) < 0.02 and abs(ratio[4]) < 0.02, ratio
-    emit({'phase': 'main_path', 'nmesh': nmesh, 'npart': len(cat),
-          'launches': launches, 'wall_s': wall_s, 'reps': REPS,
-          'phases_ms': phases, 'field_mean': mean,
-          'mxu_vs_scatter_max_abs': diff, 'shotnoise': shot,
-          'P_over_shot_mean_k_lt_half_nyq': ratio,
-          'nbins_k': int(P.shape[0])})
-    return launches, run
+    return ratio
 
 
 def paint_breakdown(cat, nmesh):
@@ -619,6 +637,266 @@ def paint_breakdown(cat, nmesh):
     emit({'phase': 'paint_breakdown', 'reps': REPS,
           'bucket_and_gather_ms': bucket, 'deposit_ms': dep,
           'fold_ms': fold})
+
+
+# the paint families of the main path's mesh, each a set of options
+PAINT_FAMILIES = (
+    ('sort', dict(paint_method='sort')),
+    ('segsum_radix', dict(paint_method='segsum', paint_order='radix')),
+    ('segsum_argsort', dict(paint_method='segsum', paint_order='argsort')),
+    ('streams_4', dict(paint_method='streams', paint_streams=4)),
+)
+# a family's field against the scatter field, as the mxu paint's in
+# main_path: 1e-5 of the field's largest cell (f32 sums in other orders)
+FAMILY_RTOL = 1e-5
+# the timed stages of the families (ops/paint.py ``utils.stage`` names)
+FAMILY_STAGES = ('paint_order', 'paint_streams', 'paint_runs',
+                 'paint_scatter', 'paint_deposit', 'paint_merge')
+
+
+def stage_bounds(n, M, s3, runs, k, pos_bytes):
+    """The bytes each family stage must move at least (each input read
+    once, each output written once), f32 weights and mesh, int64 keys:
+    the order (positions in, the permutation out), the sorted streams
+    (positions, mass and order in; keys, s^3 weight streams and two run
+    masks out), the run sums (streams and keys in, s^3 totals a run
+    out), the scatter (totals and run keys in, the mesh out), the
+    streams deposit (positions and mass in, k replicas out) and merge
+    (k replicas in, the mesh out)."""
+    return {'paint_order': 3 * n * pos_bytes + 8 * n,
+            'paint_streams': 3 * n * pos_bytes + 4 * n + 8 * n + 8 * n
+            + 4 * s3 * n + 2 * n,
+            'paint_runs': 4 * s3 * n + 8 * n + 4 * s3 * runs,
+            'paint_scatter': 4 * s3 * runs + 8 * runs + 4 * M,
+            'paint_deposit': 3 * n * pos_bytes + 4 * n + 4 * k * M,
+            'paint_merge': 4 * k * M + 4 * M}
+
+
+def base_keys(cat, nmesh):
+    """The CIC base-cell keys of the catalog on the nmesh^3 mesh (int64,
+    in [0, nmesh^3)), as ``ops.paint._one_sort_streams`` forms them."""
+    from nbodykit_tpu_torch.ops.paint import _axis_terms
+    pos = cat['Position'] * (nmesh / float(cat.attrs['BoxSize'][0]))
+    idx = [_axis_terms(pos[:, d], 'cic', nmesh)[0][:, 0] for d in range(3)]
+    return (idx[0] * nmesh + idx[1]) * nmesh + idx[2]
+
+
+def paint_families(cat, nmesh):
+    """The sort, segsum (radix and argsort) and streams (k = 4) paints
+    through the main path's entry points (``set_options`` around
+    ``to_real_field`` and FFTPower): each field against the scatter
+    field, FFTPower's gates, REPS paints timed, the peak of a paint,
+    its stages (``utils.stage_timer``) beside their byte bounds, and the
+    launches of one paint and one FFTPower each (segsum with radix must
+    launch the rank pass >= 3 times: 3 passes of base 512 over the
+    2^27 cells)."""
+    from nbodykit_tpu_torch import set_options, utils
+    from nbodykit_tpu_torch.algorithms.fftpower import FFTPower
+    from nbodykit_tpu_torch.ops.radix import digit_plan
+    mesh = cat.to_mesh(Nmesh=nmesh, resampler='cic', compensated=True)
+    with set_options(paint_method='scatter'):
+        ref = mesh.to_real_field().value
+    fmax = float(ref.abs().max())
+    keys = base_keys(cat, nmesh)
+    _, counts = torch.unique(keys, return_counts=True)
+    runs, longest = int(counts.numel()), int(counts.max())
+    del counts
+    n, M = len(cat), nmesh ** 3
+    pos_bytes = cat['Position'].element_size()
+    bytes_by_stage = stage_bounds(n, M, 8, runs, 4, pos_bytes)
+    out, all_launches = {}, {}
+    for label, opts in PAINT_FAMILIES:
+        with set_options(**opts):
+            with counted_launches() as launches:
+                field = mesh.to_real_field().value
+                r = FFTPower(mesh, mode='2d', Nmu=5, poles=[0, 2, 4])
+            for k, v in launches.items():
+                all_launches[k] = all_launches.get(k, 0) + v
+            diff = float((field - ref).abs().max())
+            assert diff <= FAMILY_RTOL * fmax, \
+                "%s paint vs index_add_ paint: %g > %g * %g" % (
+                    label, diff, FAMILY_RTOL, fmax)
+            assert launches['paint_deposit'] == 0, (label, launches)
+            if label == 'segsum_radix':
+                # a paint and FFTPower's paint, each digit_plan's passes
+                assert launches['radix_rank'] >= \
+                    2 * digit_plan(nmesh ** 3)[0], launches
+            else:
+                assert launches['radix_rank'] == 0, (label, launches)
+            del field
+            ratio = pole_ratios(r, nmesh, cat)
+            del r
+            _, t = spread(lambda: mesh.to_real_field(), REPS)
+            torch.cuda.synchronize()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            _, _, peak = peak_of(lambda: mesh.to_real_field())
+            times = StageTimes()
+            utils.stage_timer = times
+            try:
+                for _ in range(REPS):
+                    mesh.to_real_field()
+            finally:
+                utils.stage_timer = None
+        stages = {}
+        for name in FAMILY_STAGES:
+            if name not in times.ms:
+                continue
+            ms = float(np.median(times.ms[name]))
+            b_ms, _ = bound(bytes_by_stage[name], 0, F32_FLOPS)
+            stages[name] = {'ms': ms, 'min': min(times.ms[name]),
+                            'max': max(times.ms[name]),
+                            'bound_ms': b_ms,
+                            'bytes': bytes_by_stage[name],
+                            'share': b_ms / ms}
+        out[label] = dict(paint_ms=t, vs_scatter_max_abs=diff,
+                          P_over_shot_mean_k_lt_half_nyq=ratio,
+                          peak_gb=peak, resident_gb=base_gb,
+                          launches=launches, stages=stages)
+        emit({'phase': 'paint_family', 'family': label, 'nmesh': nmesh,
+              'npart': n, **out[label]})
+    emit({'phase': 'paint_families', 'nmesh': nmesh, 'npart': n,
+          'base_cells_occupied': runs, 'longest_run': longest,
+          'sort_doubling_passes': max(1, int(np.ceil(np.log2(longest)))),
+          'rtol_vs_scatter': FAMILY_RTOL, 'scatter_fmax': fmax,
+          'paint_ms_median': {k: v['paint_ms']['median']
+                              for k, v in out.items()},
+          'mxu_paint_for_comparison': 'main_path.phases_ms.paint_mxu'})
+    return all_launches, keys
+
+
+def segsum_rank_row(keys, nmesh):
+    """The rank pass at the segsum paint's shape: the first LSD digit
+    (base 512) of the base-cell keys, n ~ 1e7. The kernel against its
+    plain version (exact), the kernel's time a pass, the byte bound,
+    the plain version's and ``torch.argsort``'s times; then the whole
+    ``order_keys`` with radix (3 passes) and with argsort over the 2^27
+    cells, their orders equal."""
+    from nbodykit_tpu_torch.ops.radix import digit_plan, order_keys
+    from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
+                                                   pass_rank_hist_plain,
+                                                   rank_pass_launch,
+                                                   rank_plan,
+                                                   raise_on_bad_digits)
+    D_all = nmesh ** 3
+    npasses, D = digit_plan(D_all)
+    n = keys.shape[0]
+    d = torch.remainder(keys, D).to(torch.int32).contiguous()
+    rank, hist = pass_rank_hist_cuda(d, D)
+    raise_on_bad_digits(d.device)
+    (prank, phist), plain_ms = timed(lambda: pass_rank_hist_plain(d, D))
+    assert torch.equal(rank, prank) and torch.equal(hist, phist)
+    del prank, phist
+    rk = torch.empty_like(d)
+    hs = torch.empty(D, dtype=torch.int32, device='cuda')
+    scratch = torch.empty(rank_plan(n, D)['scratch_words'],
+                          dtype=torch.int64, device='cuda')
+    ms = cuda_ms(lambda: rank_pass_launch(d, D, rk, hs, scratch), reps=20)
+    lib_ms = cuda_ms(lambda: torch.argsort(d, stable=True), reps=10)
+    b_ms, b_by = bound(n * 4 + n * 4 + D * 4, 0, F32_FLOPS)
+    o_radix, radix_ms = spread(lambda: order_keys(keys, D_all, 'radix'),
+                               REPS)
+    o_arg, argsort_ms = spread(lambda: order_keys(keys, D_all, 'argsort'),
+                               REPS)
+    assert torch.equal(o_radix, o_arg)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, share_of_bound=b_ms / ms, max_abs_err=0,
+               at='segsum paint: n=%d D=%d (pass 1 of %d over %d cells)'
+               % (n, D, npasses, D_all))
+    emit({'phase': 'segsum_rank', **row,
+          'order_keys_radix_ms': radix_ms,
+          'order_keys_argsort_ms': argsort_ms})
+    return row
+
+
+# the bf16 posture: tests/test_precision.py's incommensurate 1d edges
+# in units of the fundamental, its budget to k_Nyquist / 2, and the
+# mesh of the peak comparison
+BF16_KMIN, BF16_DK, BF16_BUDGET = 0.31, 2.6718, 2e-2
+BF16_MASS_RTOL = 5e-3
+BF16_PEAK_NMESH = 1024
+
+
+def paint_r2c_peak(pos, nmesh, box, dtype):
+    """(paint GB, paint + r2c GB, real field GB, complex field GB, ms):
+    the peak allocated above what was resident, over one paint (the
+    default method) and its r2c on an nmesh^3 mesh of ``dtype``."""
+    from nbodykit_tpu_torch.pmesh import ParticleMesh
+    pm = ParticleMesh(nmesh, box, dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    field, paint_ms = timed(lambda: pm.paint(pos))
+    paint_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    cplx = pm.r2c(field)
+    torch.cuda.synchronize()
+    both_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    out = (paint_gb, both_gb, field.numel() * field.element_size() / 1e9,
+           cplx.numel() * cplx.element_size() / 1e9, paint_ms,
+           str(field.dtype))
+    del field, cplx
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_bf16(cat, nmesh):
+    """bf16 mesh storage on the main path's catalog: FFTPower (1d,
+    tests/test_precision.py's edges) with ``mesh_dtype='bf16'`` against
+    the default (f8) run, identical modes and the scale-relative error
+    under 2e-2 to k_Nyquist / 2; mass conservation of the bf16 paint
+    (mxu, the default, and streams with bf16 replicas); the peaks of a
+    paint and its r2c at 1024^3, f4 against bf16."""
+    from nbodykit_tpu_torch import set_options
+    from nbodykit_tpu_torch.algorithms.fftpower import FFTPower
+    from nbodykit_tpu_torch.pmesh import ParticleMesh
+    box = float(cat.attrs['BoxSize'][0])
+    kf = 2 * np.pi / box
+    knyq = np.pi * nmesh / box
+
+    def power(dtype):
+        with set_options(mesh_dtype=dtype):
+            r = FFTPower(cat, mode='1d', Nmesh=nmesh, kmin=BF16_KMIN * kf,
+                         dk=BF16_DK * kf)
+        return (np.asarray(r.power['k'], 'f8'),
+                np.asarray(r.power['power'].real, 'f8'),
+                np.asarray(r.power['modes'], 'f8'))
+
+    with counted_launches() as launches:
+        (k0, p0, m0), full_ms = timed(lambda: power('f4'))
+        (k, p, m), bf16_ms = timed(lambda: power('bf16'))
+    assert launches['paint_deposit'] >= 2, launches
+    assert np.array_equal(m, m0), "bf16 flipped a mode's bin"
+    sel = (m0 > 0) & np.isfinite(p0) & (k0 <= 0.5 * knyq)
+    scale = np.abs(p0[sel]).mean()
+    err = float((np.abs(p[sel] - p0[sel]) / scale).max())
+    assert err < BF16_BUDGET, "bf16 P(k) err %.3e" % err
+
+    pm = ParticleMesh(nmesh, box, dtype='bf16')
+    pos = cat['Position']
+    mass = {}
+    for method in ('mxu', 'streams'):
+        with set_options(paint_method=method):
+            field = pm.paint(pos)
+        assert field.dtype is torch.bfloat16
+        total = float(field.double().sum())
+        mass[method] = total / len(cat) - 1
+        assert abs(mass[method]) < BF16_MASS_RTOL, (method, total)
+        del field
+    peaks = {}
+    for dtype in ('f4', 'bf16'):
+        paint_gb, both_gb, real_gb, cplx_gb, ms, got = paint_r2c_peak(
+            pos, BF16_PEAK_NMESH, box, dtype)
+        peaks[dtype] = dict(paint_peak_gb=paint_gb,
+                            paint_r2c_peak_gb=both_gb, real_field_gb=real_gb,
+                            complex_field_gb=cplx_gb, paint_ms=ms,
+                            field_dtype=got)
+    emit({'phase': 'mesh_bf16', 'nmesh': nmesh, 'npart': len(cat),
+          'modes_identical': True, 'pk_max_rel_err_k_lt_half_nyq': err,
+          'budget': BF16_BUDGET, 'bins': int(sel.sum()),
+          'fftpower_f8_ms': full_ms, 'fftpower_bf16_ms': bf16_ms,
+          'mass_rel_err': mass, 'mass_rtol': BF16_MASS_RTOL,
+          'peaks_%d' % BF16_PEAK_NMESH: peaks, 'launches': launches})
+    return launches
 
 
 def _device_us(evt):
@@ -3352,11 +3630,55 @@ def forward_fd_check(nmesh=FD_NMESH):
                 rtol=FD_RTOL)
 
 
+# the custom-VJP paints against the scatter (native autograd) gradient
+# at the linear start, f8: the same analytic adjoint, summed in other
+# (atomic) orders
+FW_VJP_RTOL = 1e-9
+
+
+def custom_vjp_checks(nmesh, obs, w0, ref_val, ref_grad):
+    """One value and gradient of the loss at the displaced latent ``w0``
+    with each paint JAX wraps in ``jax.custom_vjp`` (sort, segsum,
+    streams; ``PaintAdjoint`` here), against the scatter model's, with
+    its times (one warm-up, then LN_REPS calls) and launches."""
+    from nbodykit_tpu_torch import set_options
+    from nbodykit_tpu_torch.forward import ForwardModel, make_loss
+    out = {}
+    with counted_launches() as launches:
+        for method in ('sort', 'segsum', 'streams'):
+            with set_options(paint_method=method):
+                model = ForwardModel(nmesh, nmesh ** 3, BoxSize=1000.0,
+                                     pm_steps=FW_STEPS,
+                                     delta_rms=FW_DELTA_RMS, dtype='f8')
+            cfg = model.paint_cfg
+            assert (cfg['paint_method'], cfg['adjoint_mode']) == \
+                (method, 'custom_vjp'), cfg
+            loss = make_loss(model, obs, noise_std=FW_NOISE)
+
+            def value_and_grad():
+                x = w0.clone().requires_grad_(True)
+                val = loss(x)
+                return val.detach(), torch.autograd.grad(val, x)[0]
+            (val, g), t = spread(value_and_grad, LN_REPS)
+            val_err = abs(float(val) - ref_val) / abs(ref_val)
+            grad_err = float((g - ref_grad).abs().max()
+                             / ref_grad.abs().max())
+            assert val_err <= FW_VJP_RTOL and grad_err <= FW_VJP_RTOL, \
+                (method, val_err, grad_err)
+            out[method] = dict(value_and_grad_ms=t, value_rel_err=val_err,
+                               grad_rel_err=grad_err)
+            del model, loss, g
+    # segsum orders with the radix sort on the card
+    assert launches['radix_rank'] >= 1, launches
+    return out, launches
+
+
 def forward_path(nmesh=FW_NMESH, steps=FW_ADAM_STEPS):
     """The forward path: the 128^3 model's truth, observation and
     linear start with every kernel's launches counted; the density's and
-    one value-and-gradient's times and peaks; 40 Adam steps against
-    FFTRecon on mean_cross_correlation; the FD check at 32^3."""
+    one value-and-gradient's times and peaks; the custom-VJP paints'
+    value and gradient against it; 40 Adam steps against FFTRecon on
+    mean_cross_correlation; the FD check at 32^3."""
     from nbodykit_tpu_torch.forward import (ForwardModel, fftrecon_baseline,
                                             linear_init, make_loss,
                                             mean_cross_correlation,
@@ -3404,7 +3726,11 @@ def forward_path(nmesh=FW_NMESH, steps=FW_ADAM_STEPS):
         with torch.no_grad():
             return model.density(truth)
     _, dens, dens_peak = peak_of(density)
-    _, vg, vg_peak = peak_of(value_and_grad)
+    (ref_val, ref_grad), vg, vg_peak = peak_of(value_and_grad)
+    vjp, vjp_launches = custom_vjp_checks(nmesh, obs, w0, float(ref_val),
+                                          ref_grad)
+    for k, v in vjp_launches.items():
+        launches[k] += v
     fd = forward_fd_check()
     emit({'phase': 'forward_128', 'nmesh': nmesh, 'npart': model.npart,
           'pm_steps': FW_STEPS, 'delta_rms': FW_DELTA_RMS,
@@ -3417,6 +3743,8 @@ def forward_path(nmesh=FW_NMESH, steps=FW_ADAM_STEPS):
           'loss_last': losses[-1], 'r_recovered': r_rec,
           'r_fftrecon': r_base, 'r_linear_start': r_start,
           'ms_per_adam_step': recover_ms / steps, 'fd_check': fd,
+          'custom_vjp': vjp, 'custom_vjp_rtol': FW_VJP_RTOL,
+          'custom_vjp_launches': vjp_launches,
           'path_s': time.perf_counter() - t0})
     return launches
 
@@ -3463,7 +3791,15 @@ def main():
     paint_breakdown(cat, nmesh)
     profile_main_path(run)
     other_fft_algorithms(cat, nmesh)
-    del cat, run
+    del run
+    torch.cuda.empty_cache()
+    # the other paint families and bf16 storage on the same catalog
+    pf_launches, keys = paint_families(cat, nmesh)
+    segsum_rank = segsum_rank_row(keys, nmesh)
+    del keys
+    torch.cuda.empty_cache()
+    bf_launches = mesh_bf16(cat, nmesh)
+    del cat
     torch.cuda.empty_cache()
 
     check_rng()
@@ -3512,12 +3848,14 @@ def main():
     emit({'phase': 'bispectrum_and_forward', 'seconds':
           time.perf_counter() - t0})
 
-    paths = ('main_512', 'lognormal_1024', 'class_1024', 'convpower_1024',
+    paths = ('main_512', 'paint_families_512', 'mesh_bf16_512',
+             'lognormal_1024', 'class_1024', 'convpower_1024',
              'fof_1024', 'fftrecon_512', 'io_1024', 'particles_boss',
              'bispectrum_256', 'forward_128')
 
     def counted(name):
-        by_path = dict(zip(paths, (launches[name], ln_launches[name],
+        by_path = dict(zip(paths, (launches[name], pf_launches[name],
+                                   bf_launches[name], ln_launches[name],
                                    cl_launches[name], cp_launches[name],
                                    fof_launches[name],
                                    rc_launches[name], io_launches[name],
@@ -3554,7 +3892,8 @@ def main():
              replaces='nbodykit_tpu/ops/radix_pallas.py:30',
              **counted('radix_rank'), **rank_rec,
              at_convpower_1024=cp_rank, at_fof_1024=fof_rank,
-             at_bispectrum_256=bs_kernels['rank']),
+             at_bispectrum_256=bs_kernels['rank'],
+             at_segsum_512=segsum_rank),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
              replaces='nbodykit_tpu/ops/paint_pallas.py:37',

@@ -12,13 +12,15 @@ quietly on the CPU.
 
 Hand-written Hopper kernels (``csrc/*.cu``, built by ``_build.py`` at
 first use) carry the mxu paint's tile deposit, the radix counting
-sort's rank pass and the threefry draws (JAX's values, so a seed gives
+sort's rank pass (also the segsum paint's ordering) and the threefry
+draws (JAX's values, so a seed gives
 the JAX package's catalog). A wrapper launches its kernel for a CUDA
 tensor and uses the kernel's plain PyTorch version only for a CPU
 tensor.
 """
 
 import logging
+import numbers
 import time
 from contextlib import contextmanager
 
@@ -27,14 +29,24 @@ __version__ = "0.1.0"
 _default_options = {
     # default resampler window
     'resampler': 'cic',
-    # local deposit kernel: 'scatter' (chunked index_add_), 'mxu'
-    # (tile-bucketed deposit; ops/paint.py) or 'auto': 'mxu' on a CUDA
-    # device, 'scatter' on the CPU
+    # local deposit kernel (ops/paint.py): 'scatter' (chunked
+    # index_add_), 'mxu' (tile-bucketed deposit), 'sort' (one sort,
+    # doubling run sums, unique scatter), 'segsum' (one sort, segment
+    # sums), 'streams' (replica-mesh scatter chains) or 'auto': 'mxu'
+    # on a CUDA device, 'scatter' on the CPU
     'paint_method': 'auto',
-    # stable ordering engine of the mxu bucketing: 'argsort', 'radix'
-    # (ops/radix.py) or 'auto': 'radix' on a CUDA device, 'argsort'
-    # on the CPU
+    # stable ordering engine of the mxu bucketing and the segsum paint:
+    # 'argsort', 'radix' (ops/radix.py) or 'auto': 'radix' on a CUDA
+    # device, 'argsort' on the CPU
     'paint_order': 'auto',
+    # replica meshes of the 'streams' paint (an int >= 1, clamped to
+    # the window's s^3 offsets) or 'auto': 4, the JAX package's value
+    # on a cold tune cache
+    'paint_streams': 'auto',
+    # dtype of the meshes to_mesh() and the FFT algorithms make from a
+    # catalog: 'f4', 'f8', 'bf16' (bfloat16 storage, f32 compute) or
+    # 'auto': 'f4', the JAX package's value on a cold tune cache
+    'mesh_dtype': 'f4',
     # bucket-capacity slack of the 'mxu' paint
     'paint_bucket_slack': 2.0,
     # particles per index_add_ pass of the 'scatter' paint
@@ -83,11 +95,28 @@ def option_scope(**overrides):
         _global_options.update(saved)
 
 
+# the values an option may take, where the port checks them
+_CHOICES = {
+    'paint_method': ('auto', 'scatter', 'mxu', 'sort', 'segsum', 'streams'),
+    'paint_order': ('auto', 'argsort', 'radix'),
+    'mesh_dtype': ('auto', 'f4', 'f8', 'bf16'),
+}
+
+
 def _check_keys(kwargs):
-    for key in kwargs:
+    for key, value in kwargs.items():
         if key not in _default_options:
             raise KeyError('invalid option: %r (valid: %s)'
                            % (key, sorted(_default_options)))
+        if key in _CHOICES and value not in _CHOICES[key]:
+            raise ValueError('invalid %s %r (choose %s)'
+                             % (key, value, '/'.join(_CHOICES[key])))
+        if key == 'paint_streams' and value != 'auto' and (
+                isinstance(value, bool)
+                or not isinstance(value, numbers.Integral)
+                or value < 1):
+            raise ValueError("invalid paint_streams %r (an int >= 1 or "
+                             "'auto')" % (value,))
 
 
 def resolve_device(device=None):
@@ -119,12 +148,24 @@ def resolve_device(device=None):
 # tune/resolve.py DIFFERENTIABLE_PAINT)
 DIFFERENTIABLE_PAINT = frozenset({'scatter'})
 
+# the replica meshes of paint_streams='auto' (the JAX tuner's cold
+# cache, tune/resolve.py FALLBACKS)
+DEFAULT_PAINT_STREAMS = 4
+
+
+def resolve_mesh_dtype():
+    """The ``mesh_dtype`` option as a concrete token: ``'auto'`` is
+    ``'f4'``, the JAX tuner's cold-cache answer."""
+    dtype = _global_options['mesh_dtype']
+    return 'f4' if dtype == 'auto' else dtype
+
 
 def resolve_paint(device, differentiable=False):
     """The effective paint configuration on ``device``: current options
     with every ``'auto'`` resolved (no tuner: ``mxu`` + ``radix`` on a
-    CUDA device, ``scatter`` + ``argsort`` on the CPU). ``source`` is
-    ``'default'`` when the method was ``'auto'``, else ``'explicit'``.
+    CUDA device, ``scatter`` + ``argsort`` on the CPU, 4 streams).
+    ``source`` is ``'default'`` when the method was ``'auto'``, else
+    ``'explicit'``.
 
     ``differentiable=True`` is the grad-mode resolution: a method
     outside :data:`DIFFERENTIABLE_PAINT` (the mxu deposit has no
@@ -139,10 +180,13 @@ def resolve_paint(device, differentiable=False):
     order = _global_options['paint_order']
     if order == 'auto':
         order = 'radix' if cuda else 'argsort'
+    streams = _global_options['paint_streams']
+    if streams == 'auto':
+        streams = DEFAULT_PAINT_STREAMS
     cfg = {'paint_method': method, 'paint_order': order,
            'paint_bucket_slack': _global_options['paint_bucket_slack'],
            'paint_chunk_size': _global_options['paint_chunk_size'],
-           'source': source}
+           'paint_streams': int(streams), 'source': source}
     if differentiable and method not in DIFFERENTIABLE_PAINT:
         cfg['winner_name'] = method
         cfg['paint_method'] = 'scatter'

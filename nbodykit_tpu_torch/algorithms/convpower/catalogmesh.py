@@ -75,7 +75,7 @@ class FKPCatalogMesh(MultipleSpeciesCatalogMesh):
         view['_TotalWeight'] = self.TotalWeight(species)
         return CatalogMesh(
             view, Nmesh=self.attrs['Nmesh'], BoxSize=self.attrs['BoxSize'],
-            dtype=self.pm.dtype.str, interlaced=self.interlaced,
+            dtype=self.pm.dtype, interlaced=self.interlaced,
             compensated=self.compensated, resampler=self.resampler,
             position='_RecenteredPosition', weight='_TotalWeight',
             value=self.value, selection=self.selection)

@@ -202,12 +202,17 @@ def project_to_basis(y3d, edges, los=[0, 0, 1], poles=[]):
 
 
 def _cast_source(source, BoxSize, Nmesh):
-    """Coerce the input to a MeshSource. A catalog is painted onto an f8
-    mesh with compensation, as the JAX package does with f64 enabled."""
+    """Coerce the input to a MeshSource. A catalog is painted with
+    compensation onto a mesh of the ``mesh_dtype`` option, except that
+    'f4' (the default) keeps the reference's 'f8' request, as the JAX
+    package does with f64 enabled; 'bf16' halves the mesh storage."""
+    from .. import resolve_mesh_dtype
     if isinstance(source, Field):
         source = FieldMesh(source)
     elif isinstance(source, CatalogSourceBase):
-        source = source.to_mesh(BoxSize=BoxSize, Nmesh=Nmesh, dtype='f8',
+        mdt = resolve_mesh_dtype()
+        source = source.to_mesh(BoxSize=BoxSize, Nmesh=Nmesh,
+                                dtype='f8' if mdt == 'f4' else mdt,
                                 compensated=True)
     if not isinstance(source, MeshSource):
         raise TypeError("unknown source type for FFT algorithm: %s"

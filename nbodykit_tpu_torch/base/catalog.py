@@ -175,11 +175,14 @@ class CatalogSourceBase(object):
                    size))
         return value
 
-    def to_mesh(self, Nmesh=None, BoxSize=None, dtype='f4',
+    def to_mesh(self, Nmesh=None, BoxSize=None, dtype=None,
                 interlaced=False, compensated=False, resampler='cic',
                 position='Position', weight='Weight', value='Value',
                 selection='Selection'):
-        """A CatalogMesh that paints this catalog on its device."""
+        """A CatalogMesh that paints this catalog on its device;
+        ``dtype=None`` takes the ``mesh_dtype`` option ('auto' is
+        'f4')."""
+        from .. import resolve_mesh_dtype
         from ..source.mesh.catalog import CatalogMesh
         if Nmesh is None:
             Nmesh = self.attrs.get('Nmesh', None)
@@ -191,6 +194,8 @@ class CatalogSourceBase(object):
             if BoxSize is None:
                 raise ValueError("cannot infer BoxSize; pass it to "
                                  "to_mesh or set attrs['BoxSize']")
+        if dtype is None:
+            dtype = resolve_mesh_dtype()
         return CatalogMesh(self, Nmesh=Nmesh, BoxSize=BoxSize, dtype=dtype,
                            interlaced=interlaced, compensated=compensated,
                            resampler=resampler, position=position,

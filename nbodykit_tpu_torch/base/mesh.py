@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..pmesh import ParticleMesh
-from ..utils import as_numpy
+from ..utils import BF16_BIGFILE_DTYPE, as_numpy, bf16_bits
 
 logger = logging.getLogger('MeshSource')
 
@@ -77,7 +77,8 @@ class Field(object):
 
     def preview(self, axes=None):
         """Project the (real) field onto ``axes`` by summing the others;
-        returns host numpy."""
+        returns host numpy (float32 for a bfloat16 field:
+        :func:`~nbodykit_tpu_torch.utils.as_numpy`)."""
         v = self.value
         if axes is None:
             return as_numpy(v)
@@ -231,14 +232,19 @@ class MeshSource(object):
         (:mod:`nbodykit_tpu_torch.io.bigfile`), flattened, with its
         shape in the ``ndarray.shape`` attr; ``mode='complex'`` writes
         the transposed (ky, kx, kz) layout that ``r2c`` gives here and
-        in the JAX package."""
+        in the JAX package. A bfloat16 field is written as the JAX
+        package writes it: its raw 16-bit patterns, DTYPE '<V2'."""
         from ..io.bigfile import BigFileWriter
         field = self.compute(mode=mode)
         with BigFileWriter(output, create=True) as ff:
             attrs = dict(self.attrs)
             attrs['ndarray.shape'] = np.asarray(field.shape)
-            ff.write(dataset, as_numpy(field.value).reshape(-1),
-                     attrs=attrs)
+            if field.value.dtype == torch.bfloat16:
+                ff.write(dataset, bf16_bits(field.value).reshape(-1),
+                         attrs=attrs, dtype_str=BF16_BIGFILE_DTYPE)
+            else:
+                ff.write(dataset, as_numpy(field.value).reshape(-1),
+                         attrs=attrs)
 
     def _resample(self, field, Nmesh):
         """Fourier-space resample to a new mesh size: mode truncation
@@ -289,7 +295,7 @@ class FieldMesh(MeshSource):
             pm = field.pm
             self.attrs = dict(field.attrs)
             MeshSource.__init__(self, pm.Nmesh, pm.BoxSize,
-                                dtype=pm.dtype.str, device=pm.device)
+                                dtype=pm.dtype, device=pm.device)
             self._field = field
         else:
             if BoxSize is None:
@@ -298,7 +304,8 @@ class FieldMesh(MeshSource):
             if field.is_complex():
                 raise ValueError("pass complex fields as Field objects "
                                  "(the layout is ambiguous)")
-            dtype = 'f8' if field.dtype == torch.float64 else 'f4'
+            dtype = {torch.float64: 'f8', torch.bfloat16: 'bf16'}.get(
+                field.dtype, 'f4')
             MeshSource.__init__(self, tuple(field.shape), BoxSize,
                                 dtype=dtype, device=field.device)
             self._field = Field(field, self.pm, 'real')

@@ -12,6 +12,7 @@ import torch
 
 from .base.mesh import Field
 from .source.catalog.array import ArrayCatalog
+from .utils import bf16_from_numpy
 
 
 def catalog_from_numpy(columns, BoxSize, device=None):
@@ -23,11 +24,22 @@ def catalog_from_numpy(columns, BoxSize, device=None):
                         device=device, BoxSize=box)
 
 
+def tensor_from_numpy(array):
+    """A CPU tensor of a numpy array. A JAX bfloat16 array (ml_dtypes,
+    recognised by ``dtype.name == 'bfloat16'``) crosses bit for bit as
+    ``torch.bfloat16``, through its 16-bit view."""
+    array = np.asarray(array)
+    if array.dtype.name == 'bfloat16':
+        return bf16_from_numpy(array)
+    return torch.as_tensor(np.ascontiguousarray(array))
+
+
 def field_from_numpy(array, pm, kind='real'):
     """A :class:`Field` on ``pm``'s device from a numpy array: a real
     (N0, N1, N2) field, or a complex field in the JAX package's
     transposed hermitian layout (N1, N0, N2//2+1), the layout of
-    ``pm.r2c`` here too."""
+    ``pm.r2c`` here too. A bf16 mesh takes a JAX bfloat16 array bit for
+    bit (:func:`tensor_from_numpy`)."""
     array = np.asarray(array)
     if kind == 'real':
         shape, dtype = pm.shape_real, pm.torch_dtype
@@ -38,8 +50,7 @@ def field_from_numpy(array, pm, kind='real'):
     if tuple(array.shape) != tuple(shape):
         raise ValueError("a %s field of this mesh has shape %s, got %s"
                          % (kind, shape, array.shape))
-    value = torch.as_tensor(np.ascontiguousarray(array)).to(
-        device=pm.device, dtype=dtype)
+    value = tensor_from_numpy(array).to(device=pm.device, dtype=dtype)
     return Field(value, pm, kind)
 
 
@@ -62,8 +73,7 @@ def _lattice_tensor(array, model, kind):
         raise ValueError("the %s state of this model has shape %s, got %s"
                          % (kind, shape, array.shape))
     dtype = lat.torch_dtype if kind == 'real' else lat.complex_dtype
-    return torch.as_tensor(np.array(array)).to(device=lat.device,
-                                               dtype=dtype)
+    return tensor_from_numpy(array).to(device=lat.device, dtype=dtype)
 
 
 def white_from_numpy(array, model):

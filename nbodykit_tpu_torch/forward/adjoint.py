@@ -10,7 +10,7 @@ forward:
   sort / segsum /  wrapped in :class:`PaintAdjoint`, a
   streams          ``torch.autograd.Function``: the kernel's forward,
                    the analytic readout backward (the JAX package's
-                   ``jax.custom_vjp``). The port has no such paint yet.
+                   ``jax.custom_vjp``; ``adjoint_mode='custom_vjp'``).
   mxu              the hand deposit has no backward: demoted to
                    ``scatter`` by ``resolve_paint(differentiable=True)``
                    (``source='grad-fallback'``, one warning).
@@ -62,7 +62,7 @@ class PaintAdjoint(torch.autograd.Function):
     def backward(ctx, cot):
         pos, mass = ctx.saved_tensors
         pm, resampler = ctx.pm, ctx.resampler
-        g = cot.to(pm.torch_dtype)
+        g = cot.to(pm.torch_compute_dtype)
         scale = np.asarray(pm.Nmesh, 'f8') / np.asarray(pm.BoxSize, 'f8')
         dmass = pm.readout(g, pos, resampler=resampler)
         dpos = torch.stack(
@@ -96,8 +96,9 @@ def make_paint(pm, npart, resampler='cic', method=None):
     else:
         cfg, mode = resolve_forward_paint(pm, npart)
     cfg = dict(cfg, adjoint_mode=mode)
-    opts = {k: cfg[k] for k in ('paint_method', 'paint_chunk_size')}
-    cdt = pm.torch_dtype
+    opts = {k: cfg[k] for k in ('paint_method', 'paint_chunk_size',
+                                'paint_streams')}
+    cdt = pm.torch_compute_dtype
 
     def _run(pos, mass):
         with option_scope(**opts):

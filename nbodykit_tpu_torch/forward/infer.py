@@ -97,7 +97,7 @@ def make_loss(model, obs, noise_std=0.1):
     """The negative log posterior over the real whitenoise leaf (module
     docstring); ``obs`` is an observed 1+delta field on ``model.pm``."""
     obs = torch.as_tensor(obs, device=model.device).to(
-        model.pm.torch_dtype)
+        model.pm.torch_compute_dtype)
     inv = 1.0 / float(noise_std)
 
     def loss(white):
@@ -119,7 +119,8 @@ def linear_init(model, obs):
                          'lattice must be the force mesh; got ng=%d '
                          'on nmesh=%d)' % (int(lat.Nmesh[0]),
                                            int(model.pm.Nmesh[0])))
-    obs = torch.as_tensor(obs, device=model.device).to(lat.torch_dtype)
+    obs = torch.as_tensor(obs, device=model.device).to(
+        lat.torch_compute_dtype)
     dk = lat.r2c(obs - 1.0)
     amp = model.amp
     inv = torch.where(amp > 0, 1.0 / (np.sqrt(lat.Ntot)

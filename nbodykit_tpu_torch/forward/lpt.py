@@ -87,8 +87,8 @@ def lpt_init(pm, delta_k, a=0.1, order=2, growth=None):
     x = q + D1 psi1 + D2 psi2, p = a^2 E(a) (f1 D1 psi1 + f2 D2 psi2).
     """
     psi1, psi2 = lpt_displacements(pm, delta_k, order=order)
-    cdt = pm.torch_dtype
-    q = pm.generate_uniform_particle_grid(shift=0.0, dtype=pm.dtype)
+    cdt = pm.torch_compute_dtype
+    q = pm.generate_uniform_particle_grid(shift=0.0, dtype=cdt)
     d1 = torch.stack([p.reshape(-1).to(cdt) for p in psi1], dim=-1)
     if growth is not None:
         af = float(a)

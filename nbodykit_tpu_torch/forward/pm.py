@@ -191,7 +191,7 @@ class ForwardModel:
     def white_guess(self):
         """The zero real whitenoise leaf inference starts from."""
         return torch.zeros(self.lattice.shape_real,
-                           dtype=self.lattice.torch_dtype,
+                           dtype=self.lattice.torch_compute_dtype,
                            device=self.device)
 
     def modes_from_white(self, white):
@@ -206,7 +206,7 @@ class ForwardModel:
         pm = self.pm
         rho = self.paint_fn(pos)
         nbar = self.npart / pm.Ntot
-        delta_k = pm.r2c(rho.to(pm.torch_dtype) / nbar - 1.0)
+        delta_k = pm.r2c(rho.to(pm.torch_compute_dtype) / nbar - 1.0)
         kv, inv = _k_inv_k2(pm)
         acc = [pm.readout(
             pm.c2r(1.5 * self.omega_m * 1j * kv[d] * inv * delta_k),
@@ -245,4 +245,5 @@ class ForwardModel:
         mesh, normalized to 1 + delta."""
         pos, _ = self.evolve(modes)
         rho = self.paint_fn(pos)
-        return rho.to(self.pm.torch_dtype) * (self.pm.Ntot / self.npart)
+        return rho.to(self.pm.torch_compute_dtype) \
+            * (self.pm.Ntot / self.npart)

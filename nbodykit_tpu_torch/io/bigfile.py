@@ -202,12 +202,15 @@ class BigFileWriter(object):
     def __exit__(self, *args):
         pass
 
-    def write(self, dataset, array, attrs=None, nfile=None):
+    def write(self, dataset, array, attrs=None, nfile=None,
+              dtype_str=None):
         """Write one column as a block. Arrays of ndim > 2 are stored
         flattened per row (NMEMB = prod of the item shape); callers
         persisting full meshes record the logical shape in an
         ``ndarray.shape`` attr (the reference's convention,
-        base/mesh.py:393-397)."""
+        base/mesh.py:393-397). ``dtype_str`` overrides the header's
+        DTYPE (a bfloat16 block: its raw bits under
+        ``utils.BF16_BIGFILE_DTYPE``)."""
         array = np.ascontiguousarray(array)
         if array.dtype.byteorder == '>':
             array = array.astype(array.dtype.newbyteorder('<'))
@@ -229,7 +232,7 @@ class BigFileWriter(object):
                 ff.write(raw.data)
             entries.append((i, hi - lo, _checksum(raw)))
         with open(os.path.join(bdir, _HEADER), 'w') as ff:
-            ff.write('DTYPE: %s\n' % _norm_dtype(array.dtype))
+            ff.write('DTYPE: %s\n' % (dtype_str or _norm_dtype(array.dtype)))
             ff.write('NMEMB: %d\n' % nmemb)
             ff.write('NFILE: %d\n' % nfile)
             for i, n, cks in entries:

@@ -5,11 +5,18 @@ Positions arrive in *cell units*. Indices wrap periodically modulo
 ``period`` (the global mesh size per axis) and are then offset into the
 local block (rows ``[origin, origin + n0l)`` of the period).
 
-Two paint kernels:
+The paint families (``paint_method``):
 
-- :func:`paint_local`: ``index_add_`` of the s^3 window terms, chunked
-  over particles.
-- :func:`paint_local_mxu`: particles bucketed by the (x-row-tile,
+- :func:`paint_local` ('scatter'): ``index_add_`` of the s^3 window
+  terms, chunked over particles.
+- :func:`paint_local_sorted` ('sort') and :func:`paint_local_segsum`
+  ('segsum'): one stable sort of the n base cells, the runs of equal
+  cells summed (doubling shift-adds, or one segment sum), one scatter
+  of unique indices per window offset; the segsum paint orders with the
+  radix sort on the card (``ops/radix.py``, the rank pass kernel).
+- :func:`paint_local_streams` ('streams'): the s^3 offset streams dealt
+  onto k replica meshes, optionally stored bfloat16.
+- :func:`paint_local_mxu` ('mxu'): particles bucketed by the (x-row-tile,
   y-col-tile) of their base cell, each bucket padded to a capacity
   ``Kcap``, every bucket deposited into a dense (M, N2) tile block
   (``ops/paint_cuda.py``: a CUDA kernel on the card, the one-hot
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 
 from .paint_cuda import deposit_blocks
 from .radix import order_keys
+from ..utils import is_narrow_float, stage, torch_dtype
 from .window import (window_base, window_support, window_weights,
                      window_weights_grad)
 
@@ -118,6 +126,269 @@ def readout_local(block, pos, resampler='cic', period=None, origin=0,
                                 grad_axis=grad_axis):
         vals = vals + flat[lin] * w.to(block.dtype)
     return vals
+
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _one_sort_streams(pos, mass, shape, resampler, period, origin,
+                      dtype, order_method='argsort'):
+    """Shared preamble of :func:`paint_local_sorted` and
+    :func:`paint_local_segsum`: ONE stable ordering of the n base cells.
+    For every window offset (a, b, c) the un-wrapped deposit key is the
+    base key plus d = (a*N1 + b)*N2 + c, so base order keeps equal
+    deposit keys contiguous for every offset at once and the runs are
+    shared.
+
+    Returns ``(keys, is_start, is_last, offs, W, fbk, fbv, sent)``: the
+    sorted base keys (int64), the run-start and run-end masks, the s^3
+    key offsets, the (s^3, n) un-wrapped weight streams in sorted order,
+    the deposits that wrap the periodic boundary (keys, values; the
+    plain scatter adds them), and ``sent``, the first index past every
+    ``key + d``. The JAX function keeps the wrapped deposits as an
+    s^3*n stream whose masked slots it drops at out-of-bounds indices;
+    torch has no dropping scatter, so the stream is compacted to the
+    wrapped deposits, and no index past ``sent`` is formed (nor JAX's
+    int32 case for one).
+
+    order_method : the stable ordering engine of the rank
+        (:func:`~nbodykit_tpu_torch.ops.radix.order_keys` over the
+        [0, M) cell alphabet); both engines give the same order.
+
+    Stages (``utils.stage``): ``paint_order`` (the base keys and their
+    rank), ``paint_streams`` (the sorted streams).
+    """
+    n0l, N1, N2 = (int(x) for x in shape)
+    period = tuple(int(p) for p in period)
+    M = n0l * N1 * N2
+    s = window_support(resampler)
+    sent = M + (s - 1) * (N1 * N2 + N2 + 1) + 1
+    # the JAX function's flat keys are int32: it raises here, before
+    # anything is allocated, and so does the port
+    if sent > _INT32_MAX:
+        raise ValueError(
+            "one-sort paint: local block %dx%dx%d (+window %d) "
+            "overflows the int32 flat index; shard the mesh over more "
+            "devices so n0_local*N1*N2 < 2**31" % (n0l, N1, N2, s))
+    n = pos.shape[0]
+    with stage('paint_order'):
+        i0, w0 = _axis_terms(pos[:, 0], resampler, period[0])
+        i1, w1 = _axis_terms(pos[:, 1], resampler, period[1])
+        i2, w2 = _axis_terms(pos[:, 2], resampler, period[2])
+        row0 = torch.remainder(i0[:, 0] - origin, period[0])
+        valid0 = row0 < n0l
+        # in [0, M): the row clamped, i1 / i2 wrapped
+        lin_base = (torch.where(valid0, row0, 0) * N1 + i1[:, 0]) * N2 \
+            + i2[:, 0]
+        order = order_keys(lin_base, M, order_method)
+    with stage('paint_streams'):
+        # JAX's wrap tests compare each offset's wrapped index with the
+        # base index plus the offset; the wrapped index is (base + a)
+        # mod the period, so the test is base + a < period, and only
+        # the base columns need the sorted order. Every gather is of one
+        # column: on the card a gather of (n, s) rows took ~6 ms where a
+        # column takes ~0.1
+        i1s, i2s = i1[:, 0][order], i2[:, 0][order]
+        del i0, i1, i2
+        w0s, w1s, w2s = ([w[:, a][order].to(dtype) for a in range(s)]
+                         for w in (w0, w1, w2))
+        del w0, w1, w2
+        ms = mass[order]
+        keys = lin_base[order]
+        row0s, valid0s = row0[order], valid0[order]
+        del order, lin_base, row0, valid0
+
+        ones = torch.ones(min(n, 1), dtype=torch.bool, device=pos.device)
+        neq = keys[1:] != keys[:-1]
+        is_last = torch.cat([neq, ones])
+        is_start = torch.cat([ones, neq])
+
+        # only a particle whose window reaches past the block's last row
+        # or an axis's end (or whose base row is outside the block) has
+        # deposits that wrap or drop; every other deposit is un-wrapped
+        reach = s - 1
+        e = torch.nonzero(~valid0s | (row0s + reach >= n0l)
+                          | (i1s + reach >= N1)
+                          | (i2s + reach >= N2)).squeeze(1)
+        row0e, valid0e, i1e, i2e = row0s[e], valid0s[e], i1s[e], i2s[e]
+
+        W = torch.empty((s ** 3, n), dtype=dtype, device=pos.device)
+        zero = torch.zeros((), dtype=dtype, device=pos.device)
+        offs, fbk, fbv = [], [], []
+        for a in range(s):
+            rowa = torch.remainder(row0e + a, period[0])
+            valida = rowa < n0l
+            in_row = valida & valid0e & (row0e + a < period[0])
+            for b in range(s):
+                wab = w0s[a] * w1s[b]
+                in_ab = in_row & (i1e + b < N1)
+                for c in range(s):
+                    j = len(offs)
+                    offs.append((a * N1 + b) * N2 + c)
+                    torch.mul(wab * w2s[c], ms, out=W[j])
+                    # JAX's where(unwrapped, w, 0) and its fallback
+                    # stream of the wrapped in-block deposits (the
+                    # periodic boundary strip), on the edge particles
+                    unwrapped = in_ab & (i2e + c < N2)
+                    we = W[j, e]
+                    W[j, e] = torch.where(unwrapped, we, zero)
+                    at = torch.nonzero(valida & ~unwrapped).squeeze(1)
+                    fbk.append((rowa[at] * N1 + torch.remainder(
+                        i1e[at] + b, N1)) * N2
+                        + torch.remainder(i2e[at] + c, N2))
+                    fbv.append(we[at])
+        return (keys, is_start, is_last, offs, W, torch.cat(fbk),
+                torch.cat(fbv), sent)
+
+
+def paint_local_sorted(pos, mass, shape, resampler='cic', period=None,
+                       origin=0, out=None, npasses=None):
+    """Paint by sort + segmented reduction + unique scatter (the JAX
+    ``paint_local_sorted``).
+
+    The n base cells are sorted once (:func:`_one_sort_streams`, with
+    ``torch.argsort``, as the JAX function hard-wires); each equal-key
+    run is summed in place by doubling shift-add passes
+    ``W + where(same, W[:, src], 0)`` until no run spans the shift
+    (ceil(log2(longest run)) passes, one host sync each), and the run
+    totals at the run ends go to ``key + d`` with one scatter of unique
+    indices per offset. ``npasses`` caps the passes (None: to
+    completion). Semantics match :func:`paint_local`. Stages
+    (``utils.stage``): those of :func:`_one_sort_streams`, then
+    ``paint_runs`` and ``paint_scatter``."""
+    n0l, N1, N2 = (int(x) for x in shape)
+    period = tuple(int(p) for p in (shape if period is None else period))
+    n = pos.shape[0]
+    M = n0l * N1 * N2
+    dtype = _out_dtype(pos, mass, out)
+    mass = torch.as_tensor(mass, dtype=dtype, device=pos.device).expand(n)
+    keys, _, is_last, offs, W, fbk, fbv, sent = _one_sort_streams(
+        pos, mass, shape, resampler, period, origin, dtype, 'argsort')
+
+    # segmented inclusive prefix sums over all s^3 streams at once; the
+    # last slot of each run ends with the run total
+    with stage('paint_runs'):
+        max_shift = n if npasses is None else min(n, 1 << npasses)
+        idx = torch.arange(n, device=pos.device)
+        shift, active = 1, n > 0
+        while active and shift < max_shift:
+            src = torch.clamp(idx - shift, min=0)
+            same = (idx >= shift) & (keys == keys[src])
+            W = W + torch.where(same, W[:, src], 0)
+            src = torch.clamp(idx - 2 * shift, min=0)
+            active = bool(((idx >= 2 * shift)
+                           & (keys == keys[src])).any())
+            shift *= 2
+        del idx
+        ends = torch.nonzero(is_last).squeeze(1)
+        W = W[:, ends]
+    with stage('paint_scatter'):
+        return _scatter_runs(out, M, sent, fbk, fbv, keys[ends], offs, W,
+                             shape)
+
+
+def _scatter_runs(out, M, sent, fbk, fbv, run_keys, offs, totals, shape):
+    """The one-sort paints' output: ``out`` (or zeros), the wrapped
+    deposits, then the (s^3, runs) totals at ``run_keys + d``, unique
+    indices per offset; a zero tail to ``sent`` takes the totals of
+    wrapped runs (zero by construction) and is cut off."""
+    flat = torch.zeros(sent, dtype=totals.dtype, device=totals.device)
+    if out is not None:
+        flat[:M] = out.reshape(-1)
+    flat.index_add_(0, fbk, fbv)
+    for j, d in enumerate(offs):
+        flat.index_add_(0, run_keys + d, totals[j])
+    return flat[:M].view(*shape)
+
+
+def paint_local_segsum(pos, mass, shape, resampler='cic', period=None,
+                       origin=0, out=None, order_method='argsort'):
+    """One-sort paint with a segment-sum run reduction (the JAX
+    ``paint_local_segsum``).
+
+    The rank of :func:`paint_local_sorted` (``order_method``: 'argsort'
+    or 'radix', :func:`~nbodykit_tpu_torch.ops.radix.order_keys`), then
+    one ``index_add_`` of all s^3 streams into (s^3, runs) segment
+    totals (in index order on the CPU, as ``jax.ops.segment_sum``; in
+    atomic order on a CUDA device), and the totals at the run starts go
+    to ``key + d`` with one scatter of unique indices per offset. Stages
+    as :func:`paint_local_sorted`'s."""
+    n0l, N1, N2 = (int(x) for x in shape)
+    period = tuple(int(p) for p in (shape if period is None else period))
+    n = pos.shape[0]
+    M = n0l * N1 * N2
+    dtype = _out_dtype(pos, mass, out)
+    mass = torch.as_tensor(mass, dtype=dtype, device=pos.device).expand(n)
+    keys, is_start, _, offs, W, fbk, fbv, sent = _one_sort_streams(
+        pos, mass, shape, resampler, period, origin, dtype, order_method)
+
+    with stage('paint_runs'):
+        # 0-based run ids, non-decreasing along the sorted slots
+        seg = torch.cumsum(is_start, 0) - 1
+        starts = torch.nonzero(is_start).squeeze(1)
+        totals = torch.zeros((W.shape[0], starts.shape[0]), dtype=dtype,
+                             device=pos.device).index_add_(1, seg, W)
+        del W, seg
+    with stage('paint_scatter'):
+        return _scatter_runs(out, M, sent, fbk, fbv, keys[starts], offs,
+                             totals, shape)
+
+
+def paint_local_streams(pos, mass, shape, resampler='cic', period=None,
+                        origin=0, out=None, streams=4, chunk=None,
+                        storage_dtype=None):
+    """Offset-stream scatter (the JAX ``paint_local_streams``): the s^3
+    window-offset streams dealt round-robin onto ``k = streams`` replica
+    meshes (clamped to [1, s^3]), ``index_add_`` chains into each, then
+    a pairwise tree sum. ``chunk`` : particles per pass, as in
+    :func:`paint_local`.
+
+    ``storage_dtype`` a narrow float (bfloat16): the replicas are stored
+    at that width while each weight is computed f32 and split two-sum
+    style, the representable ``hi`` onto replica j and the residual
+    ``lo`` onto replica j + 1; the replicas are re-widened to f32
+    before the tree sum. The result is f32 (the compute dtype); callers
+    narrow once, at their exit. None keeps one width. Stages
+    (``utils.stage``): ``paint_deposit``, ``paint_merge``."""
+    n0l, N1, N2 = (int(x) for x in shape)
+    period = tuple(int(p) for p in (shape if period is None else period))
+    n = pos.shape[0]
+    s = window_support(resampler)
+    k = max(1, min(int(streams), s ** 3))
+    dtype = _out_dtype(pos, mass, out)
+    narrow = storage_dtype is not None and is_narrow_float(storage_dtype)
+    # what the replicas store; the weights compute at least f32 wide
+    rdtype = torch_dtype(storage_dtype) if narrow else dtype
+    mdtype = torch.float32 if narrow else dtype
+    mass = torch.as_tensor(mass, dtype=mdtype, device=pos.device).expand(n)
+    with stage('paint_deposit'):
+        flats = [torch.zeros(n0l * N1 * N2, dtype=rdtype,
+                             device=pos.device) for _ in range(k)]
+        step = n if not chunk or chunk >= n else int(chunk)
+        for lo in range(0, n, max(step, 1)):
+            for j, (lin, w) in enumerate(_offset_terms(
+                    pos[lo:lo + step], mass[lo:lo + step], resampler,
+                    period, origin, n0l)):
+                if narrow:
+                    w32 = w.to(torch.float32)
+                    hi = w32.to(rdtype)
+                    flats[j % k].index_add_(0, lin, hi)
+                    flats[(j + 1) % k].index_add_(
+                        0, lin, (w32 - hi.to(torch.float32)).to(rdtype))
+                else:
+                    flats[j % k].index_add_(0, lin, w.to(dtype))
+    with stage('paint_merge'):
+        if narrow:
+            flats = [f.to(torch.float32) for f in flats]
+        while len(flats) > 1:
+            nxt = [a + b for a, b in zip(flats[::2], flats[1::2])]
+            if len(flats) % 2:
+                nxt.append(flats[-1])
+            flats = nxt
+        flat = flats[0]
+        if out is not None:
+            flat = flat + out.reshape(-1).to(flat.dtype)
+    return flat.view(n0l, N1, N2)
 
 
 def _bucket_by_argsort(key, n, B, Kcap, order_method='auto'):

@@ -8,8 +8,13 @@
   ``torch.fft.rfftn`` returns the natural layout, so the transforms
   permute at this boundary;
 - ``paint`` runs the kernel the options resolve to (``mxu`` + ``radix``
-  on a CUDA device, ``scatter`` on the CPU), with the eager mxu
-  bucket-overflow backoff of the JAX package.
+  on a CUDA device, ``scatter`` on the CPU; ``sort``, ``segsum`` and
+  ``streams`` on request), with the eager mxu bucket-overflow backoff of
+  the JAX package;
+- a ``'bf16'`` mesh stores its real fields in bfloat16 and computes in
+  f32 (``compute_dtype``): the paint's weights are f32 and the field is
+  narrowed once at the exit, ``r2c`` and ``readout`` re-widen to f32
+  first, ``c2r`` narrows back to the storage dtype.
 """
 
 import logging
@@ -18,9 +23,11 @@ import numpy as np
 import torch
 
 from . import _global_options, resolve_device, resolve_paint
-from .ops.paint import paint_local, paint_local_mxu, readout_local
+from .ops.paint import (paint_local, paint_local_mxu, paint_local_segsum,
+                        paint_local_sorted, paint_local_streams,
+                        readout_local)
 from .ops.radix_cuda import raise_on_bad_digits
-from .utils import torch_dtype
+from .utils import is_narrow_float, mesh_storage_dtype, torch_dtype
 
 # elements of one slab of the slab-by-slab transform
 _SLAB_ELEMENTS = 1 << 25
@@ -30,6 +37,11 @@ def _triplet(x, dtype):
     a = np.empty(3, dtype=dtype)
     a[:] = x
     return a
+
+
+def _widen(real):
+    """A narrow (bf16) real field as f32; any other unchanged."""
+    return real.to(torch.float32) if is_narrow_float(real.dtype) else real
 
 
 def _fftfreq(n, dtype, device):
@@ -44,9 +56,15 @@ class ParticleMesh(object):
     """Geometry of a 3-D particle-mesh field on one device.
 
     Nmesh : int or 3-vector, cells per side; BoxSize : float or
-    3-vector; dtype : mesh dtype ('f4' or 'f8'); device : 'cuda' or
-    'cpu' (default: the ``device`` option, else 'cuda'; raises when CUDA
-    is absent and the CPU was not asked for).
+    3-vector; dtype : mesh storage dtype ('f4', 'f8' or 'bf16'); device :
+    'cuda' or 'cpu' (default: the ``device`` option, else 'cuda'; raises
+    when CUDA is absent and the CPU was not asked for).
+
+    ``dtype`` is the numpy dtype of an f4 / f8 mesh and
+    ``torch.bfloat16`` for a bf16 one (numpy has no bfloat16);
+    ``compute_dtype`` is the numpy dtype the mesh computes in (f4 for
+    bf16 storage), ``torch_dtype`` / ``torch_compute_dtype`` their
+    torch dtypes.
     """
 
     logger = logging.getLogger('ParticleMesh')
@@ -54,11 +72,15 @@ class ParticleMesh(object):
     def __init__(self, Nmesh, BoxSize, dtype='f4', device=None):
         self.Nmesh = _triplet(Nmesh, 'i8')
         self.BoxSize = _triplet(BoxSize, 'f8')
-        self.dtype = np.dtype(dtype)
-        if self.dtype not in (np.dtype('f4'), np.dtype('f8')):
-            raise ValueError("mesh dtype must be 'f4' or 'f8', got %r"
-                             % (dtype,))
+        self.dtype = mesh_storage_dtype(dtype)
+        narrow = self.dtype is torch.bfloat16
+        if not narrow and self.dtype not in (np.dtype('f4'),
+                                             np.dtype('f8')):
+            raise ValueError("mesh dtype must be 'f4', 'f8' or 'bf16', "
+                             "got %r" % (dtype,))
+        self.compute_dtype = np.dtype('f4') if narrow else self.dtype
         self.torch_dtype = torch_dtype(self.dtype)
+        self.torch_compute_dtype = torch_dtype(self.compute_dtype)
         self.device = resolve_device(device)
 
     # -- shapes -----------------------------------------------------------
@@ -83,7 +105,7 @@ class ParticleMesh(object):
 
     @property
     def complex_dtype(self):
-        return torch.complex64 if self.dtype.itemsize <= 4 \
+        return torch.complex64 if self.compute_dtype.itemsize <= 4 \
             else torch.complex128
 
     def __eq__(self, other):
@@ -107,11 +129,12 @@ class ParticleMesh(object):
         """Forward real-to-complex FFT, forward-normalized (divides by
         Nmesh^3), in the transposed (N1, N0, N2//2+1) layout. The
         scaling is in place on the transform's output, so a field costs
-        two complex copies at the peak, not three."""
+        two complex copies at the peak, not three. A narrow (bf16) field
+        is re-widened to f32 first."""
         return self._r2c_scaled(real, 1.0 / self.Ntot)
 
     def _r2c_scaled(self, real, scale):
-        c = torch.fft.rfftn(real, dim=(0, 1, 2))
+        c = torch.fft.rfftn(_widen(real), dim=(0, 1, 2))
         c.mul_(scale)
         return c.permute(1, 0, 2).contiguous()
 
@@ -138,7 +161,7 @@ class ParticleMesh(object):
                           device=self.device)
         rows = max(1, _SLAB_ELEMENTS // (N1 * N2))
         for a in range(0, N0, rows):
-            x = slab(a, min(a + rows, N0))
+            x = _widen(slab(a, min(a + rows, N0)))
             if full:
                 torch.fft.fft2(x.to(self.complex_dtype), dim=(1, 2),
                                out=out[a:a + rows])
@@ -152,7 +175,7 @@ class ParticleMesh(object):
 
     def c2r(self, cplx):
         """Inverse of :meth:`r2c` (unnormalized inverse, since the
-        forward carried the 1/N^3); returns the mesh dtype."""
+        forward carried the 1/N^3); returns the mesh (storage) dtype."""
         return self.c2r_natural(cplx.permute(1, 0, 2).contiguous())
 
     def c2r_natural(self, natural):
@@ -168,9 +191,10 @@ class ParticleMesh(object):
 
     def x_list(self, dtype=None):
         """Broadcastable real-space coordinates [x, y, z] of the
-        (N0, N1, N2) layout: x_i = index * cellsize_i."""
+        (N0, N1, N2) layout: x_i = index * cellsize_i, in the compute
+        dtype unless ``dtype`` is given."""
         dtype = torch_dtype(dtype) if dtype is not None \
-            else self.torch_dtype
+            else self.torch_compute_dtype
         out = []
         for ax, (n, h) in enumerate(zip(self.Nmesh, self.cellsize)):
             shape = [1, 1, 1]
@@ -185,7 +209,8 @@ class ParticleMesh(object):
         gives w_i = k_i * BoxSize_i / Nmesh_i; ``full=True`` the
         uncompressed kz axis."""
         dtype = torch_dtype(dtype) if dtype is not None else (
-            torch.float32 if self.dtype.itemsize <= 4 else torch.float64)
+            torch.float32 if self.compute_dtype.itemsize <= 4
+            else torch.float64)
         N0, N1, N2 = (int(n) for n in self.Nmesh)
         L = self.BoxSize
 
@@ -234,7 +259,8 @@ class ParticleMesh(object):
         every amplitude to 1; ``inverted_phase`` flips the sign. Scaled
         in place: the peak is the draw and two complex copies."""
         from .rng import key, normal
-        g = normal(key(seed), self.shape_real, self.dtype, self.device)
+        g = normal(key(seed), self.shape_real, self.compute_dtype,
+                   self.device)
         eta = self._r2c_scaled(g, 1.0 / np.sqrt(self.Ntot))
         del g
         if unitary:
@@ -275,13 +301,15 @@ class ParticleMesh(object):
         return pos * scale
 
     def paint(self, pos, mass=1.0, resampler=None, out=None, shift=0.0):
-        """Scatter particles onto the mesh; returns a real field.
+        """Scatter particles onto the mesh; returns a real field in the
+        storage dtype.
 
         pos : (N, 3) positions in box units on the mesh's device;
-        mass : scalar or (N,) weights (mass-0 slots are inert);
-        shift : cell units, paints onto a half-cell-shifted grid
-        (interlacing). With ``paint_method='mxu'`` an overflowing
-        bucket is retried with 4x the slack until nothing drops.
+        mass : scalar or (N,) weights (mass-0 slots are inert), taken in
+        the compute dtype; shift : cell units, paints onto a
+        half-cell-shifted grid (interlacing). With ``paint_method='mxu'``
+        an overflowing bucket is retried with 4x the slack until nothing
+        drops.
         """
         resampler = resampler or _global_options['resampler']
         if pos.device != self.device:
@@ -289,11 +317,13 @@ class ParticleMesh(object):
                              % (pos.device, self.device))
         cpos = self._to_cell_units(pos) - shift
         npart = pos.shape[0]
-        massa = torch.as_tensor(mass, dtype=self.torch_dtype,
+        massa = torch.as_tensor(mass, dtype=self.torch_compute_dtype,
                                 device=self.device).expand(npart)
         cfg = resolve_paint(self.device)
+        method = cfg['paint_method']
         shape = self.shape_real
-        if cfg['paint_method'] == 'mxu':
+        kw = dict(resampler=resampler, period=shape, origin=0)
+        if method == 'mxu':
             slack = cfg['paint_bucket_slack']
             block, over = paint_local_mxu(
                 cpos, massa, shape, resampler=resampler, period=shape,
@@ -311,23 +341,37 @@ class ParticleMesh(object):
                     cpos, massa, shape, resampler=resampler, period=shape,
                     origin=0, slack=slack, return_overflow=True,
                     order_method=cfg['paint_order'])
-        elif cfg['paint_method'] == 'scatter':
-            block = paint_local(cpos, massa, shape, resampler=resampler,
-                                period=shape, origin=0,
-                                chunk=cfg['paint_chunk_size'])
+        elif method == 'scatter':
+            block = paint_local(cpos, massa, shape,
+                                chunk=cfg['paint_chunk_size'], **kw)
+        elif method == 'sort':
+            block = paint_local_sorted(cpos, massa, shape, **kw)
+        elif method == 'segsum':
+            block = paint_local_segsum(
+                cpos, massa, shape, order_method=cfg['paint_order'], **kw)
+            raise_on_bad_digits(self.device)
+        elif method == 'streams':
+            block = paint_local_streams(cpos, massa, shape,
+                                        streams=cfg['paint_streams'],
+                                        chunk=cfg['paint_chunk_size'],
+                                        storage_dtype=self.dtype, **kw)
         else:
             raise ValueError("unknown paint_method %r (choose 'auto', "
-                             "'mxu' or 'scatter')" % (cfg['paint_method'],))
+                             "'mxu', 'scatter', 'sort', 'segsum' or "
+                             "'streams')" % (method,))
+        # the kernels return the compute dtype: a caller's accumulator is
+        # widened before the add, and the sum narrowed once, here
         if out is not None:
             block = block + out.to(block.dtype)
         return block.to(self.torch_dtype)
 
     def readout(self, real, pos, resampler=None, grad_axis=None):
-        """Interpolate a real field at particle positions. ``grad_axis``
-        (0/1/2) reads d(readout)/d(pos[grad_axis]) instead, in cell
-        units (times Nmesh/BoxSize for box units): the position
-        cotangent of the paint's adjoint."""
+        """Interpolate a real field at particle positions (a narrow
+        field re-widened to f32 first). ``grad_axis`` (0/1/2) reads
+        d(readout)/d(pos[grad_axis]) instead, in cell units (times
+        Nmesh/BoxSize for box units): the position cotangent of the
+        paint's adjoint."""
         resampler = resampler or _global_options['resampler']
-        return readout_local(real, self._to_cell_units(pos),
+        return readout_local(_widen(real), self._to_cell_units(pos),
                              resampler=resampler, period=self.shape_real,
                              origin=0, grad_axis=grad_axis)

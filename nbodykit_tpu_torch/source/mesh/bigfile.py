@@ -15,6 +15,7 @@ import torch
 from ... import resolve_device
 from ...base.mesh import Field, MeshSource
 from ...io.bigfile import BigFileDataset, read_attrs_file
+from ...utils import bf16_from_numpy
 
 
 class BigFileMesh(MeshSource):
@@ -47,14 +48,18 @@ class BigFileMesh(MeshSource):
         self.attrs = {k: v for k, v in attrs.items()
                       if k != 'ndarray.shape'}
         # the mesh of a complex block (saved with mode='complex') takes
-        # the real dtype of its parts: the port's ParticleMesh is f4 or f8
+        # the real dtype of its parts; a block of 2-byte items ('<V2',
+        # a saved bfloat16 field) is a bf16 mesh
         dtype = self._block.dtype
         if dtype.kind == 'c':
             dtype = np.dtype('f%d' % (dtype.itemsize // 2))
-        MeshSource.__init__(self, Nmesh, BoxSize, dtype=dtype.str,
+        self._bf16 = dtype.kind == 'V' and dtype.itemsize == 2
+        MeshSource.__init__(self, Nmesh, BoxSize,
+                            dtype='bf16' if self._bf16 else dtype.str,
                             device=device)
 
     def to_real_field(self):
-        data = self._block.read(0, self._block.size)
-        value = torch.as_tensor(data.reshape(self._shape)).to(self.device)
-        return Field(value, self.pm, 'real')
+        data = self._block.read(0, self._block.size).reshape(self._shape)
+        value = bf16_from_numpy(data) if self._bf16 \
+            else torch.as_tensor(data)
+        return Field(value.to(self.device), self.pm, 'real')

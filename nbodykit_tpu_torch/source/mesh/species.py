@@ -38,7 +38,7 @@ class MultipleSpeciesCatalogMesh(MeshSource):
                                                      self.source.species))
         return CatalogMesh(
             self.source[species], Nmesh=self.attrs['Nmesh'],
-            BoxSize=self.attrs['BoxSize'], dtype=self.pm.dtype.str,
+            BoxSize=self.attrs['BoxSize'], dtype=self.pm.dtype,
             interlaced=self.interlaced, compensated=self.compensated,
             resampler=self.resampler, position=self.position,
             weight=self.weight, value=self.value, selection=self.selection)

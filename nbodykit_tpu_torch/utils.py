@@ -36,10 +36,24 @@ def working_dtype(dt='f8'):
 TORCH_DTYPES = {'f4': 'float32', 'f8': 'float64', 'c8': 'complex64',
                 'c16': 'complex128', 'i4': 'int32', 'i8': 'int64'}
 
+# the names of the bfloat16 storage request: numpy has no bfloat16 of
+# its own, and the JAX package's (ml_dtypes) is named 'bfloat16'
+_BF16_NAMES = ('bf16', 'bfloat16', 'torch.bfloat16')
+
+
+def _is_bf16(dt):
+    return str(getattr(dt, 'name', dt)).lower() in _BF16_NAMES
+
 
 def torch_dtype(dt):
-    """The torch dtype of a numpy dtype token ('f4', 'f8', ...)."""
+    """The torch dtype of a numpy dtype token ('f4', 'f8', ...), of a
+    torch dtype, or of the bfloat16 request ('bf16', 'bfloat16', a JAX
+    bfloat16 numpy dtype)."""
     import torch
+    if isinstance(dt, torch.dtype):
+        return dt
+    if _is_bf16(dt):
+        return torch.bfloat16
     dt = np.dtype(dt)
     key = dt.kind + str(dt.itemsize)
     try:
@@ -48,10 +62,65 @@ def torch_dtype(dt):
         raise ValueError("unsupported dtype %r" % (dt,))
 
 
+def mesh_storage_dtype(dt='f4'):
+    """A mesh buffer's STORAGE dtype for the token ``dt``:
+    ``torch.bfloat16`` for ``'bf16'`` / ``'bfloat16'`` (half the f4
+    bytes; numpy has no bfloat16 here), else the numpy dtype of
+    :func:`working_dtype`. Compute (weights, transforms, readout) stays
+    f32 for a bfloat16 mesh: callers re-widen at once."""
+    import torch
+    if _is_bf16(dt):
+        return torch.bfloat16
+    return working_dtype(dt)
+
+
+def is_narrow_float(dt):
+    """True for a float storage dtype narrower than f32 (bfloat16 or
+    float16, as a token, a numpy dtype or a torch dtype): the test
+    behind every 'compute wide, store narrow' branch."""
+    import torch
+    if _is_bf16(dt) or dt is torch.float16:
+        return True
+    if isinstance(dt, torch.dtype):
+        return False
+    dt = np.dtype(dt)
+    return dt.kind in 'fV' and dt.itemsize == 2
+
+
+# the bigfile DTYPE of a bfloat16 block, as the JAX package writes it
+# (the numpy str of ml_dtypes' bfloat16): the raw 16-bit patterns
+BF16_BIGFILE_DTYPE = '<V2'
+
+
+def bf16_from_numpy(array):
+    """A CPU ``torch.bfloat16`` tensor holding the bits of a 2-byte
+    numpy array: a JAX bfloat16 array (ml_dtypes, ``dtype.name ==
+    'bfloat16'``) or the raw '<V2' items of a bigfile block. Bit for
+    bit; nothing of ml_dtypes is imported."""
+    import torch
+    a = np.ascontiguousarray(array)
+    if a.dtype.itemsize != 2:
+        raise ValueError("bfloat16 items are 2 bytes, got %s" % a.dtype)
+    return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def bf16_bits(tensor):
+    """The 16-bit patterns of a ``torch.bfloat16`` tensor, as host
+    numpy uint16."""
+    import torch
+    return tensor.detach().contiguous().view(torch.int16).cpu().numpy() \
+        .view(np.uint16)
+
+
 def as_numpy(arr):
-    """Fetch a tensor (any device) or array-like to host numpy."""
+    """Fetch a tensor (any device) or array-like to host numpy. A
+    bfloat16 tensor comes back as float32, which holds its values
+    exactly (numpy has no bfloat16 without the JAX package's
+    ``ml_dtypes``)."""
     import torch
     if isinstance(arr, torch.Tensor):
+        if arr.dtype == torch.bfloat16:
+            arr = arr.float()
         return arr.detach().cpu().numpy()
     return np.asarray(arr)
 

@@ -3,7 +3,8 @@ package on the same seeded numpy inputs: the window derivatives at
 their kinks, LPT, the KDK stepper and the painted density, the
 gradients of the field-level loss (at the zero leaf, where every
 particle sits on a node), the paint adjoint as a
-``torch.autograd.Function``, the grad-mode paint resolution, the growth
+``torch.autograd.Function`` and the custom-VJP paints (sort, segsum,
+streams) against ``jax.grad``, the grad-mode paint resolution, the growth
 table, the inference metrics and Adam's recovery, all in f8; and the
 32^3 "recovery beats FFTRecon" contract on the port alone.
 
@@ -248,6 +249,39 @@ def test_paint_adjoint_function(resampler):
     fd = (f(pos + eps * d) - f(pos - eps * d)) / (2 * eps)
     dot = float((an(gp) * d).sum())
     assert abs(fd - dot) <= 1e-5 * max(abs(fd), abs(dot), 1e-10)
+
+
+@pytest.mark.parametrize('method', ['sort', 'segsum', 'streams'])
+def test_custom_vjp_paints_match_jax_grad(method):
+    """``make_paint(method=...)`` for each paint JAX wraps in
+    ``jax.custom_vjp``: mode 'custom_vjp', the method's value, and the
+    position and mass gradients of torch.autograd against ``jax.grad``
+    through JAX's ``make_paint(method=...)``, within 1e-10 relative in
+    f8 (the same readout formula; the values sum in the same order)."""
+    pos, mass, tgt = _paint_case('cic')
+    tpm = TPM(8, 100.0, dtype='f8', device='cpu')
+    jpm = JPM(Nmesh=8, BoxSize=100.0, dtype='f8')
+    paint, cfg = T.make_paint(tpm, 64, 'cic', method=method)
+    jpaint, jcfg = J.make_paint(jpm, 64, 'cic', method=method)
+    assert cfg['adjoint_mode'] == jcfg['adjoint_mode'] == 'custom_vjp'
+    assert paint.method == cfg['paint_method'] == method
+    p = torch.tensor(pos, requires_grad=True)
+    m = torch.tensor(mass, requires_grad=True)
+    # the pinned method runs whatever the options say at the call
+    with nbodykit_tpu_torch.set_options(paint_method='mxu'):
+        out = paint(p, m)
+    gp, gm = torch.autograd.grad((out * torch.as_tensor(tgt)).sum(), (p, m))
+    jout = jpaint(jnp.asarray(pos), jnp.asarray(mass))
+    jgp, jgm = jax.grad(
+        lambda a, b: jnp.sum(jnp.asarray(tgt) * jpaint(a, b)),
+        argnums=(0, 1))(jnp.asarray(pos), jnp.asarray(mass))
+    assert rel(jout, out) <= RTOL
+    assert rel(jgp, gp) <= RTOL and rel(jgm, gm) <= RTOL
+    # the native scatter gradient at these displaced positions
+    native, _ = T.make_paint(tpm, 64, 'cic', method='scatter')
+    ngp, ngm = torch.autograd.grad(
+        (native(p, m) * torch.as_tensor(tgt)).sum(), (p, m))
+    assert rel(ngp, gp) <= RTOL and rel(ngm, gm) <= RTOL
 
 
 def test_grad_mode_paint_resolution_as_jax(caplog):

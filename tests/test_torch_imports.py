@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``nbodykit_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, importing the port
-loads neither, and its entry points refuse to fall back to the CPU
+``chip_smoke.py``) imports JAX, the JAX package or ``ml_dtypes`` (JAX's
+bfloat16 for numpy, absent where the port runs), importing the port
+loads none of them, and its entry points refuse to fall back to the CPU
 quietly when CUDA is absent."""
 
 import ast
@@ -17,8 +18,8 @@ PKG = os.path.join(ROOT, 'nbodykit_tpu_torch')
 
 
 def _forbidden(name):
-    return (name == 'jax' or name.startswith('jax.')
-            or name == 'nbodykit_tpu' or name.startswith('nbodykit_tpu.'))
+    return any(name == top or name.startswith(top + '.')
+               for top in ('jax', 'nbodykit_tpu', 'ml_dtypes'))
 
 
 def _port_files():
@@ -32,6 +33,7 @@ def _port_files():
 def test_forbidden_prefix_spares_the_port():
     assert _forbidden('jax') and _forbidden('jax.numpy')
     assert _forbidden('nbodykit_tpu') and _forbidden('nbodykit_tpu.ops')
+    assert _forbidden('ml_dtypes') and not _forbidden('ml_dtypes_x')
     assert not _forbidden('nbodykit_tpu_torch')
     assert not _forbidden('nbodykit_tpu_torch.ops.paint')
 
@@ -80,9 +82,8 @@ def test_import_loads_no_jax():
             "nbodykit_tpu_torch.algorithms.bispectrum, "
             "nbodykit_tpu_torch.ops.pairblock; "
             "added = set(sys.modules) - before; "
-            "bad = sorted(m for m in added if m == 'jax' or "
-            "m.startswith('jax.') or m == 'nbodykit_tpu' or "
-            "m.startswith('nbodykit_tpu.')); "
+            "bad = sorted(m for m in added if m.split('.')[0] in "
+            "('jax', 'nbodykit_tpu', 'ml_dtypes')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -269,8 +270,6 @@ def test_lab_exports_every_ported_name():
 # Public names of the JAX package that the port leaves out on purpose,
 # each with its reason. Queue A is ROADMAP.md's queue of modules to port.
 _MULTI_DEVICE = 'multi-GPU sharding and routing (ROADMAP Queue A item 4)'
-_PAINT_FAMILIES = 'the other paint families (ROADMAP Queue A item 3)'
-_BF16 = 'bf16 mesh storage (ROADMAP Queue A item 3)'
 OMISSIONS = {
     'nbodykit_tpu.algorithms.pair_counters.core.paircount_dist':
         _MULTI_DEVICE,
@@ -280,11 +279,6 @@ OMISSIONS = {
     'nbodykit_tpu.pmesh.memory_plan': _MULTI_DEVICE,
     'nbodykit_tpu.utils.GatherArray': _MULTI_DEVICE,
     'nbodykit_tpu.utils.ScatterArray': _MULTI_DEVICE,
-    'nbodykit_tpu.ops.paint.paint_local_sorted': _PAINT_FAMILIES,
-    'nbodykit_tpu.ops.paint.paint_local_segsum': _PAINT_FAMILIES,
-    'nbodykit_tpu.ops.paint.paint_local_streams': _PAINT_FAMILIES,
-    'nbodykit_tpu.utils.mesh_storage_dtype': _BF16,
-    'nbodykit_tpu.utils.is_narrow_float': _BF16,
     'nbodykit_tpu.base.mesh.Field.tree_flatten':
         'JAX-only: registers Field as a pytree',
     'nbodykit_tpu.base.mesh.Field.tree_unflatten':

@@ -32,7 +32,11 @@ drives ten paths through the user entry points:
 - the FOF path, the repo's FOF benchmark flow (``benchmarks/test_fof.py``
   at ``desi_like``): the lognormal path's catalog, FOF(linking_length=0.2,
   nmin=20).to_halos(1e12, Planck15, 0.0) and the halo positions on the
-  host, then populate(Zheng07Model, seed=42) once;
+  host, then populate(Zheng07Model, seed=42) once; the FOF kernels on
+  its grid and a clustered 2e6, the link count and fill against their
+  plain versions on every query and their first and tile designs
+  (``csrc/variants/``) in turns, bit for bit, and on three small grids
+  of the other key widths;
 - the FFTRecon path: that catalog as data, ~1e8 uniform randoms (seed
   84), FFTRecon(Nmesh=512, bias=2, f=0.77, R=15, scheme='LGS') and
   FFTPower(mode='1d') of the reconstructed field;
@@ -66,7 +70,9 @@ drives ten paths through the user entry points:
   timed beside its first design from ``csrc/variants/`` and its bound),
   the 1d auto count against the plain version on all queries, the 3PCF
   moments of the first chunk whole against theirs and timed beside
-  their first design;
+  their first design; FiberCollisions' link count and fill and
+  KDDensity's count replayed on every query against their plain
+  versions and their first and tile designs;
 - the bispectrum path (after the particles path): Bispectrum(
   UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42), nbins=16,
   Nmesh=256, method='fft') (564 triangles, alias-free), the deposit and
@@ -92,6 +98,7 @@ Output: one JSON line per phase; then the ``kernels`` line, the
 CUDA-event times on this card.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -2145,6 +2152,128 @@ def fof_catalog_gate(cat, fof, feats):
             'cm_velocity_max': vmax, 'tol_rel': 1e-5}
 
 
+def link_turns(name, grid_args, a, out, geo, reps=10):
+    """The link kernel ``name`` as built, its first design and its tile
+    design (csrc/variants/fof_links_first_design.cu, fof_links_tiles.cu)
+    launched alone in turns (first, tiles, kernel, kernel, tiles, first)
+    into ``out``, which holds the kernel's result on entry; before each
+    turn ``out`` is set to -1 (no count or slot), and every turn must
+    leave it bit for bit. Returns {who: ms}, the means of the turns of
+    'kernel', 'first' and 'tiles'."""
+    from nbodykit_tpu_torch.ops import fof_cuda as fc
+    ref = out.clone()
+    call = fc.grid_launch_args(*grid_args, a, out, *geo)
+    fns = {'kernel': fc._fn(name)}
+    for who, lib in (('first', 'fof_links_first_design'),
+                     ('tiles', 'fof_links_tiles')):
+        fns[who] = getattr(first_designs()[lib], name)
+        fns[who].argtypes = fc.grid_argtypes(name)
+    t = {who: [] for who in fns}
+    for who in ('first', 'tiles', 'kernel', 'kernel', 'tiles', 'first'):
+        out.fill_(-1)
+        t[who].append(launch_ms(fns[who], call, reps=reps))
+        assert torch.equal(out, ref), (name, who)
+    return {who: float(np.mean(v)) for who, v in t.items()}
+
+
+def link_kernel_checks(where, args, cols, geo, fill=True):
+    """The link count (and fill) on one grid's sorted arrays ``args``
+    (pos, ci, flat, valid): each kernel against its plain version on
+    every query, bit for bit; its earlier designs launched in turns with
+    it (``link_turns``), bit for bit; the wrapper's time (CUDA events, 20
+    calls), the plain version's (one call) and the byte bound
+    (``fof_cuda.link_count_bytes`` / ``link_fill_bytes``, the column-table
+    entries that the searching queries reach counted on the card).
+    Returns ({kernel: record}, row, links or None, E)."""
+    from nbodykit_tpu_torch.ops import fof_cuda as fc
+    pos_s, ci_s, flat_s, valid_s = args
+    n = pos_s.shape[0]
+    pb, kb = pos_s.element_size(), flat_s.element_size()
+    offsets, ncell, _, _, periodic = geo
+
+    def entries(searching):
+        return fc.link_table_entries(ci_s, searching, ncell, offsets,
+                                     periodic)
+    counts = fc.fof_link_count_cuda(*args, cols, *geo)
+    pc, count_plain_ms = timed(lambda: fc.fof_link_count_plain(*args, *geo))
+    nd = int((counts != pc).sum())
+    assert nd == 0, "%s: %d link counts differ" % (where, nd)
+    del pc
+    row = torch.zeros(n + 1, dtype=torch.int64, device='cuda')
+    torch.cumsum(counts, 0, out=row[1:])
+    E = int(row[-1])
+    cases = [('fof_link_count', None, counts, count_plain_ms,
+              fc.link_count_bytes(n, pb, kb, entries(valid_s)),
+              lambda: fc.fof_link_count_cuda(*args, cols, *geo))]
+    links = None
+    if fill:
+        links = fc.fof_link_fill_cuda(*args, cols, row, *geo, nlinks=E)
+        pl, fill_plain_ms = timed(lambda: fc.fof_link_fill_plain(
+            *args, row, *geo))
+        assert torch.equal(links, pl), "%s: the link lists differ" % where
+        del pl
+        cases.append(('fof_link_fill', row, links, fill_plain_ms,
+                      fc.link_fill_bytes(
+                          n, E, pb, kb,
+                          entries(valid_s & (row[1:] > row[:-1]))),
+                      lambda: fc.fof_link_fill_cuda(*args, cols, row, *geo,
+                                                    nlinks=E)))
+    recs = {}
+    for name, a, ref, plain_ms, nbytes, wrapper in cases:
+        ms = cuda_ms(wrapper, reps=20)
+        turns = link_turns('nbk_' + name, (*args, cols), a, ref.clone(),
+                           geo)
+        kernel_ms, first_ms = turns['kernel'], turns['first']
+        b_ms, b_by = bound(nbytes, 0, F32_FLOPS)
+        recs[name] = dict(
+            ms=ms, kernel_ms=kernel_ms, first_design_ms=first_ms,
+            tiles_ms=turns['tiles'],
+            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            bytes=nbytes, max_abs_err=0, share_of_bound=b_ms / ms,
+            kernel_share_of_bound=b_ms / kernel_ms,
+            first_design_share_of_bound=b_ms / first_ms,
+            first_design_over_kernel=first_ms / kernel_ms,
+            tiles_over_kernel=turns['tiles'] / kernel_ms,
+            at='%s f%d int%d keys n=%d, %s cells, E=%d' % (
+                where, 8 * pb, 8 * kb, n,
+                'x'.join(str(int(c)) for c in ncell), E))
+    emit({'phase': 'fof_link_kernels', 'case': where, **recs})
+    return recs, row, links, E
+
+
+def link_key_width_checks():
+    """The link kernels' other instantiations: f32 and f64 positions on a
+    grid of 2^31 cells (2048 x 1024 x 1024 at ll 1: int64 ids) and f64
+    on the same positions at ll 2 (int32 ids), 2e5 points, half in 2,000
+    Gaussian blobs of 0.6 ll, periodic (``link_kernel_checks``).
+    Returns {case: {kernel: ms, kernel_ms, first_design_ms, tiles_ms,
+    bound_ms}}."""
+    from nbodykit_tpu_torch.ops.devicehash import DeviceGridHash
+    rng = np.random.RandomState(8)
+    box = np.array([2048.0, 1024.0, 1024.0])
+    half = 10 ** 5
+    centres = rng.uniform(0, 1, (2000, 3)) * box
+    pos = np.mod(np.concatenate([
+        centres[rng.randint(2000, size=half)]
+        + rng.normal(scale=0.6, size=(half, 3)),
+        rng.uniform(0, 1, (half, 3)) * box]), box)
+    out = {}
+    for label, dt, ll in (('int64_f32', 'f4', 1.0), ('int64_f64', 'f8', 1.0),
+                          ('int32_f64', 'f8', 2.0)):
+        p = torch.as_tensor(pos.astype(dt), device='cuda')
+        grid = DeviceGridHash(p, box, ll)
+        assert (grid.flat_s.element_size() == 8) == label.startswith('int64')
+        ci_s = grid.cell_of(grid.pos_s).contiguous()
+        recs, *_ = link_kernel_checks(
+            'keys_' + label, (grid.pos_s, ci_s, grid.flat_s, grid.valid_s),
+            grid.columns(), grid.geometry(ll ** 2))
+        keep = ('ms', 'kernel_ms', 'first_design_ms', 'tiles_ms',
+                'bound_ms')
+        out[label] = {k: {kk: v[kk] for kk in keep}
+                      for k, v in recs.items()}
+    return out
+
+
 def fof_mode_checks(label, pos, box, ll):
     """Both sweep modes on one catalog's grid: the link count and fill
     kernels against their plain versions; each mode's fixpoint (the
@@ -2152,8 +2281,10 @@ def fof_mode_checks(label, pos, box, ll):
     change) giving the labels and sweeps of ``fof_fixpoint`` (which must
     take the links mode) and the roots of an argsort-ordered run; the
     search and links sweep kernels against ``fof_sweep_plain`` at the
-    first sweep and at the fixpoint, all bit for bit. Times: each kernel
-    (CUDA events), its plain version (one call), each mode's fixpoint
+    first sweep and at the fixpoint, all bit for bit; the link kernels
+    also against their first design (``link_kernel_checks``). Times:
+    each kernel (CUDA events), its plain version (one call), each mode's
+    fixpoint
     (events, and its kernels' device time from the profiler), beside the
     byte bounds. Returns {mode or kernel: record}."""
     from nbodykit_tpu_torch.ops import fof_cuda as fc
@@ -2172,19 +2303,8 @@ def fof_mode_checks(label, pos, box, ll):
     geo = grid.geometry(ll ** 2)
     pb, kb = pos.element_size(), grid.flat_s.element_size()
 
-    # the link kernels against the plain link list
-    counts = fc.fof_link_count_cuda(*args, cols, *geo)
-    pc, count_plain_ms = timed(lambda: fc.fof_link_count_plain(*args, *geo))
-    nd = int((counts != pc).sum())
-    assert nd == 0, "%s: %d link counts differ" % (label, nd)
-    row = torch.zeros(n + 1, dtype=torch.int64, device='cuda')
-    torch.cumsum(counts, 0, out=row[1:])
-    E = int(row[-1])
-    links = fc.fof_link_fill_cuda(*args, cols, row, *geo, nlinks=E)
-    pl, fill_plain_ms = timed(lambda: fc.fof_link_fill_plain(*args, row,
-                                                             *geo))
-    assert torch.equal(links, pl), "%s: the link lists differ" % label
-    del pc, pl
+    # the link kernels against the plain link list and their first design
+    link_recs, row, links, E = link_kernel_checks(label, args, cols, geo)
 
     # each mode's fixpoint on its sweep kernel
     def links_mode():
@@ -2208,11 +2328,6 @@ def fof_mode_checks(label, pos, box, ll):
         assert torch.equal(roots_in_slot_order(grid, lab), roots), \
             (label, mode)
     del roots
-
-    count_ms = cuda_ms(lambda: fc.fof_link_count_cuda(*args, cols, *geo),
-                       reps=5)
-    fill_ms = cuda_ms(lambda: fc.fof_link_fill_cuda(*args, cols, row, *geo,
-                                                    nlinks=E), reps=5)
 
     # the sweeps of both modes against the plain sweep
     lab0 = torch.arange(n, dtype=torch.int32, device='cuda')
@@ -2256,12 +2371,8 @@ def fof_mode_checks(label, pos, box, ll):
         label, 8 * pb, n, 'x'.join(str(int(c)) for c in grid.ncell_np),
         kmax, E)
     out = {
-        'fof_link_count': rec(count_ms, count_plain_ms,
-                              fc.link_count_bytes(n, pb, kb, grid.ncell_np),
-                              at=where),
-        'fof_link_fill': rec(fill_ms, fill_plain_ms,
-                             fc.link_fill_bytes(n, E, pb, kb, grid.ncell_np),
-                             at=where),
+        'fof_link_count': dict(link_recs['fof_link_count'], at=where),
+        'fof_link_fill': dict(link_recs['fof_link_fill'], at=where),
         'links': rec(at['first_sweep']['links_ms'],
                      at['first_sweep']['plain_ms'],
                      fc.links_sweep_bytes(n, E), library_ms=scatter_ms,
@@ -2351,6 +2462,8 @@ def fof_sweep_checks(cat, fof):
                                 cll)
     del cpos
     torch.cuda.empty_cache()
+    key_widths = link_key_width_checks()
+    torch.cuda.empty_cache()
 
     # the cell order: radix (the default on the card) against argsort
     grid = DeviceGridHash(pos, box, ll)
@@ -2378,9 +2491,13 @@ def fof_sweep_checks(cat, fof):
                           ['fixpoint']),
         'fof_link_count': dict(flow['fof_link_count'],
                                at_clustered_2e6=at_clustered
-                               ['fof_link_count']),
+                               ['fof_link_count'],
+                               at_key_widths={k: v['fof_link_count']
+                                              for k, v in key_widths.items()}),
         'fof_link_fill': dict(flow['fof_link_fill'],
-                              at_clustered_2e6=at_clustered['fof_link_fill']),
+                              at_clustered_2e6=at_clustered['fof_link_fill'],
+                              at_key_widths={k: v['fof_link_fill']
+                                             for k, v in key_widths.items()}),
     }
     emit({'phase': 'fof_kernels', 'sweeps': fof.sweeps,
           'sweep_mode': fof.sweep_mode, 'links': fof.links,
@@ -3048,12 +3165,66 @@ def captured_pair_counts():
         orig.launches = spy.launches
 
 
+FIRST_DESIGNS = ('paircount_first_design', 'threept_first_design',
+                 'fof_links_first_design', 'fof_links_tiles')
+_FIRST = {}
+
+
+LINK_WRAPPERS = ('fof_link_count_cuda', 'fof_link_fill_cuda')
+
+
+@contextlib.contextmanager
+def captured_link_calls():
+    """[(wrapper name, args, kwargs)] of every link count and fill call
+    inside, in order. The wrappers are called through; each counts its
+    launches on the module's name, the spy's while it is installed, and
+    the counts go back to the wrappers on exit."""
+    from nbodykit_tpu_torch.ops import fof_cuda as fc
+    origs = {name: getattr(fc, name) for name in LINK_WRAPPERS}
+    calls = []
+    spies = {}
+    for name, orig in origs.items():
+        def spy(*a, name=name, orig=orig, **kw):
+            calls.append((name, a, kw))
+            return orig(*a, **kw)
+        spy.launches = orig.launches
+        spies[name] = spy
+        setattr(fc, name, spy)
+    try:
+        yield calls
+    finally:
+        for name, orig in origs.items():
+            setattr(fc, name, orig)
+            orig.launches = spies[name].launches
+
+
+def particles_link_checks(calls):
+    """The link kernels on the particles path's inputs, replayed: the
+    count and fill of FiberCollisions' FOF (f64 points on the unit
+    sphere in a box of 4, open, its capped 4096^3 grid of int64 ids:
+    sparse, a column table larger than L2) and KDDensity's f64 count (a
+    radius of one mean separation, ~1 point a cell), each on every query
+    (``link_kernel_checks``). Returns {kernel: {path: record}}."""
+    names = [c[0] for c in calls]
+    assert names == ['fof_link_count_cuda', 'fof_link_fill_cuda',
+                     'fof_link_count_cuda'], names
+    out = {'fof_link_count': {}, 'fof_link_fill': {}}
+    for label, (_, a, _), fill in (('fibercollisions', calls[0], True),
+                                   ('kddensity', calls[2], False)):
+        recs, *_ = link_kernel_checks(label, a[:4], a[4], a[5:10], fill=fill)
+        for k, v in recs.items():
+            out[k][label] = v
+    return out
+
+
 def first_designs():
-    """The particle kernels' first designs (csrc/variants/), built beside
-    the kernels: {name: ctypes library}."""
-    from nbodykit_tpu_torch.kernel_variants import _build_variants
-    return _build_variants(['paircount_first_design',
-                            'threept_first_design'])
+    """The first designs of the particle kernels and the FOF link kernels
+    (csrc/variants/), built once (``main`` builds them beside the
+    kernels): {name: ctypes library}."""
+    if not _FIRST:
+        from nbodykit_tpu_torch.kernel_variants import _build_variants
+        _FIRST.update(_build_variants(FIRST_DESIGNS))
+    return _FIRST
 
 
 def launch_ms(fn, args, reset=(), reps=3):
@@ -3266,8 +3437,9 @@ def particles_path():
     """The particles path: the flow once with every kernel's launches
     counted and its peak memory; the gates; the kernel checks and times;
     a profile of the box 2PCF and 3PCF. Returns (launches, paircount
-    record, threept record)."""
-    with counted_launches() as launches, captured_pair_counts() as calls:
+    record, threept record, the link kernels' records)."""
+    with counted_launches() as launches, captured_pair_counts() as calls, \
+            captured_link_calls() as link_calls:
         torch.cuda.reset_peak_memory_stats()
         res, ms = particles_flow()
         torch.cuda.synchronize()
@@ -3298,7 +3470,9 @@ def particles_path():
                       'particles_boss_2pcf_3pcf')
     del randoms
     pair_rec, alm_rec = particles_kernels(cat, calls, ms)
-    return launches, pair_rec, alm_rec
+    link_recs = particles_link_checks(link_calls)
+    del link_calls
+    return launches, pair_rec, alm_rec, link_recs
 
 
 # the bispectrum path: the FFT estimator on the main path's catalog at
@@ -3764,7 +3938,10 @@ def main():
     smi = smi_query('name,power.limit')
     # the CUDA kernels; class_path builds and times the Boltzmann library
     t0 = time.perf_counter()
-    logs = _build.build_all(_build.sources())
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        firsts = pool.submit(first_designs)
+        logs = _build.build_all(_build.sources())
+        firsts.result()
     build_s = time.perf_counter() - t0
     for src, log in logs.items():
         print('nvcc %s:\n%s' % (src, log), file=sys.stderr)
@@ -3837,7 +4014,10 @@ def main():
     del fof_cat
     torch.cuda.empty_cache()
     # the particle algorithms on the boss_like sample
-    pb_launches, pb_pair, pb_alm = particles_path()
+    pb_launches, pb_pair, pb_alm, pb_links = particles_path()
+    for k, by_path in pb_links.items():
+        for label, rec in by_path.items():
+            fof_recs[k]['at_' + label] = rec
     torch.cuda.empty_cache()
     # the bispectrum, then the forward model
     t0 = time.perf_counter()

@@ -55,6 +55,16 @@
 // takes the links mode when the list fits the card's free memory beside
 // the fixpoint's label arrays, and the search mode otherwise.
 //
+// The link kernels keep this thread-a-query walk. A design of tiles of
+// 128 consecutive sorted queries that stage their shared neighbour
+// columns' keys, column-table entries and cell masks in shared memory
+// and walk them there (csrc/variants/fof_links_tiles.cu) ran slower on
+// the H100 than this walk with the division skip below, on the FOF
+// flow's grid, a clustered catalog and a sparse sphere grid
+// (kernel_variants.py fof_sweep, PERF.md): the ~8 consecutive queries of
+// a column already share its lookups through L1, and the tiles' rounds
+// and stage cost more than the shared memory saves.
+//
 // Every sweep reads the sweep's input labels and writes a separate array
 // (a Jacobi sweep), so each equals the plain version exactly in either
 // mode; pointer jumping and the convergence test stay in torch.
@@ -65,7 +75,13 @@
 // even, an IEEE divide); r2 = (dx*dx + dy*dy) + dz*dz. _build.py compiles
 // with -fmad=false, so no multiply and add are fused and a pair whose r2
 // sits within an ulp of ll2 links as it does in the plain version. The
-// count and the fill run the same code, so they agree on every pair.
+// division runs only where |d| > box / 4: below that d / box rounds to at
+// most 0.25 (box / 4 is exact), rint gives 0 and d is unchanged, bit for
+// bit but for a zero's sign, which r2 does not see. On the FOF flow's
+// grid nearly every candidate is that close, and the three divisions
+// took about an eighth of the link count's time on the H100
+// (kernel_variants.py fof_links_first_design).
+// The count and the fill run the same code, so they agree on every pair.
 //
 // Built by nbodykit_tpu_torch/_build.py into a shared library with a plain
 // C interface; each nbk_* entry point returns the launch's cudaError_t.
@@ -82,12 +98,21 @@ struct Geo {
   int dlo[3], dhi[3];  // the offsets along each axis: [dlo, dhi]
   int ncell[3];
   F box[3];
+  F qbox[3];  // box / 4: below it the minimum image leaves d as it is
   F ll2;
   int periodic;
 };
 
 __device__ __forceinline__ float round_even(float x) { return rintf(x); }
 __device__ __forceinline__ double round_even(double x) { return rint(x); }
+__device__ __forceinline__ float magnitude(float x) { return fabsf(x); }
+__device__ __forceinline__ double magnitude(double x) { return fabs(x); }
+
+// d - rint(d / box) * box, dividing only where |d| > box / 4
+template <typename F>
+__device__ __forceinline__ F image(F d, F box, F qbox) {
+  return magnitude(d) > qbox ? d - round_even(d / box) * box : d;
+}
 
 // Visits the slots j >= s of one run of cells (keys up to khi) in the
 // linking length of the query at (px, py, pz); returns the first slot
@@ -103,9 +128,9 @@ __device__ __forceinline__ int walk(const Geo<F>& g,
     const size_t j3 = (size_t)3 * j;
     F dx = pos[j3] - px, dy = pos[j3 + 1] - py, dz = pos[j3 + 2] - pz;
     if (g.periodic) {
-      dx = dx - round_even(dx / g.box[0]) * g.box[0];
-      dy = dy - round_even(dy / g.box[1]) * g.box[1];
-      dz = dz - round_even(dz / g.box[2]) * g.box[2];
+      dx = image(dx, g.box[0], g.qbox[0]);
+      dy = image(dy, g.box[1], g.qbox[1]);
+      dz = image(dz, g.box[2], g.qbox[2]);
     }
     const F r2 = (dx * dx + dy * dy) + dz * dz;
     if (r2 <= g.ll2) visit(j);
@@ -248,6 +273,7 @@ static int launch(int what, const void* pos, const int* ci, const void* flat,
     g.dhi[k] = dhi[k];
     g.ncell[k] = ncell[k];
     g.box[k] = (F)box[k];  // the JAX package's jnp.asarray(box, pos.dtype)
+    g.qbox[k] = g.box[k] * (F)0.25;
   }
   g.ll2 = (F)ll2;
   g.periodic = periodic;

@@ -7,13 +7,19 @@ beside the kernel as built at the main path's shapes: the rank pass on
 9,998,863 int32 digits of alphabet 65, the deposit on the CIC payload
 of ``UniformCatalog(nbar=1e-2, BoxSize=1000, seed=42)`` at 512^3, the
 Poisson draw (both output modes) on the lognormal path's 1024^3 lam,
-the FOF's link count, link fill and search sweep on the FOF flow's grid
-and on a clustered 2e6 catalog, the pair count's '1d' and '2d' counts of
-the particles path's boss_like sample and the 3PCF moments of its first
-chunk (65,536 queries). The particle kernels' first designs are whole
-sources under ``csrc/variants/``, timed as variants of the kernels they
-were (with probes that take one of their elements out, whose results
-differ). Run from the repository root on a CUDA machine::
+the FOF's link count, link fill and search sweep on the FOF flow's grid,
+a clustered 2e6 catalog and FiberCollisions' sparse sphere grid, the
+pair count's '1d' and '2d' counts of the particles path's boss_like
+sample and the 3PCF moments of its first chunk (65,536 queries). The
+first designs of the particle kernels and of the FOF link kernels, and
+the link kernels' tile design, are whole sources under
+``csrc/variants/``, timed as variants of the kernels they were (with
+probes that take one of their elements out, whose results differ); a
+case whose function a library does not define (the link kernels' first
+design has no search sweep) skips it. Every output starts as -1 (no
+count, slot or label) and is reset after each check, so a launch that
+writes nothing does not match. Run from the repository root on a CUDA
+machine::
 
     python -m nbodykit_tpu_torch.kernel_variants [kernel ...]
 
@@ -375,6 +381,21 @@ VARIANTS = {
         ('          if (run_im[r])', '          if (g.periodic)')],
         'the minimum image tested on every candidate of a periodic grid, '
         'not only on the runs where it can change a separation'),
+    # the FOF sweeps' division skip taken back (every kernel of the source)
+    'fof_divide_always': ('fof_sweep', [
+        ('  return magnitude(d) > qbox ? d - round_even(d / box) * box : d;',
+         '  return d - round_even(d / box) * box;')],
+        'the minimum image divided on every periodic candidate, not only '
+        'past a quarter box'),
+    # the FOF link kernels' earlier designs (csrc/variants/), whole
+    'fof_links_first_design': ('variants/fof_links_first_design', [],
+        'the first design: the kernels as built without the division '
+        'skip, three divisions a periodic candidate'),
+    'fof_links_tiles': ('variants/fof_links_tiles', [],
+        'the tile design: 128 consecutive queries a CTA in rounds, their '
+        'neighbour columns\' keys, column-table entries and cell masks '
+        'staged in shared memory, each query walking the columns its '
+        'masks hit; a sparse round walks global memory'),
     # the particle kernels' first designs (csrc/variants/), whole
     'paircount_first_design': ('variants/paircount_first_design', [],
         'the first design: a warp a query, its neighbour runs found by '
@@ -469,10 +490,15 @@ SOURCE = {'radix_rank': 'radix_rank', 'paint_deposit': 'paint_deposit',
           'paircount': 'paircount', 'threept': 'threept_alm'}
 
 
+# an earlier design under ``variants/`` whose name is not its source's
+EARLIER_DESIGN_OF = {'fof_links': 'fof_sweep', 'fof_links_tiles': 'fof_sweep'}
+
+
 def built_source(src):
     """The kernel source a variant's source is timed against: itself, or
-    for a first design under ``variants/`` the source it was."""
-    return os.path.basename(src).replace('_first_design', '')
+    for an earlier design under ``variants/`` the source it was."""
+    base = os.path.basename(src).replace('_first_design', '')
+    return EARLIER_DESIGN_OF.get(base, base)
 
 
 def _build_variants(names):
@@ -707,11 +733,24 @@ def clustered_catalog(n=2 * 10 ** 6, box=1000.0, blobs=10 ** 4, seed=42):
     return torch.as_tensor(pos, device='cuda'), ll
 
 
+def sphere_catalog(n=10 ** 6, seed=42):
+    """(f64 positions on the card, box, linking length) of a sparse FOF
+    grid as FiberCollisions makes it: ``n`` points uniform on the unit
+    sphere shifted by 2 in a box of 4 (open), ll the chord of 62
+    arcseconds, so the grid is capped at 4096 cells a side; from numpy's
+    RandomState(seed)."""
+    import numpy as np
+    v = np.random.RandomState(seed).normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1)[:, None]
+    return (torch.as_tensor(v + 2.0, device='cuda'), 4.0,
+            2 * np.sin(0.5 * np.radians(62. / 3600)))
+
+
 def _fof_grids():
     """(label, grid, ll) of the FOF flow (``benchmarks/test_fof.py`` at
     desi_like: the lognormal catalog at BoxSize 5000, Nmesh 1024, nbar
-    1e7 / 5000^3, bias 2, seed 42; ll 0.2 of the mean separation) and
-    of :func:`clustered_catalog`."""
+    1e7 / 5000^3, bias 2, seed 42; ll 0.2 of the mean separation), of
+    :func:`clustered_catalog` and of :func:`sphere_catalog`."""
     from . import cosmology
     from .ops.devicehash import DeviceGridHash
     from .source.catalog import LogNormalCatalog
@@ -724,6 +763,9 @@ def _fof_grids():
     del cat
     pos, ll = clustered_catalog()
     out.append(('clustered_2e6', DeviceGridHash(pos, 1000.0, ll), ll))
+    pos, box, ll = sphere_catalog()
+    out.append(('sphere_1e6', DeviceGridHash(pos, box, ll, periodic=False),
+                ll))
     return out
 
 
@@ -733,7 +775,6 @@ def _fof_cases():
     preallocated outputs."""
     from .ops import fof_cuda as fc
     cases = []
-    stream = torch.cuda.current_stream().cuda_stream
     for label, grid, ll in _fof_grids():
         ci_s = grid.cell_of(grid.pos_s).contiguous()
         args = (grid.pos_s, ci_s, grid.flat_s, grid.valid_s, grid.columns())
@@ -745,31 +786,27 @@ def _fof_cases():
         links = fc.fof_link_fill_cuda(*args, row, *geo)
         labels = torch.arange(n, dtype=torch.int32, device='cuda')
         swept = fc.fof_sweep_cuda(*args[:4], labels, *geo, cols=args[4])
-        dlo, dhi = fc.axis_offsets(grid.offsets)
-        ints = ctypes.c_int * 3
-        tail = (n, 4, grid.flat_s.element_size(), ints(*dlo), ints(*dhi),
-                ints(*[int(v) for v in grid.ncell_np]),
-                (ctypes.c_double * 3)(*grid.box_np), ll ** 2, 1, stream)
-        ptrs = [t.data_ptr() for t in args]
-        for name, extra, ref in (
-                ('nbk_fof_link_count', [counts], counts),
-                ('nbk_fof_link_fill', [row, links], links),
-                ('nbk_fof_sweep', [labels, swept], swept)):
-            out = torch.empty_like(ref)
-            p = ptrs + [t.data_ptr() for t in extra[:-1]] + [out.data_ptr()]
+        for name, a, ref in (('nbk_fof_link_count', None, counts),
+                             ('nbk_fof_link_fill', row, links),
+                             ('nbk_fof_sweep', labels, swept)):
+            # -1 is no count, slot or label: a launch that writes nothing
+            # does not match
+            out = torch.full_like(ref, -1)
+            call = fc.grid_launch_args(*args, a, out, *geo)
 
-            # the closure holds the tensors behind the pointers
-            def run(lib, name=name, p=p, tail=tail, keep=(args, extra)):
+            # the closure holds the tensors behind the pointers; None for a
+            # library without the function
+            def run(lib, name=name, call=call, keep=(args, a, out)):
+                if not hasattr(lib, name):
+                    return None
                 fn = getattr(lib, name)
-                fn.argtypes = ([ctypes.c_void_p] * len(p)
-                               + [ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_int] + [ctypes.c_void_p] * 4
-                               + [ctypes.c_double, ctypes.c_int,
-                                  ctypes.c_void_p])
-                return lambda: _build.check('fof_sweep', fn(*p, *tail))
+                fn.argtypes = fc.grid_argtypes(name)
+                return lambda: _build.check('fof_sweep', fn(*call))
 
             def same(out=out, ref=ref):
-                return bool(torch.equal(out, ref))
+                ok = bool(torch.equal(out, ref))
+                out.fill_(-1)  # each variant writes its own result
+                return ok
             cases.append(('%s %s' % (name[4:], label), run, same))
     return cases
 
@@ -1005,6 +1042,8 @@ def main(argv=()):
                 if built_source(VARIANTS[n][0]) == src] + [
                 ('as_built', run(built))]
             for name, fn in order:
+                if fn is None:
+                    continue
                 ms = _ms(fn)
                 rec = {'kernel': label, 'variant': name, 'ms': ms,
                        'matches': same()}

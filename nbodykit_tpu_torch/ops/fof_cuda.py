@@ -20,7 +20,8 @@ per FOF where it can:
 - ``fof_link_count`` and ``fof_link_fill``, once per FOF: the pair test
   over those columns, counting then writing each valid query's linked
   ``j != i`` (int32) into a CSR list whose row offsets (int64) are the
-  cumsum of the counts; the list is sorted within each row.
+  cumsum of the counts; the list is sorted within each row. A thread
+  takes a query, as the search sweep does.
 - ``fof_sweep`` in one of two modes. ``links``: a min over the list's
   rows, bound by bytes (16 a particle, 4 a link and the label it
   gathers), with no search. ``search``: the column lookups and the pair
@@ -73,7 +74,20 @@ def axis_offsets(offsets):
     """(dlo, dhi): per axis the least and greatest offset, for offsets
     that are the product of one run of consecutive values in [-1, 1]
     per axis containing 0, as ``ops/gridhash.neighbor_offsets`` gives;
-    raises on any other set (the kernels visit exactly that product)."""
+    raises on any other set (the kernels visit exactly that product).
+    Cached by the set: every launch reads it, and the check costs ~0.1
+    ms of host time."""
+    key = tuple(map(tuple, offsets))
+    if key not in _AXIS_OFFSETS:
+        _AXIS_OFFSETS[key] = _axis_offsets(offsets)
+    dlo, dhi = _AXIS_OFFSETS[key]
+    return list(dlo), list(dhi)
+
+
+_AXIS_OFFSETS = {}
+
+
+def _axis_offsets(offsets):
     offs = np.asarray(offsets, dtype='i8').reshape(-1, 3)
     dlo, dhi = offs.min(axis=0), offs.max(axis=0)
     if (dlo < -1).any() or (dlo > 0).any() or (dhi < 0).any() \
@@ -185,6 +199,19 @@ def fof_links_sweep_plain(row, links, labels):
 _fns = {}
 
 
+def grid_argtypes(name):
+    """ctypes argument types of a column-table kernel's entry point
+    (``nbk_fof_sweep``, ``nbk_fof_link_count``, ``nbk_fof_link_fill``):
+    pos, ci, flat, valid, cols, then labels and out (sweep), counts
+    (count) or row and links (fill); n, pos bytes, key bytes; dlo, dhi,
+    ncell, box; ll2, periodic, stream."""
+    ptrs = 6 if name == 'nbk_fof_link_count' else 7
+    return ([ctypes.c_void_p] * ptrs
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 4
+            + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
+
+
 def _fn(name):
     if name not in _fns:
         from .._build import load
@@ -194,15 +221,7 @@ def _fn(name):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
                                                    ctypes.c_void_p]
         else:
-            # pos, ci, flat, valid, cols, then labels and out (sweep),
-            # counts (count) or row and links (fill); n, pos bytes, key
-            # bytes; dlo, dhi, ncell, box; ll2, periodic, stream
-            ptrs = 6 if name == 'nbk_fof_link_count' else 7
-            fn.argtypes = ([ctypes.c_void_p] * ptrs
-                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_void_p] * 4
-                           + [ctypes.c_double, ctypes.c_int,
-                              ctypes.c_void_p])
+            fn.argtypes = grid_argtypes(name)
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -216,6 +235,23 @@ def _check_cuda(who, tensors):
         raise ValueError("%s takes tensors on one device" % who)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("%s takes contiguous tensors" % who)
+
+
+def grid_launch_args(pos_s, ci_s, flat_s, valid_s, cols, a, b, offsets,
+                     ncell, box, ll2, periodic):
+    """The C arguments of one launch of a column-table kernel writing
+    ``b`` (``a``: the sweep's labels, the fill's row offsets, or None),
+    for :func:`grid_argtypes`; the caller keeps the tensors alive."""
+    dlo, dhi = axis_offsets(offsets)
+    ints = ctypes.c_int * 3
+    stream = torch.cuda.current_stream(pos_s.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (pos_s, ci_s, flat_s, valid_s, cols, a, b)
+            if t is not None]
+    return (*ptrs, pos_s.shape[0], pos_s.element_size(),
+            flat_s.element_size(), ints(*dlo), ints(*dhi),
+            ints(*[int(v) for v in ncell]),
+            (ctypes.c_double * 3)(*[float(v) for v in box]), float(ll2),
+            int(bool(periodic)), stream)
 
 
 def _grid_call(who, name, pos_s, ci_s, flat_s, valid_s, cols, a, b,
@@ -242,16 +278,9 @@ def _grid_call(who, name, pos_s, ci_s, flat_s, valid_s, cols, a, b,
                          % (tuple(cols.shape), list(ncell)))
     if n == 0:
         return
-    dlo, dhi = axis_offsets(offsets)
-    ints = ctypes.c_int * 3
-    stream = torch.cuda.current_stream(pos_s.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (pos_s, ci_s, flat_s, valid_s, cols, a, b)
-            if t is not None]
-    check('fof_sweep', _fn(name)(
-        *ptrs, n, pos_s.element_size(), flat_s.element_size(), ints(*dlo),
-        ints(*dhi), ints(*[int(v) for v in ncell]),
-        (ctypes.c_double * 3)(*[float(v) for v in box]), float(ll2),
-        int(bool(periodic)), stream))
+    check('fof_sweep', _fn(name)(*grid_launch_args(
+        pos_s, ci_s, flat_s, valid_s, cols, a, b, offsets, ncell, box, ll2,
+        periodic)))
 
 
 def fof_sweep_cuda(pos_s, ci_s, flat_s, valid_s, labels, offsets, ncell,
@@ -412,18 +441,46 @@ def column_bytes(ncell):
     return 4 * (int(ncell[0]) * int(ncell[1]) + 1)
 
 
-def link_count_bytes(n, pos_itemsize, key_itemsize, ncell):
-    """Bytes the link count must move: positions, cell coordinates, ids,
-    flags and the column table read once, the counts written once."""
+def link_table_entries(ci_s, searching, ncell, offsets, periodic):
+    """Column-table entries a link kernel must read for the queries
+    ``searching`` ((n,) bool) of cells ``ci_s`` ((n, 3) int32): the first
+    slot of each of their neighbour columns and the one past it, counted
+    once (an int; one host sync). On a sparse grid that is far less than
+    the table: FiberCollisions' points on a sphere reach a disk of its
+    4096^2 columns."""
+    nc0, nc1 = int(ncell[0]), int(ncell[1])
+    dlo, dhi = axis_offsets(offsets)
+    a = ci_s[searching, 0].long()
+    b = ci_s[searching, 1].long()
+    read = torch.zeros(nc0 * nc1 + 1, dtype=torch.bool, device=ci_s.device)
+    for da in range(dlo[0], dhi[0] + 1):
+        for db in range(dlo[1], dhi[1] + 1):
+            va, vb = a + da, b + db
+            if periodic:
+                va, vb = va.remainder(nc0), vb.remainder(nc1)
+                col = va * nc1 + vb
+            else:
+                col = (va * nc1 + vb)[(va >= 0) & (va < nc0) & (vb >= 0)
+                                      & (vb < nc1)]
+            read[col] = True
+            read[col + 1] = True
+    return int(read.sum())
+
+
+def link_count_bytes(n, pos_itemsize, key_itemsize, entries):
+    """Bytes the link count must move: positions, cell coordinates, ids
+    and flags read once, the ``entries`` column-table entries it reaches
+    (:func:`link_table_entries`) once, the counts written once."""
     return int(n) * (3 * pos_itemsize + 3 * 4 + key_itemsize + 1 + 4) \
-        + column_bytes(ncell)
+        + 4 * int(entries)
 
 
-def link_fill_bytes(n, links, pos_itemsize, key_itemsize, ncell):
-    """Bytes the link fill must move: the count's inputs and the row
-    offsets read once, the links written once."""
+def link_fill_bytes(n, links, pos_itemsize, key_itemsize, entries):
+    """Bytes the link fill must move: the count's inputs (the ``entries``
+    reached by the queries with a link) and the row offsets read once,
+    the links written once."""
     return int(n) * (3 * pos_itemsize + 3 * 4 + key_itemsize + 1) \
-        + 8 * (int(n) + 1) + column_bytes(ncell) + 4 * int(links)
+        + 8 * (int(n) + 1) + 4 * int(entries) + 4 * int(links)
 
 
 def links_sweep_bytes(n, links):

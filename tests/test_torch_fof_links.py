@@ -3,7 +3,14 @@
 ``searchsorted``, a brute-force O(n^2) pair list and the JAX package's
 ``neighbor_min`` fold and ``local_fof_labels``: f4 and f8, periodic and
 open, uniform and clustered, grids of 1, 2 and 3 cells on an axis, and a
-grid of int64 cell ids. Every comparison is exact (integer outputs)."""
+grid of int64 cell ids; the column-table entries of the link kernels'
+byte bound; and a model of the link kernels' tile design
+(``csrc/variants/fof_links_tiles.cu``; ``link_rounds``, here): every
+plain pair inside its query's staged ranges, and the staged walk
+emulated row by row. Every comparison is exact (integer outputs)."""
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -368,3 +375,436 @@ def test_new_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA tensors'):
         fof_cuda.fof_links_sweep_cuda(row, torch.zeros(0, dtype=torch.int32),
                                       torch.arange(n, dtype=torch.int32))
+
+
+# A model of the link kernels' tile design in torch
+# (``csrc/variants/fof_links_tiles.cu`` ``axis_runs``, ``plan_range``,
+# ``plan_offsets`` and ``link_tile``), for the tests below. The kernels as
+# built take a query a thread; the tile design is kept as a variant that
+# the card times beside them.
+TILES_CU = os.path.join(os.path.dirname(fof_cuda.__file__), os.pardir,
+                        'csrc', 'variants', 'fof_links_tiles.cu')
+
+
+def tiles_define(name):
+    """An integer ``#define`` of the tile design's source."""
+    with open(TILES_CU) as f:
+        return int(re.search(r'^#define %s (\w+)' % name, f.read(),
+                             re.M).group(1))
+
+
+# queries a tile (threads a CTA), shared bytes of a round's staged keys,
+# column-table entries and column masks, slot ranges a round (3 planes x
+# 2 pieces of b), the ints of a round's plan, and the cells along c up
+# to which a staged column's mask holds a bit a cell
+LINK_THREADS = tiles_define('LINK_THREADS')
+LINK_STAGE_BYTES = tiles_define('LINK_STAGE_BYTES')
+LINK_RANGES = tiles_define('LINK_RANGES')
+LINK_PLAN_INTS = tiles_define('LINK_PLAN_INTS')
+LINK_EXACT_CELLS = tiles_define('LINK_EXACT_CELLS')
+MSHIFT_RULE = '''  if (ncell[2] > LINK_EXACT_CELLS)
+    while ((ncell[2] - 1) >> g.mshift >= 256) ++g.mshift;
+  g.mwords = (((ncell[2] - 1) >> g.mshift) >> 5) + 1;'''
+
+
+def mask_shift(ncell):
+    """The shift of a staged column's mask: bit ``c >> shift`` holds
+    cell c along c; 0 up to ``LINK_EXACT_CELLS`` cells, else the least
+    that keeps 256 bits (``Geo::mshift``, ``MSHIFT_RULE``)."""
+    shift = 0
+    if int(ncell[2]) > LINK_EXACT_CELLS:
+        while (int(ncell[2]) - 1) >> shift >= 256:
+            shift += 1
+    return shift
+
+
+def mask_words(ncell):
+    """32-bit words of a staged column's mask (``Geo::mwords``)."""
+    return (((int(ncell[2]) - 1) >> mask_shift(ncell)) >> 5) + 1
+
+
+def test_link_kernels_match_their_source():
+    """The tile design's tile, stage, ranges and plan as its source
+    states them; its static shared memory fits a CTA's 48 KB and lets 10
+    CTAs (1280 threads) share an SM's 228 KB; the mask rule is the
+    source's; the kernels as built and the first design keep 256 threads
+    a block."""
+    assert (LINK_THREADS, LINK_STAGE_BYTES, LINK_RANGES, LINK_PLAN_INTS,
+            LINK_EXACT_CELLS) == (128, 20480, 6, 53, 1088)
+    # the plan: the group (3), the b pieces (3), 7 ints a range, the
+    # stage's keys, entries, fit and stop, one of padding (5)
+    assert LINK_PLAN_INTS == 3 + 3 + 7 * LINK_RANGES + 5
+    smem = LINK_STAGE_BYTES + 4 * LINK_PLAN_INTS
+    assert smem == 20480 + 4 * 53 <= 48 * 1024
+    assert 10 * (smem + 1024) <= 228 * 1024
+    with open(TILES_CU) as f:
+        assert MSHIFT_RULE in f.read()
+    csrc = os.path.dirname(os.path.dirname(TILES_CU))
+    for source in ('fof_sweep.cu', 'variants/fof_links_first_design.cu'):
+        with open(os.path.join(csrc, source)) as f:
+            assert re.search(r'^#define SWEEP_THREADS 256$', f.read(), re.M)
+    assert fof_cuda.SWEEP_THREADS == 256
+    # the column masks: a bit a cell up to LINK_EXACT_CELLS (the FOF
+    # flow's 1077 cells: 34 words), then 256 bits (4096 cells: a bit for
+    # 16, 8 words)
+    for nc2, shift, words in ((1, 0, 1), (100, 0, 4), (1077, 0, 34),
+                              (1088, 0, 34), (1089, 3, 5), (4096, 4, 8)):
+        assert mask_shift([1, 1, nc2]) == shift
+        assert mask_words([1, 1, nc2]) == words
+
+
+def _axis_runs(cmin, cmax, n, dlo, dhi, periodic):
+    """``grid_columns.cuh`` ``axis_runs`` over int64 tensors, for the
+    cells reached from every cell in [cmin, cmax] (offsets [dlo, dhi]):
+    (lo0, hi0, lo1, hi1, m), at most two runs, the second above."""
+    lo, hi = cmin + dlo, cmax + dhi
+    zero = torch.zeros_like(lo)
+    if not periodic:
+        return (lo.clamp(min=0), hi.clamp(max=n - 1), zero, zero,
+                torch.ones_like(lo))
+    cover = hi - lo + 1 >= n
+    below = ~cover & (lo < 0)
+    above = ~cover & ~below & (hi >= n)
+    wrap = below | above
+    lo0 = torch.where(cover | wrap, zero, lo)
+    hi0 = torch.where(cover, n - 1, torch.where(above, hi - n, hi))
+    lo1 = torch.where(below, lo + n, torch.where(above, lo, zero))
+    hi1 = torch.where(wrap, n - 1, zero)
+    return lo0, hi0, lo1, hi1, 1 + wrap.long()
+
+
+def _cells_of(runs, t):
+    """(the t-th cell of the runs, whether it exists)."""
+    lo0, hi0, lo1, hi1, m = runs
+    len0 = hi0 - lo0 + 1
+    count = len0 + torch.where(m == 2, hi1 - lo1 + 1, 0)
+    return torch.where(t < len0, lo0 + t, lo1 + t - len0), t < count
+
+
+def round_ranges(a, bmin, bhi, cols, ncell, dlo, dhi, periodic):
+    """The slot ranges the link kernels stage for rounds of plane ``a``
+    and b in [bmin, bhi] ((m,) int64 each): ((m, LINK_RANGES, 2) slots
+    [lo, hi), (m, LINK_RANGES) columns, (m, LINK_RANGES) first column
+    index, the b pieces (lo0, hi0, lo1), and whether a's planes wrap);
+    range t is plane ``t // 2`` of a's neighbour planes and piece ``t %
+    2`` of b's, empty where either does not exist (``plan_range``)."""
+    nc0, nc1 = int(ncell[0]), int(ncell[1])
+    ra = _axis_runs(a, a, nc0, dlo[0], dhi[0], periodic)
+    rb = _axis_runs(bmin, bhi, nc1, dlo[1], dhi[1], periodic)
+    cols = cols.long()
+    slots, ncols, col0s = [], [], []
+    for t in range(LINK_RANGES):
+        va, ok = _cells_of(ra, torch.full_like(a, t // 2))
+        piece = t % 2
+        ok = ok & (rb[4] > piece)
+        lo, hi = (rb[2], rb[3]) if piece else (rb[0], rb[1])
+        ncol = torch.where(ok, hi - lo + 1, 0)
+        col0 = torch.where(ok, va * nc1 + lo, 0)
+        s0 = torch.where(ok, cols[col0], 0)
+        s1 = torch.where(ok, cols[col0 + ncol], 0)
+        slots.append(torch.stack([s0, s1], -1))
+        ncols.append(ncol)
+        col0s.append(col0)
+    return (torch.stack(slots, 1), torch.stack(ncols, 1),
+            torch.stack(col0s, 1), (rb[0], rb[1], rb[2]), ra[4] == 2)
+
+
+def link_rounds(ci_s, searching, cols, ncell, offsets, periodic, key_bytes,
+                threads=LINK_THREADS,
+                stage_bytes=LINK_STAGE_BYTES):
+    """A model of the link kernels' rounds: the rounds of their tiles
+    computed in torch as ``csrc/fof_sweep.cu`` ``link_tile`` computes
+    them, for every tile at once. Nothing checks it against the kernel
+    (the card's bit-for-bit checks of the counts and lists are the
+    kernel's test); these tests check the design it describes.
+
+    ci_s : (n, 3) int32 cell coordinates of the sorted queries;
+    searching : (n,) bool, the queries that search (valid; for the fill
+    also a non-empty row); cols : the column table; key_bytes : 4 or 8.
+    A tile is ``threads`` consecutive queries; each round takes the
+    searching queries of the least plane a left in it with b in [bmin,
+    bhi], bhi halved from the greatest b until the round is final
+    (``plan_offsets``): sparse (more column-table entries than keys: it
+    walks global memory), or its keys and entries (4 bytes an entry and
+    ``mask_words(ncell) * 4`` of its column's mask) fit ``stage_bytes``
+    (staged), or one column that does not fit (global).
+    Returns a dict of tensors on ``ci_s``'s device: ``round_of`` (n,)
+    int64 (-1 for a query that does not search), and for each round
+    ``tile``, ``staged`` (False: its queries walk global memory),
+    ``sparse``, ``halved`` (bhi below the plane's greatest b), ``slots``
+    (R, LINK_RANGES, 2), ``ncol``, ``col0``, ``pieces`` (R, 3: b pieces
+    lo0, hi0, lo1), ``a_wrapped`` (its planes wrap), ``keys`` and ``entries``
+    (R,); ``c_wrapped``, the searching queries whose cells along c
+    wrap (an int)."""
+    n = ci_s.shape[0]
+    dev = ci_s.device
+    dlo, dhi = fof_cuda.axis_offsets(offsets)
+    big = 2 ** 62
+    nt = -(-n // threads)
+    pad = nt * threads - n
+
+    def tiled(x, fill):
+        return torch.nn.functional.pad(x, (0, pad), value=fill).view(
+            nt, threads)
+    a = tiled(ci_s[:, 0].long(), 0)
+    b = tiled(ci_s[:, 1].long(), 0)
+    pending = tiled(searching.to(torch.int64), 0).bool()
+    round_of = torch.full((nt, threads), -1, dtype=torch.int64, device=dev)
+    out = {k: [] for k in ('tile', 'staged', 'sparse', 'halved', 'slots',
+                           'ncol', 'col0', 'pieces', 'a_wrapped', 'keys',
+                           'entries')}
+    words = mask_words(ncell)
+    first = 0
+    while True:
+        tiles = torch.nonzero(pending.any(1)).flatten()
+        if tiles.numel() == 0:
+            break
+        pend, at, bt = pending[tiles], a[tiles], b[tiles]
+        ag = torch.where(pend, at, big).amin(1)
+        group = pend & (at == ag[:, None])
+        bmin = torch.where(group, bt, big).amin(1)
+        bmax = torch.where(group, bt, -1).amax(1)
+        bhi = bmax.clone()
+        while True:
+            slots, ncol, col0, pieces, a_wrapped = round_ranges(
+                ag, bmin, bhi, cols, ncell, dlo, dhi, periodic)
+            keys = (slots[..., 1] - slots[..., 0]).sum(1)
+            entries = torch.where(ncol > 0, ncol + 1, 0).sum(1)
+            sparse = entries > keys
+            fit = ~sparse & (key_bytes * keys + 4 * (words + 1) * entries
+                             <= stage_bytes)
+            more = ~(sparse | fit) & (bhi > bmin)
+            if not bool(more.any()):
+                break
+            bhi = torch.where(more, bmin + (bhi - bmin) // 2, bhi)
+        go = group & (bt <= bhi[:, None])
+        ids = torch.arange(first, first + tiles.numel(), device=dev)
+        round_of[tiles] = torch.where(go, ids[:, None], round_of[tiles])
+        pending[tiles] = pend & ~go
+        first += tiles.numel()
+        for k, v in (('tile', tiles), ('staged', fit), ('sparse', sparse),
+                     ('halved', bhi < bmax), ('slots', slots),
+                     ('ncol', ncol), ('col0', col0),
+                     ('pieces', torch.stack(pieces, 1)),
+                     ('a_wrapped', a_wrapped), ('keys', keys),
+                     ('entries', entries)):
+            out[k].append(v)
+    plan = {k: torch.cat(v) if v else torch.zeros(0, dtype=torch.int64,
+                                                  device=dev)
+            for k, v in out.items()}
+    plan['round_of'] = round_of.flatten()[:n]
+    c = ci_s[:, 2].long()
+    plan['c_wrapped'] = int((_axis_runs(c, c, int(ncell[2]), dlo[2], dhi[2],
+                                        periodic)[4] == 2)[searching].sum())
+    return plan
+
+
+# the link kernels' rounds (link_rounds) on every grid above,
+# the two of int64 ids and one of 4096 cells along c (masks of a bit for
+# 16 cells), with the kernels' stage and with one of 1,200 bytes that
+# halves rounds and sends single columns to the global walk
+INT64 = [('int64-%s' % dt, dt) for dt in ('f4', 'f8')] + [('coarse-f8', 'f8')]
+STAGES = [LINK_STAGE_BYTES, 1200]
+
+
+def round_grid(case):
+    """(grid, ll) of a case of ALL or INT64."""
+    if case[0] == 'coarse-f8':
+        box, ll = np.array([8.0, 8.0, 4096.0]), 1.0
+        pos = positions('clustered', 'f8', box, ll, 1500, seed=9)
+        return tdh.DeviceGridHash(torch.as_tensor(pos), box, ll), ll
+    if case[0].startswith('int64'):
+        box, ll = np.array([2048.0, 1024.0, 1024.0]), 1.0
+        pos = positions('clustered', case[1], box, ll, 1500, seed=8)
+        return tdh.DeviceGridHash(torch.as_tensor(pos), box, ll), ll
+    *_, ll, _, grid = case_grid(case)
+    return grid, ll
+
+
+def grid_rounds(grid, stage):
+    ci_s = grid.cell_of(grid.pos_s)
+    cols = fof_cuda.column_table(grid.flat_s, grid.ncell_np)
+    return ci_s, cols, link_rounds(
+        ci_s, grid.valid_s, cols, grid.ncell_np, grid.offsets, grid.periodic,
+        grid.flat_s.element_size(), stage_bytes=stage)
+
+
+@pytest.mark.parametrize('stage', STAGES)
+@pytest.mark.parametrize('case', ALL + INT64, ids=IDS + [c[0] for c in INT64])
+def test_link_rounds_cover_every_plain_pair(case, stage):
+    """Every valid query takes one round of its own tile, every query of
+    a round lies in one plane, and a staged round's slot ranges hold
+    every j the plain list links to its queries (and fit the stage)."""
+    grid, ll = round_grid(case)
+    ci_s, cols, plan = grid_rounds(grid, stage)
+    n = grid.pos_s.shape[0]
+    r = plan['round_of']
+    valid = grid.valid_s
+    assert bool((r[valid] >= 0).all()) and bool((r[~valid] == -1).all())
+    live = torch.nonzero(valid).flatten()
+    assert torch.equal(plan['tile'][r[live]],
+                       live // LINK_THREADS)
+    # one plane a round
+    a = ci_s[live, 0].long()
+    amin = torch.full((plan['tile'].numel(),), 2 ** 40).scatter_reduce(
+        0, r[live], a, 'amin')
+    assert torch.equal(amin[r[live]], a)
+    kb = grid.flat_s.element_size()
+    staged = plan['staged']
+    words = mask_words(grid.ncell_np)
+    nbytes = kb * plan['keys'] + 4 * (words + 1) * plan['entries']
+    assert bool((nbytes[staged] <= stage).all())
+    assert not bool((staged & plan['sparse']).any())
+    i, j = fof_cuda.fof_pairs_plain(grid.pos_s, ci_s, grid.flat_s, valid,
+                                    *grid.geometry(ll ** 2))
+    assert j.numel() > 50
+    ri = r[i]
+    lo, hi = plan['slots'][ri, :, 0], plan['slots'][ri, :, 1]
+    inside = ((j[:, None] >= lo) & (j[:, None] < hi)).any(1)
+    assert bool(inside[staged[ri]].all())
+    if stage < LINK_STAGE_BYTES:
+        # rounds halved, or (a grid of one column) walked globally
+        assert int(plan['halved'].sum()) + int((~staged).sum()) > 0
+
+
+def np_runs(c, n, dlo, dhi, periodic):
+    """grid_columns.cuh axis_runs: [(lo, hi), ...] in increasing order."""
+    lo, hi = c + dlo, c + dhi
+    if not periodic:
+        return [(max(lo, 0), min(hi, n - 1))]
+    if hi - lo + 1 >= n:
+        return [(0, n - 1)]
+    if lo < 0:
+        return [(0, hi), (lo + n, n - 1)]
+    if hi >= n:
+        return [(0, hi - n), (lo, n - 1)]
+    return [(lo, hi)]
+
+
+@pytest.mark.parametrize('case', ALL + INT64, ids=IDS + [c[0] for c in INT64])
+def test_link_table_entries_count_the_reached_columns(case):
+    """The column-table entries of the link kernels' byte bound: for the
+    valid queries (and for a third of them), the first and the one-past
+    entry of every neighbour column, counted once, as a set built query
+    by query in Python."""
+    grid, _ = round_grid(case)
+    ci_s = grid.cell_of(grid.pos_s)
+    nc = [int(v) for v in grid.ncell_np]
+    dlo, dhi = fof_cuda.axis_offsets(grid.offsets)
+    for searching in (grid.valid_s,
+                      grid.valid_s & (torch.arange(len(ci_s)) % 3 == 0)):
+        want = set()
+        for a, b, _ in ci_s[searching].tolist():
+            for la, ha in np_runs(a, nc[0], dlo[0], dhi[0], grid.periodic):
+                for lb, hb in np_runs(b, nc[1], dlo[1], dhi[1],
+                                      grid.periodic):
+                    for va in range(la, ha + 1):
+                        for vb in range(lb, hb + 1):
+                            want |= {va * nc[1] + vb, va * nc[1] + vb + 1}
+        got = fof_cuda.link_table_entries(ci_s, searching, grid.ncell_np,
+                                          grid.offsets, grid.periodic)
+        assert got == len(want) <= nc[0] * nc[1] + 1
+
+
+def emulated_rows(grid, ll, ci_s, cols, plan):
+    """{query: [j, ...]} of every query of a staged round, built as the
+    kernels build it (``plan_offsets``, ``stage_round``,
+    ``staged_links``): the round's keys and column-table entries staged
+    range by range, each column's mask (bit ``c >> mask_shift`` for
+    cell c) from its staged keys, a column skipped where its mask holds
+    none of the query's bits, each column's bounds rebased from the
+    staged entries, a lower bound in the staged keys, the walk to the
+    run's end, the query
+    itself skipped, the minimum image divided only past a quarter box,
+    in numpy in the positions' dtype."""
+    flat, colsn = grid.flat_s.numpy(), cols.numpy().astype('i8')
+    pos, ci = grid.pos_s.numpy(), ci_s.numpy()
+    nc = [int(v) for v in grid.ncell_np]
+    dlo, dhi = fof_cuda.axis_offsets(grid.offsets)
+    per = grid.periodic
+    dt = pos.dtype.type
+    box = grid.box_np.astype(pos.dtype)
+    qbox = box * dt(0.25)
+    ll2 = dt(float(ll) ** 2)
+    sh = mask_shift(grid.ncell_np)
+    round_of = plan['round_of'].numpy()
+    rows = {}
+    for rd in np.nonzero(plan['staged'].numpy())[0]:
+        slots = plan['slots'][rd].numpy()
+        ncol, col0 = plan['ncol'][rd].numpy(), plan['col0'][rd].numpy()
+        blo0, bhi0, blo1 = plan['pieces'][rd].tolist()
+        skeys, sent, e0, shift = [], [], [], []
+        for t in range(LINK_RANGES):
+            e0.append(len(sent))
+            shift.append(len(skeys) - int(slots[t, 0]))
+            if ncol[t] > 0:
+                skeys.extend(flat[slots[t, 0]:slots[t, 1]].tolist())
+                sent.extend(colsn[col0[t]:col0[t] + ncol[t] + 1].tolist())
+        sbits = {}
+        for t in range(LINK_RANGES):
+            for x in range(ncol[t]):
+                e, base = e0[t] + x, int(col0[t] + x) * nc[2]
+                sbits[e] = 0
+                for u in range(sent[e] + shift[t], sent[e + 1] + shift[t]):
+                    sbits[e] |= 1 << ((skeys[u] - base) >> sh)
+        for i in np.nonzero(round_of == rd)[0]:
+            a, b, c = (int(v) for v in ci[i])
+            out = []
+
+            def walk(u, ue, khi, sh):
+                while u < ue and skeys[u] <= khi:
+                    j = u - sh
+                    if j != i:
+                        d = pos[j] - pos[i]
+                        if per:
+                            far = np.abs(d) > qbox
+                            d = np.where(far, d - np.round(d / box) * box, d)
+                        r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+                        if r2 <= ll2:
+                            out.append(j)
+                    u += 1
+                return u
+            cells_a = [v for lo, hi in np_runs(a, nc[0], dlo[0], dhi[0], per)
+                       for v in range(lo, hi + 1)]
+            cells_b = [v for lo, hi in np_runs(b, nc[1], dlo[1], dhi[1], per)
+                       for v in range(lo, hi + 1)]
+            rc = np_runs(c, nc[2], dlo[2], dhi[2], per)
+            want = 0
+            for lo, hi in rc:
+                want |= sum(1 << k for k in range(lo >> sh, (hi >> sh) + 1))
+            for ka, va in enumerate(cells_a):
+                for vb in cells_b:
+                    piece = int(vb > bhi0)
+                    t = 2 * ka + piece
+                    e = e0[t] + vb - (blo1 if piece else blo0)
+                    if not sbits[e] & want:
+                        continue
+                    us, ue = sent[e] + shift[t], sent[e + 1] + shift[t]
+                    base = (va * nc[1] + vb) * nc[2]
+                    u = us
+                    for lo, hi in rc:
+                        # lower_bound in [u, ue), then the walk
+                        u += int(np.searchsorted(skeys[u:ue], base + lo))
+                        u = walk(u, ue, base + hi, shift[t])
+            rows[int(i)] = out
+    return rows
+
+
+@pytest.mark.parametrize('stage', STAGES)
+@pytest.mark.parametrize('case', ALL + INT64, ids=IDS + [c[0] for c in INT64])
+def test_staged_walk_gives_the_plain_rows(case, stage):
+    """The kernels' staged walk, emulated on the rounds, gives every
+    staged query's row of the plain list: the same slots in the same
+    order (the minimum image skipped below a quarter box, bit for bit)."""
+    grid, ll = round_grid(case)
+    ci_s, cols, plan = grid_rounds(grid, stage)
+    row, links = link_list(grid, ci_s, ll)
+    rows = emulated_rows(grid, ll, ci_s, cols, plan)
+    r = plan['round_of'][grid.valid_s]
+    assert len(rows) == int(plan['staged'][r].sum())
+    if stage == LINK_STAGE_BYTES:
+        # every round is staged but a sparse one (the int64 grids')
+        assert bool((plan['staged'] | plan['sparse']).all())
+    for i, got in rows.items():
+        want = links[row[i]:row[i + 1]].tolist()
+        assert got == want, (i, got, want)

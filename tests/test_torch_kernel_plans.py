@@ -170,9 +170,13 @@ def test_link_kernel_bytes(ncell, n, pb, kb, E):
     if ncell[0] == 1077:
         assert ncol == 4 * 1159930              # 4.6 MB: fits the L2
     q = 3 * pb + 12 + kb + 1                    # a query's inputs
-    assert fof_cuda.link_count_bytes(n, pb, kb, ncell) == n * (q + 4) + ncol
-    assert fof_cuda.link_fill_bytes(n, E, pb, kb, ncell) \
-        == n * q + 8 * (n + 1) + ncol + 4 * E
+    # the column-table entries the queries reach: the whole table, or a
+    # few (a sparse grid's queries reach a small part of it)
+    for entries in (ncol // 4, 7):
+        assert fof_cuda.link_count_bytes(n, pb, kb, entries) \
+            == n * (q + 4) + 4 * entries
+        assert fof_cuda.link_fill_bytes(n, E, pb, kb, entries) \
+            == n * q + 8 * (n + 1) + 4 * entries + 4 * E
     # row offsets, labels in and out, the links: 16 B a particle and 4 a
     # link (the labels a link gathers are the labels read once)
     assert fof_cuda.links_sweep_bytes(n, E) == 16 * n + 8 + 4 * E

@@ -7,7 +7,7 @@ Run from the repository root with no arguments::
 
 It builds the hand-written kernels from ``nbodykit_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
-drives ten paths through the user entry points:
+drives eleven paths through the user entry points:
 
 - the main path: a UniformCatalog of ~1e7 threefry particles painted
   onto a 512^3 CIC mesh, compensated, FFTPower in (k, mu) with
@@ -18,6 +18,16 @@ drives ten paths through the user entry points:
   pass at the segsum paint's 2^27-cell alphabet) and bf16 storage
   (``mesh_bf16``: FFTPower at ``mesh_dtype='bf16'`` against the f8 run,
   mass, the peaks of paint + r2c at 1024^3 in f4 and bf16);
+- the main path across ranks (``dist_main``, after FFTCorr and
+  ProjectedFFTPower): the same catalog and FFTPower at P = 2 and P = 4
+  processes spawned on card 0 and joined over gloo (collectives staged
+  through the host; not multi-card scaling), each held against the
+  one-rank run: modes, P(k, mu) and the poles within 1e-4, the
+  gathered painted field within 1e-5 of its largest value, every rank's
+  exchange rank pass (D = P) bit for bit against its plain version and
+  rank 0's extended-slab deposit within its tolerance; stage times,
+  peaks and launches a rank. ``python3 chip_smoke.py --dist-nccl`` on a
+  host of 4 cards runs only this phase over NCCL, one rank a card;
 - the lognormal path, the repo's FFTPower benchmark flow
   (``benchmarks/test_fftpower.py`` at its ``desi_like`` scale):
   LogNormalCatalog(LinearPower(Planck15, 0.55, 'EisensteinHu'),
@@ -534,17 +544,24 @@ def counted_launches():
     out['fof_sweep'] = out['fof_sweep_search'] + out['fof_sweep_links']
 
 
-def main_path(cat, nmesh):
-    """FFTPower on the catalog at full width through the user entry
-    points, with every kernel's launches counted."""
-    from nbodykit_tpu_torch import set_options
-    from nbodykit_tpu_torch.algorithms.fftpower import (FFTPower,
-                                                        project_to_basis)
+def main_run(cat, nmesh):
+    """The main path as a closure: the catalog's compensated CIC mesh
+    and its FFTPower in (k, mu) with poles 0, 2, 4."""
+    from nbodykit_tpu_torch.algorithms.fftpower import FFTPower
 
     def run():
         mesh = cat.to_mesh(Nmesh=nmesh, resampler='cic', compensated=True)
         return mesh, FFTPower(mesh, mode='2d', Nmu=5, poles=[0, 2, 4])
+    return run
 
+
+def main_path(cat, nmesh):
+    """FFTPower on the catalog at full width through the user entry
+    points, with every kernel's launches counted."""
+    from nbodykit_tpu_torch import set_options
+    from nbodykit_tpu_torch.algorithms.fftpower import project_to_basis
+
+    run = main_run(cat, nmesh)
     run()                                            # warm-up
     with counted_launches() as launches:
         t0 = time.perf_counter()
@@ -2035,6 +2052,271 @@ def other_fft_algorithms(cat, nmesh):
           'P_over_area_over_N': ratio, 'gate': 0.02})
     assert np.isfinite(P[modes > 0]).all()
     assert abs(ratio - 1) < 0.02, ratio
+
+# dist_main: the main path's FFTPower across P ranks, spawned processes
+# that share card 0 over gloo (its collectives staged through the host);
+# the rank counts, the stages each rank times and the repetitions
+DIST_RANKS = (2, 4)
+DIST_STAGES = ('dist_exchange', 'dist_paint_local', 'dist_halo',
+               'dist_r2c', 'dist_binning_reduce')
+DIST_REPS = 3
+DIST_KERNELS = ('radix_rank', 'paint_deposit', 'threefry')
+# the f4 bar of BASELINE.md for P(k) (relative to each column's largest)
+DIST_PK_RTOL = 1e-4
+
+
+def _quiet(fn, *args, **kw):
+    """(fn's result, the JSON lines it printed): a rank's checks print
+    nothing themselves; the parent prints their lines."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, [json.loads(line) for line in buf.getvalue().splitlines()]
+
+
+def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, q):
+    """One rank of ``dist_main``: joins the world of ``nproc`` ranks
+    (``backend`` 'gloo': all on cuda:0, collectives staged through the
+    host; 'nccl': rank r on cuda:r), draws its rows of the main path's
+    UniformCatalog, runs FFTPower through the user entry points
+    (DIST_REPS timed runs after a warm-up, each stage a CUDA-event
+    window), checks the exchange's rank
+    pass on its destinations and (rank 0) the deposit on its extended
+    slab against their plain versions, gathers the painted field to
+    rank 0, which compares it with the one-rank field saved at
+    ``ref_path``, and puts its record on ``q``. ``workdir`` holds the
+    world's rendezvous file."""
+    from nbodykit_tpu_torch import _build, utils
+    from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
+                                                   pass_rank_hist_plain,
+                                                   raise_on_bad_digits)
+    from nbodykit_tpu_torch.ops.window import window_support
+    from nbodykit_tpu_torch.parallel.exchange import exchange_by_dest
+    from nbodykit_tpu_torch.parallel.runtime import (init_distributed,
+                                                     world_mesh)
+    from nbodykit_tpu_torch.source.catalog import UniformCatalog
+    from nbodykit_tpu_torch.utils import GatherArray
+    t_start = time.perf_counter()
+    # every rank is on this host: gloo's sockets on the loopback device
+    os.environ.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    # the parent built every kernel: a rank compiles nothing
+    assert _build.build_all(list(DIST_KERNELS)) == {}
+    device = torch.device('cuda', rank if backend == 'nccl' else 0)
+    init_distributed(init_method='file://' + os.path.join(workdir, 'init'),
+                     num_processes=nproc, process_id=rank, backend=backend,
+                     device=device)
+    torch.cuda.set_device(device)
+    mesh = world_mesh()
+    assert mesh.size == nproc and mesh.device == device and \
+        mesh.staged == (backend == 'gloo'), mesh
+    with counted_launches() as cat_launches:
+        cat = UniformCatalog(nbar=1e-2, BoxSize=1000.0, seed=42, comm=mesh)
+    run = main_run(cat, nmesh)
+    run()                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with counted_launches() as launches:
+        t0 = time.perf_counter()
+        m, r = run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # the exchange's rank pass, then the paint bucketing's two at 512^3
+    assert launches['radix_rank'] >= 3 and launches['paint_deposit'] >= 1, \
+        launches
+    times = StageTimes()
+    utils.stage_timer = times
+    try:
+        for _ in range(DIST_REPS):
+            run()
+    finally:
+        utils.stage_timer = None
+    stages = {k: {'median': float(np.median(v)), 'min': min(v),
+                  'max': max(v), 'calls': len(v)}
+              for k, v in times.ms.items()}
+    assert set(DIST_STAGES) <= set(stages), stages
+    _, whole = spread(run, DIST_REPS)
+
+    # the exchange's rank pass at D = P on this rank's destinations
+    pm = m.pm
+    cpos = pm._to_cell_units(cat['Position'])
+    dest = pm._route_dest(cpos).contiguous()
+    got = pass_rank_hist_cuda(dest, nproc)
+    raise_on_bad_digits(pm.device)
+    want = pass_rank_hist_plain(dest, nproc)
+    rank_same = all(torch.equal(a, b) for a, b in zip(got, want))
+    assert rank_same, "rank %d: the exchange's rank pass differs" % rank
+    rec = dict(rank=rank, n_rows=len(cat), csize=cat.csize, wall_s=wall_s,
+               run_ms=whole, stages_ms=stages, peak_bytes=peak,
+               launches=launches, cat_launches=cat_launches,
+               rank_pass_bit_identical=rank_same, lines=[])
+    if rank == 0:
+        rec['rank_timing'], lines = _quiet(time_rank, dest.shape[0],
+                                           D=nproc, digits=dest)
+        rec['lines'] += lines
+        # the deposit on the extended slab this rank paints
+        h = window_support('cic')
+        n0 = nmesh // nproc
+        mass = torch.ones(len(cat), dtype=torch.float32, device='cuda')
+        (cpos_r, mass_r), valid, _ = exchange_by_dest(dest, [cpos, mass],
+                                                      mesh)
+        mass_r = torch.where(valid, mass_r, 0.0)
+        (plan, payload, geom, err, _), lines = _quiet(
+            deposit_case, 'cic slab n0l=%d origin=%d of %d^3, rank 0 of %d'
+            % (n0 + 2 * h, -h, nmesh, nproc), cpos_r, mass_r,
+            (n0 + 2 * h, nmesh, nmesh), (nmesh,) * 3, -h, 'cic')
+        rec['lines'] += lines
+        rec['deposit_timing'] = time_deposit(payload, geom, plan, err)
+        del cpos_r, mass_r, payload
+    else:
+        # the exchange is a collective: every rank takes part
+        exchange_by_dest(dest, [cpos, torch.ones(len(cat), device='cuda')],
+                         mesh)
+    # the painted field, gathered to rank 0 and held against one rank's
+    field = m.to_real_field()
+    mean = float(mesh.all_reduce(field.value.double().sum())) / pm.Ntot
+    whole_field = GatherArray(field.value, mesh, root=0)
+    if rank == 0:
+        ref = np.load(ref_path, mmap_mode='r')
+        assert whole_field.shape == ref.shape, whole_field.shape
+        rec['field_max_abs_diff'] = float(np.abs(whole_field - ref).max())
+        rec['field_max'] = float(np.abs(ref).max())
+    rec['field_mean'] = mean
+    rec['power'] = {c: np.asarray(r.power[c]) for c in r.power.variables}
+    rec['poles'] = {c: np.asarray(r.poles[c]) for c in r.poles.variables}
+    rec['rank_seconds'] = time.perf_counter() - t_start
+    q.put(rec)
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(target, nproc, args, timeout_s=600):
+    """Spawn ``nproc`` processes of ``target(rank, nproc, *args, q)`` (the
+    ``spawn`` start method) and return their records in rank order. A
+    rank that dies fails the call; every process is stopped before it
+    returns."""
+    import queue as queue_mod
+    ctx = torch.multiprocessing.get_context('spawn')
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, nproc) + tuple(args) + (q,))
+             for r in range(nproc)]
+    try:
+        for p in procs:
+            p.start()
+        recs = {}
+        deadline = time.monotonic() + timeout_s
+        while len(recs) < nproc:
+            dead = [p.exitcode for p in procs
+                    if p.exitcode not in (None, 0)]
+            assert not dead, "a rank exited with code %s" % dead
+            assert time.monotonic() < deadline, \
+                "ranks did not finish in %d s" % timeout_s
+            try:
+                rec = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                continue
+            recs[rec['rank']] = rec
+        for p in procs:
+            p.join(timeout=60)
+        assert all(p.exitcode == 0 for p in procs), \
+            [p.exitcode for p in procs]
+        return [recs[r] for r in range(nproc)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+
+
+def _pk_close(got, want, what):
+    """Every column of ``got`` within DIST_PK_RTOL of ``want``'s largest;
+    ``modes`` identical. Returns the largest relative difference."""
+    np.testing.assert_array_equal(got['modes'], want['modes'])
+    worst = 0.0
+    for col, w in want.items():
+        if col == 'modes':
+            continue
+        w = np.asarray(w)
+        scale = float(np.nanmax(np.abs(w)))
+        d = float(np.nanmax(np.abs(np.asarray(got[col]) - w))) / scale
+        assert d <= DIST_PK_RTOL, "%s %s: %g > %g" % (what, col, d,
+                                                      DIST_PK_RTOL)
+        worst = max(worst, d)
+    return worst
+
+
+# what each backend's dist_main line says of its setting
+DIST_SETTINGS = {
+    'gloo': ('P ranks sharing one card (cuda:0) over gloo, every '
+             'collective staged through the host; not multi-card scaling'),
+    'nccl': 'one rank a card (rank r on cuda:r) over NCCL',
+}
+
+
+def dist_main(run, nmesh, backend='gloo'):
+    """The main path across P = 2 and 4 ranks sharing card 0 over gloo
+    (or, with ``backend='nccl'``, one rank a card):
+    each world's FFTPower held against the one-rank result of the same
+    catalog (``run``, the main path's closure): identical modes, P(k,
+    mu) and the poles within DIST_PK_RTOL, the gathered painted field
+    within main_path's 1e-5 of its largest value, the mean of 1 + delta;
+    every rank's rank pass bit for bit and rank 0's deposit within its
+    tolerance. Returns {'dist_main_P<n>': {kernel: launches summed over
+    the ranks}} and the kernels' records at each P."""
+    import tempfile
+    t0 = time.perf_counter()
+    mesh, r1 = run()
+    ref_field = mesh.to_real_field().value
+    ref = {'power': {c: np.asarray(r1.power[c]) for c in r1.power.variables},
+           'poles': {c: np.asarray(r1.poles[c]) for c in r1.poles.variables}}
+    launches, kernel_recs = {}, {}
+    workroot = tempfile.mkdtemp(prefix='nbk-dist-main-')
+    try:
+        ref_path = os.path.join(workroot, 'field.npy')
+        np.save(ref_path, ref_field.cpu().numpy())
+        del ref_field
+        torch.cuda.empty_cache()
+        for nproc in DIST_RANKS:
+            workdir = os.path.join(workroot, 'P%d' % nproc)
+            os.makedirs(workdir)
+            tw = time.perf_counter()
+            recs = run_ranks(dist_rank, nproc,
+                             (workdir, ref_path, nmesh, backend))
+            world_s = time.perf_counter() - tw
+            for rec in recs:
+                for line in rec.pop('lines'):
+                    emit(dict(line, dist_ranks=nproc))
+            worst = max(max(_pk_close(rec[s], ref[s], 'P=%d rank %d %s'
+                                      % (nproc, rec['rank'], s))
+                            for s in ('power', 'poles')) for rec in recs)
+            r0 = recs[0]
+            assert r0['field_max_abs_diff'] <= 1e-5 * r0['field_max'], r0
+            assert all(abs(rec['field_mean'] - 1) < 1e-5 for rec in recs)
+            assert sum(rec['n_rows'] for rec in recs) == recs[0]['csize']
+            counts = {k: sum(rec['launches'][k] + rec['cat_launches'][k]
+                             for rec in recs)
+                      for k in recs[0]['launches']}
+            launches['dist_main_P%d' % nproc] = counts
+            kernel_recs[nproc] = dict(rank=r0['rank_timing'],
+                                      deposit=r0['deposit_timing'])
+            emit({'phase': 'dist_main', 'ranks': nproc, 'nmesh': nmesh,
+                  'backend': backend, 'setting': DIST_SETTINGS[backend],
+                  'world_s': world_s,
+                  'pk_max_rel_diff_vs_one_rank': worst,
+                  'field_max_abs_diff_vs_one_rank':
+                      r0['field_max_abs_diff'],
+                  'field_max': r0['field_max'],
+                  'per_rank': [{k: rec[k] for k in (
+                      'rank', 'n_rows', 'wall_s', 'run_ms', 'stages_ms',
+                      'peak_bytes', 'launches', 'field_mean',
+                      'rank_pass_bit_identical', 'rank_seconds')}
+                      for rec in recs],
+                  'rank_pass_D_eq_P': r0['rank_timing'],
+                  'deposit_extended_slab': r0['deposit_timing']})
+    finally:
+        shutil.rmtree(workroot, ignore_errors=True)
+    emit({'phase': 'dist_main_total', 'seconds': time.perf_counter() - t0})
+    return launches, kernel_recs
+
 
 # the FOF path: benchmarks/test_fof.py at desi_like, on the lognormal
 # path's catalog; then the FFTRecon path on that catalog with 10x
@@ -3923,11 +4205,45 @@ def forward_path(nmesh=FW_NMESH, steps=FW_ADAM_STEPS):
     return launches
 
 
+def dist_nccl():
+    """``chip_smoke.py --dist-nccl``, on a host of 4 or more cards:
+    builds the main path's kernels, then ``dist_main`` over NCCL, one
+    rank a card, held against the one-rank run on card 0. The one-card
+    run without arguments never takes this path."""
+    from nbodykit_tpu_torch import _build
+    from nbodykit_tpu_torch.source.catalog import UniformCatalog
+    count = torch.cuda.device_count()
+    assert count >= max(DIST_RANKS), \
+        "--dist-nccl needs %d cards, found %d" % (max(DIST_RANKS), count)
+    name = torch.cuda.get_device_name(0)
+    smi = smi_query('name,power.limit')
+    t0 = time.perf_counter()
+    _build.build_all(list(DIST_KERNELS))
+    emit({'phase': 'device', 'name': name, 'nvidia_smi': smi,
+          'count': count, 'torch': torch.__version__,
+          'cuda': torch.version.cuda, 'build_s': time.perf_counter() - t0})
+    nmesh = 512
+    run = main_run(UniformCatalog(nbar=1e-2, BoxSize=1000.0, seed=42),
+                   nmesh)
+    run()                                            # warm-up
+    launches, kernels = dist_main(run, nmesh, backend='nccl')
+    emit({'kernels_nccl': {'launches': launches, 'by_ranks': kernels}})
+    print(smi, flush=True)
+    emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
+                                 'count': count}})
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script runs only on a CUDA card", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ['--dist-nccl']:
+        return dist_nccl()
+    if sys.argv[1:]:
+        print("usage: chip_smoke.py [--dist-nccl]", file=sys.stderr)
+        return 2
     from nbodykit_tpu_torch import _build
     from nbodykit_tpu_torch.source.catalog import UniformCatalog
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3968,6 +4284,8 @@ def main():
     paint_breakdown(cat, nmesh)
     profile_main_path(run)
     other_fft_algorithms(cat, nmesh)
+    # the same catalog across 2 and 4 ranks sharing the card
+    dist_launches, dist_kernels = dist_main(run, nmesh)
     del run
     torch.cuda.empty_cache()
     # the other paint families and bf16 storage on the same catalog
@@ -4031,7 +4349,7 @@ def main():
     paths = ('main_512', 'paint_families_512', 'mesh_bf16_512',
              'lognormal_1024', 'class_1024', 'convpower_1024',
              'fof_1024', 'fftrecon_512', 'io_1024', 'particles_boss',
-             'bispectrum_256', 'forward_128')
+             'bispectrum_256', 'forward_128') + tuple(dist_launches)
 
     def counted(name):
         by_path = dict(zip(paths, (launches[name], pf_launches[name],
@@ -4040,7 +4358,9 @@ def main():
                                    fof_launches[name],
                                    rc_launches[name], io_launches[name],
                                    pb_launches[name], bs_launches[name],
-                                   fw_launches[name])))
+                                   fw_launches[name]) + tuple(
+                                       d[name] for d in
+                                       dist_launches.values())))
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -4073,13 +4393,17 @@ def main():
              **counted('radix_rank'), **rank_rec,
              at_convpower_1024=cp_rank, at_fof_1024=fof_rank,
              at_bispectrum_256=bs_kernels['rank'],
-             at_segsum_512=segsum_rank),
+             at_segsum_512=segsum_rank,
+             **{'at_dist_main_P%d' % p: k['rank']
+                for p, k in dist_kernels.items()}),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
              replaces='nbodykit_tpu/ops/paint_pallas.py:37',
              **counted('paint_deposit'), **dep_rec,
              at_convpower_1024=cp_dep,
-             at_bispectrum_256=bs_kernels['deposit']),
+             at_bispectrum_256=bs_kernels['deposit'],
+             **{'at_dist_main_P%d' % p: k['deposit']
+                for p, k in dist_kernels.items()}),
         dict(name='threefry_fill', route='cuda', source=rng_src,
              replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),
         dict(name='poisson_threefry', route='cuda', source=rng_src,

@@ -49,6 +49,17 @@ _default_options = {
     'mesh_dtype': 'f4',
     # bucket-capacity slack of the 'mxu' paint
     'paint_bucket_slack': 2.0,
+    # slack factor of fixed-capacity particle exchange buffers, accepted
+    # for the JAX package's option set: there only its tuner's search
+    # space reads it, and exchange capacities default to the exact
+    # counts times 1.05 (parallel/exchange.py), as here
+    'exchange_slack': 1.25,
+    # wire format of the distributed FFT's all-to-all
+    # (parallel/dfft.py): 'none' (the complex payload), 'bf16' (the
+    # planes in bfloat16, re-widened to f32 on receipt), 'int16'
+    # (planes quantized against one f32 scale a source rank) or 'auto':
+    # 'none', the JAX package's value on a cold tune cache
+    'a2a_compress': 'none',
     # particles per index_add_ pass of the 'scatter' paint
     'paint_chunk_size': 1024 * 1024 * 16,
     # device of the entry points: None means 'cuda'; 'cpu' runs on the
@@ -100,6 +111,7 @@ _CHOICES = {
     'paint_method': ('auto', 'scatter', 'mxu', 'sort', 'segsum', 'streams'),
     'paint_order': ('auto', 'argsort', 'radix'),
     'mesh_dtype': ('auto', 'f4', 'f8', 'bf16'),
+    'a2a_compress': ('auto', 'none', 'bf16', 'int16'),
 }
 
 

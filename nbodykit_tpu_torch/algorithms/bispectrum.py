@@ -41,6 +41,7 @@ from ..ops.histogram import lattice_shell_edges
 from ..ops.pairblock import DEFAULT_TILE
 from ..utils import as_numpy
 from .fftpower import FFTBase
+from ..parallel.runtime import require_one_rank
 
 
 def shell_filtered_field(pm, cplx, lo2, hi2, isq=None):
@@ -229,6 +230,7 @@ class Bispectrum(FFTBase):
 
     def __init__(self, source, nbins=4, Nmesh=None, BoxSize=None,
                  method='auto', tile=None):
+        require_one_rank(source, 'Bispectrum')
         if method not in ('auto', 'fft', 'direct'):
             raise ValueError("method must be 'auto', 'fft' or "
                              "'direct'")

@@ -21,6 +21,7 @@ import torch
 from ..ops.devicehash import DeviceGridHash
 from ..source.catalog.array import ArrayCatalog
 from ..utils import as_numpy
+from ..parallel.runtime import require_one_rank
 
 # slots of one neighbour offset a step of the fold
 FOLD_BLOCK = 8
@@ -114,6 +115,7 @@ class CylindricalGroups(object):
 
     def __init__(self, source, rankby, rperp, rpar, flat_sky_los=None,
                  periodic=True, BoxSize=None):
+        require_one_rank(source, 'CylindricalGroups')
         if rankby is None:
             rankby = []
         if isinstance(rankby, str):

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from ...source.catalog.species import MultipleSpeciesCatalog
+from ...parallel.runtime import require_one_rank
 
 
 def FKPWeightFromNbar(P0, nbar):
@@ -29,6 +30,7 @@ class FKPCatalog(MultipleSpeciesCatalog):
 
     def __init__(self, data, randoms, BoxSize=None, BoxPad=0.02,
                  P0=None, nbar='NZ'):
+        require_one_rank(data, 'FKPCatalog')
         if randoms is None:
             randoms = data[:0]
         MultipleSpeciesCatalog.__init__(self, ['data', 'randoms'],

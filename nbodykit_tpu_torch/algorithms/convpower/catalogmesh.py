@@ -14,6 +14,7 @@ from ...base.mesh import Field
 from ...source.mesh.catalog import CatalogMesh
 from ...source.mesh.species import MultipleSpeciesCatalogMesh
 from ...utils import stage
+from ...parallel.runtime import require_one_rank
 
 
 class FKPCatalogMesh(MultipleSpeciesCatalogMesh):
@@ -42,6 +43,7 @@ class FKPCatalogMesh(MultipleSpeciesCatalogMesh):
             selection=selection, position='_RecenteredPosition',
             interlaced=interlaced, compensated=compensated,
             resampler=resampler)
+        require_one_rank(self, 'FKPCatalogMesh')
 
     def RecenteredPosition(self, name):
         """Positions less BoxCenter, in [-L/2, L/2)."""

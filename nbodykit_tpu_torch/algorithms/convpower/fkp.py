@@ -29,6 +29,7 @@ from ...utils import JSONDecoder, JSONEncoder, stage
 from ..fftpower import _find_unique_edges, project_to_basis
 from .catalog import FKPCatalog
 from .catalogmesh import FKPCatalogMesh
+from ...parallel.runtime import require_one_rank
 
 # elements of one slab of the Y_lm weights (each f64 temporary of the
 # polynomial is a slab of this size)
@@ -105,6 +106,7 @@ class ConvolvedFFTPower(object):
 
     def __init__(self, first, poles, second=None, Nmesh=None, kmin=0.,
                  kmax=None, dk=None):
+        require_one_rank(first, 'ConvolvedFFTPower')
         if isinstance(first, FKPCatalog):
             first = first.to_mesh(Nmesh=Nmesh)
         if not isinstance(first, FKPCatalogMesh):

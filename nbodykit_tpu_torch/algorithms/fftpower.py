@@ -57,7 +57,9 @@ def project_to_basis(y3d, edges, los=[0, 0, 1], poles=[]):
     int multipoles.
 
     Returns (xmean_2d, mumean_2d, y2d, N_2d), (xmean_1d, poles, N_1d)
-    or None.
+    or None. With P ranks each bins its own slab (its rows of the
+    leading axis) and the f64 histograms are summed over the ranks: the
+    result is the same on every rank.
     """
     pm = y3d.pm
     dev = y3d.value.device
@@ -87,7 +89,8 @@ def project_to_basis(y3d, edges, los=[0, 0, 1], poles=[]):
         else:
             w_b = pm.hermitian_weights(dtype='f8')
     else:
-        rx = (_fftfreq(N0, f8, dev) * (L[0] / N0)).reshape(N0, 1, 1)
+        rx = (_fftfreq(N0, f8, dev) * (L[0] / N0))[pm._rows(N0)].reshape(
+            -1, 1, 1)
         ry = (_fftfreq(N1, f8, dev) * (L[1] / N1)).reshape(1, N1, 1)
         rz = (_fftfreq(N2, f8, dev) * (L[2] / N2)).reshape(1, 1, N2)
         coords = [rx * los[0], ry * los[1], rz * los[2]]
@@ -152,6 +155,10 @@ def project_to_basis(y3d, edges, los=[0, 0, 1], poles=[]):
     for start in range(0, S0, rows):
         h = chunk_hists(value[start:start + rows], start)
         hs = h if hs is None else [a + b for a, b in zip(hs, h)]
+    if pm.nproc > 1:
+        from ..utils import stage
+        with stage('dist_binning_reduce'):
+            hs = pm.comm.all_reduce(torch.stack(hs)).unbind(0)
     hs = [h.cpu().numpy() for h in hs]
 
     xsum, musum, Nsum = hs[0], hs[1], hs[2]
@@ -336,7 +343,8 @@ class FFTBase(object):
         c2 = c1 if first is second else \
             second.compute(mode='complex', Nmesh=self.attrs['Nmesh'])
         p3d = c1.value * torch.conj(c2.value)
-        p3d[0, 0, 0] = 0.0
+        if c1.pm.rank == 0:
+            p3d[0, 0, 0] = 0.0    # the DC mode, on the first ky-slab
         # the volume is an f8 scalar: the product widens to complex128,
         # as in the JAX package
         p3d = p3d.to(torch.complex128) * float(self.attrs['BoxSize'].prod())
@@ -548,9 +556,20 @@ class ProjectedFFTPower(FFTBase):
             if distinct else f1
         dev = f1.value.device
 
+        pm = f1.pm
+
         def spectrum(v):
-            m = v.sum(dim=dropped).permute(perm)
-            return torch.fft.rfftn(m) * inv_norm
+            m = v.sum(dim=dropped)
+            if pm.nproc > 1:
+                # every rank's part of the map, summed into the whole
+                # map on every rank
+                if 0 not in dropped:
+                    whole = torch.zeros((int(Nmesh[0]),) + m.shape[1:],
+                                        dtype=m.dtype, device=m.device)
+                    whole[pm._rows(int(Nmesh[0]))] = m
+                    m = whole
+                m = pm.comm.all_reduce(m)
+            return torch.fft.rfftn(m.permute(perm)) * inv_norm
 
         s1 = spectrum(f1.value)
         s2 = spectrum(f2.value) if distinct else s1

@@ -22,6 +22,7 @@ import torch
 
 from ..base.catalog import CatalogSourceBase
 from ..base.mesh import Field, MeshSource
+from ..parallel.runtime import require_one_rank
 
 
 class FFTRecon(MeshSource):
@@ -40,6 +41,7 @@ class FFTRecon(MeshSource):
     def __init__(self, data, ran, Nmesh, bias=1.0, f=0.0, los=[0, 0, 1],
                  R=20, position='Position', revert_rsd_random=False,
                  scheme='LGS', BoxSize=None, resampler='cic'):
+        require_one_rank(data, 'FFTRecon')
         if scheme not in ('LGS', 'LF2', 'LRR'):
             raise ValueError("scheme must be LGS, LF2 or LRR")
         if not isinstance(data, CatalogSourceBase) or \

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..utils import stage
+from ..parallel.runtime import require_one_rank
 
 
 def _fof_labels(pos, BoxSize, ll, periodic=True, order='auto', stats=None):
@@ -79,6 +80,7 @@ class FOF(object):
 
     def __init__(self, source, linking_length, nmin, absolute=False,
                  periodic=True):
+        require_one_rank(source, 'FOF')
         if 'Position' not in source:
             raise ValueError("source must have a Position column")
         self._source = source

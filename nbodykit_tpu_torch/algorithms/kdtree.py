@@ -20,6 +20,7 @@ import torch
 
 from ..ops.fof_cuda import fof_link_count
 from ..ops.devicehash import GridHash
+from ..parallel.runtime import require_one_rank
 
 
 def neighbor_counts(pos, box, r, periodic=True):
@@ -49,6 +50,7 @@ class KDDensity(object):
     logger = logging.getLogger('KDDensity')
 
     def __init__(self, source, margin=1.0):
+        require_one_rank(source, 'KDDensity')
         if 'Position' not in source:
             raise ValueError("source needs a Position column")
         BoxSize = np.ones(3) * np.asarray(source.attrs['BoxSize'],

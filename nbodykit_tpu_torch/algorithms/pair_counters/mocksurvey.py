@@ -17,6 +17,7 @@ from ...utils import as_numpy
 from .base import PairCountBase, package_result
 from .core import paircount
 from .simbox import total_pairs
+from ...parallel.runtime import require_one_rank
 
 
 class SurveyDataPairCount(PairCountBase):
@@ -31,6 +32,7 @@ class SurveyDataPairCount(PairCountBase):
                  Nmu=None, pimax=None, ra='RA', dec='DEC',
                  redshift='Redshift', weight='Weight',
                  show_progress=False):
+        require_one_rank(first, 'SurveyDataPairCount')
         if mode not in ('1d', '2d', 'projected', 'angular'):
             raise ValueError("invalid mode %r" % mode)
         if mode == '2d' and Nmu is None:

@@ -8,6 +8,7 @@ import numpy as np
 from ...utils import as_numpy
 from .base import PairCountBase, package_result
 from .core import paircount
+from ...parallel.runtime import require_one_rank
 
 
 def total_pairs(w1, w2, n1, n2, is_auto):
@@ -38,6 +39,7 @@ class SimulationBoxPairCount(PairCountBase):
     def __init__(self, mode, first, edges, BoxSize=None, periodic=True,
                  weight='Weight', second=None, los='z', Nmu=None,
                  pimax=None, show_progress=False):
+        require_one_rank(first, 'SimulationBoxPairCount')
         if mode not in ('1d', '2d', 'projected', 'angular'):
             raise ValueError("invalid mode %r" % mode)
         if mode == '2d' and Nmu is None:

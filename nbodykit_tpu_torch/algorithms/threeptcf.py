@@ -28,6 +28,8 @@ from ..ops.devicehash import GridHash
 from ..ops.threept_cuda import threept_alm
 from ..utils import JSONEncoder
 from .convpower.fkp import get_real_Ylm
+from ..parallel.runtime import require_one_rank
+from ..parallel.runtime import require_one_rank
 
 # primaries whose moments are held at once (an (n, nlm, nbins) f64 block:
 # 211 MB at poles 0-4 and 13 bins)
@@ -118,6 +120,7 @@ class SimulationBox3PCF(Base3PCF):
 
     def __init__(self, source, poles, edges, BoxSize=None,
                  periodic=True, weight='Weight', position='Position'):
+        require_one_rank(source, 'SimulationBox3PCF')
         if BoxSize is None:
             BoxSize = source.attrs['BoxSize']
         self.attrs = dict(poles=list(poles),
@@ -140,6 +143,7 @@ class SurveyData3PCF(Base3PCF):
 
     def __init__(self, source, poles, edges, cosmo, ra='RA', dec='DEC',
                  redshift='Redshift', weight='Weight'):
+        require_one_rank(source, 'SurveyData3PCF')
         self.attrs = dict(poles=list(poles), edges=np.asarray(edges, 'f8'))
         pos = transform.SkyToCartesian(source[ra], source[dec],
                                        source[redshift],

@@ -13,6 +13,7 @@ import numpy as np
 
 from ..binned_statistic import BinnedStatistic
 from ..utils import as_numpy
+from ..parallel.runtime import require_one_rank
 
 
 def scotts_bin_width(data):
@@ -42,6 +43,7 @@ class RedshiftHistogram(object):
 
     def __init__(self, source, fsky, cosmo, bins=None, redshift='Redshift',
                  weight=None):
+        require_one_rank(source, 'RedshiftHistogram')
         self.source = source
         self.attrs = dict(fsky=fsky, redshift=redshift, weight=weight)
 

@@ -1,11 +1,17 @@
-"""CatalogSource: a table of particle columns on one device (counterpart
-of ``nbodykit_tpu/base/catalog.py``).
+"""CatalogSource: a table of particle columns (counterpart of
+``nbodykit_tpu/base/catalog.py``).
 
 A column is a tensor on the catalog's ``device``. Hardcolumns declared
 with the ``column`` decorator are computed on first access and cached;
 ``attrs`` carries the metadata. A slice, mask or index selection gives
 an ArrayCatalog of the selected rows; :meth:`view` a shallow view whose
 new columns stay off the base.
+
+With a ``comm`` of P ranks (a :class:`~..parallel.runtime.RankMesh`)
+each rank holds its own rows: ``size`` is this rank's row count and
+``csize`` the total (a collective); a column given whole is cut to this
+rank's rows (``shard_leading``); selections act on this rank's rows and
+:meth:`~CatalogSource.gslice` on global indices.
 """
 
 import logging
@@ -14,6 +20,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.runtime import CurrentMesh, mesh_size, \
+    require_one_rank, row_range, shard_leading
 from ..utils import as_numpy
 
 
@@ -44,7 +52,14 @@ class CatalogSourceBase(object):
 
     logger = logging.getLogger('CatalogSource')
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, comm=None):
+        self.comm = CurrentMesh.resolve(comm)
+        if self.comm is not None:
+            if device is not None and \
+                    resolve_device(device) != self.comm.device:
+                raise ValueError("device %s differs from the comm's %s"
+                                 % (device, self.comm.device))
+            device = self.comm.device
         self.device = resolve_device(device)
         if not hasattr(self, 'attrs'):
             self.attrs = {}
@@ -92,13 +107,27 @@ class CatalogSourceBase(object):
         """An ArrayCatalog of the rows that a slice, a boolean mask or
         an index array (numpy, list or tensor) selects, every column
         sliced on the catalog's device."""
-        from ..source.catalog.array import ArrayCatalog
         if isinstance(sel, (np.ndarray, list)):
             sel = torch.as_tensor(np.asarray(sel), device=self.device)
         if not isinstance(sel, (slice, torch.Tensor)):
             raise KeyError("invalid catalog selection %r" % (sel,))
-        data = {col: self[col][sel] for col in self.columns}
-        return ArrayCatalog(data, device=self.device, **self.attrs)
+        return self._rows_catalog({col: self[col][sel]
+                                   for col in self.columns}, self.attrs)
+
+    def _rows_catalog(self, data, attrs):
+        """An ArrayCatalog of these columns, taken as this rank's rows,
+        with a copy of ``attrs``."""
+        from ..source.catalog.array import ArrayCatalog
+        if mesh_size(self.comm) == 1:
+            return ArrayCatalog(data, device=self.device, comm=self.comm,
+                                **attrs)
+        obj = CatalogSourceBase.create_instance(ArrayCatalog, self.device,
+                                                self.comm)
+        obj._size = next(iter(data.values())).shape[0] if data else 0
+        for name, value in data.items():
+            obj[name] = value
+        obj.attrs.update(attrs)
+        return obj
 
     def view(self, type=None):
         """A re-typed view sharing the column tensors; the column dicts
@@ -132,18 +161,19 @@ class CatalogSourceBase(object):
         return torch.as_tensor(array)
 
     @staticmethod
-    def create_instance(cls, device=None):
+    def create_instance(cls, device=None, comm=None):
         """A bare instance of ``cls`` with only the base state set: no
         columns, empty ``attrs``."""
         obj = object.__new__(cls)
-        CatalogSourceBase.__init__(obj, device=device)
+        CatalogSourceBase.__init__(obj, device=device, comm=comm)
         return obj
 
     def copy(self):
         """A shallow copy holding the current columns, with an
         ``attrs`` of its own."""
         toret = CatalogSourceBase.create_instance(self.__class__,
-                                                  device=self.device)
+                                                  device=self.device,
+                                                  comm=self.comm)
         toret._size = len(self)
         toret.__finalize__(self)
         for col in self.columns:
@@ -154,20 +184,25 @@ class CatalogSourceBase(object):
     def persist(self, columns=None):
         """An ArrayCatalog of the selected columns (default: all) with
         this catalog's ``attrs``."""
-        from ..source.catalog.array import ArrayCatalog
-        cols = {key: self[key] for key in (columns or self.columns)}
-        c = ArrayCatalog(cols, device=self.device)
-        c.attrs.update(self.attrs)
-        return c
+        return self._rows_catalog(
+            {key: self[key] for key in (columns or self.columns)},
+            self.attrs)
 
     def _promote(self, value, col=None):
         """Coerce a column value to a tensor of length len(self) on the
-        catalog's device (scalars broadcast)."""
+        catalog's device (scalars broadcast). With P ranks a value whose
+        length is not this rank's row count is taken as the whole column
+        and cut to this rank's rows."""
         size = len(self)
         if np.isscalar(value):
             value = torch.full((size,), value, device=self.device)
         else:
             value = torch.as_tensor(value, device=self.device)
+        if value.shape[0] != size and mesh_size(self.comm) > 1:
+            start, stop = row_range(value.shape[0], self.comm.size,
+                                    self.comm.rank)
+            if stop - start == size:
+                value = shard_leading(self.comm, value)
         if value.shape[0] != size:
             raise ValueError(
                 "size mismatch setting column%s: got %d, catalog has %d"
@@ -214,6 +249,7 @@ class CatalogSourceBase(object):
             columns = self.columns
         if datasets is None:
             datasets = columns
+        require_one_rank(self, 'CatalogSource.save')
         with BigFileWriter(output, create=True) as ff:
             ff.write_attrs(header, self.attrs)
             for col, ds in zip(columns, datasets):
@@ -232,11 +268,11 @@ class CatalogSourceBase(object):
 
 
 class CatalogSource(CatalogSourceBase):
-    """A catalog with a definite size and the default
+    """A catalog with a definite size (this rank's rows) and the default
     Selection/Weight/Value/Index columns."""
 
-    def __init__(self, size, device=None):
-        CatalogSourceBase.__init__(self, device=device)
+    def __init__(self, size, device=None, comm=None):
+        CatalogSourceBase.__init__(self, device=device, comm=comm)
         self._size = int(size)
 
     def __len__(self):
@@ -248,8 +284,20 @@ class CatalogSource(CatalogSourceBase):
 
     @property
     def csize(self):
-        """The collective size: the size, on one device."""
-        return self._size
+        """The collective size: the rows of every rank (a collective
+        when there are several)."""
+        if mesh_size(self.comm) == 1:
+            return self._size
+        return int(self.comm.all_reduce(
+            torch.tensor([self._size], device=self.device)))
+
+    def _row_offset(self):
+        """The global index of this rank's first row (a collective)."""
+        if mesh_size(self.comm) == 1:
+            return 0
+        sizes = self.comm.all_gather(
+            torch.tensor([self._size], device=self.device)).reshape(-1)
+        return int(sizes[:self.comm.rank].sum())
 
     def __repr__(self):
         return "%s(size=%d)" % (self.__class__.__name__, self._size)
@@ -270,12 +318,23 @@ class CatalogSource(CatalogSourceBase):
 
     @column
     def Index(self):
-        return torch.arange(self._size, dtype=torch.int64,
-                            device=self.device)
+        """The global index of each row (a collective with several
+        ranks)."""
+        return self._row_offset() + torch.arange(
+            self._size, dtype=torch.int64, device=self.device)
 
     def gslice(self, start, stop, step=1):
-        """The rows ``start:stop:step`` as an ArrayCatalog."""
-        return self._select(slice(start, stop, step))
+        """The rows ``start:stop:step`` of the global catalog as an
+        ArrayCatalog (each rank keeps those of its own rows; a positive
+        step with P ranks)."""
+        if mesh_size(self.comm) == 1:
+            return self._select(slice(start, stop, step))
+        a, b, c = slice(start, stop, step).indices(self.csize)
+        if c <= 0:
+            raise ValueError("gslice across ranks takes a positive step")
+        g = self._row_offset() + torch.arange(self._size,
+                                              device=self.device)
+        return self._select((g >= a) & (g < b) & ((g - a) % c == 0))
 
     def concatenate(self, *others):
         """This catalog and ``others`` end to end
@@ -291,6 +350,7 @@ class CatalogSource(CatalogSourceBase):
         ties come out in reverse catalog order too, as on one device in
         the JAX package."""
         from ..source.catalog.array import ArrayCatalog
+        require_one_rank(self, 'CatalogSource.sort')
         if isinstance(keys, str):
             keys = [keys]
         cols = usecols or self.columns

@@ -13,6 +13,7 @@ import logging
 import numpy as np
 import torch
 
+from ..parallel.runtime import require_one_rank
 from ..pmesh import ParticleMesh
 from ..utils import BF16_BIGFILE_DTYPE, as_numpy, bf16_bits
 
@@ -66,10 +67,17 @@ class Field(object):
                      self.attrs)
 
     def csum(self):
-        return self.value.sum()
+        """The sum over the whole field (every rank's slab)."""
+        total = self.value.sum()
+        if self.pm.nproc > 1:
+            total = self.pm.comm.all_reduce(total)
+        return total
 
     def cmean(self):
-        return self.value.mean()
+        """The mean over the whole field."""
+        if self.pm.nproc == 1:
+            return self.value.mean()
+        return self.csum() / (self.value.numel() * self.pm.nproc)
 
     def readout(self, pos, resampler=None):
         assert self.kind == 'real'
@@ -135,8 +143,9 @@ class MeshSource(object):
     :meth:`compute` with ``mode='real'|'complex'``, optionally after
     queueing transfer functions with :meth:`apply`."""
 
-    def __init__(self, Nmesh, BoxSize, dtype='f4', device=None):
-        self.pm = ParticleMesh(Nmesh, BoxSize, dtype=dtype, device=device)
+    def __init__(self, Nmesh, BoxSize, dtype='f4', device=None, comm=None):
+        self.pm = ParticleMesh(Nmesh, BoxSize, dtype=dtype, device=device,
+                               comm=comm)
         if not hasattr(self, 'attrs'):
             self.attrs = {}
         self.attrs['Nmesh'] = self.pm.Nmesh.copy()
@@ -235,6 +244,7 @@ class MeshSource(object):
         in the JAX package. A bfloat16 field is written as the JAX
         package writes it: its raw 16-bit patterns, DTYPE '<V2'."""
         from ..io.bigfile import BigFileWriter
+        require_one_rank(self.pm.comm, 'MeshSource.save')
         field = self.compute(mode=mode)
         with BigFileWriter(output, create=True) as ff:
             attrs = dict(self.attrs)
@@ -257,6 +267,7 @@ class MeshSource(object):
         ``min(sN2, dN2)//2 + 1`` planes. So the copy is at most four
         block copies into the zeroed destination. Modes are copied
         unscaled, Nyquist planes included, with no hermitian repair."""
+        require_one_rank(self.pm.comm, 'the Fourier resample')
         if field.kind != 'complex':
             field = field.r2c()
         src = field.value
@@ -295,7 +306,8 @@ class FieldMesh(MeshSource):
             pm = field.pm
             self.attrs = dict(field.attrs)
             MeshSource.__init__(self, pm.Nmesh, pm.BoxSize,
-                                dtype=pm.dtype, device=pm.device)
+                                dtype=pm.dtype, device=pm.device,
+                                comm=pm.comm)
             self._field = field
         else:
             if BoxSize is None:

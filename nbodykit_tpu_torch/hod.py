@@ -14,6 +14,7 @@ from scipy import special
 from . import rng
 from .source.catalog.array import ArrayCatalog
 from .utils import as_numpy
+from .parallel.runtime import require_one_rank
 
 
 class PopulatedHaloCatalog(ArrayCatalog):
@@ -23,6 +24,7 @@ class PopulatedHaloCatalog(ArrayCatalog):
 
     def __init__(self, data, model=None, device=None, **attrs):
         ArrayCatalog.__init__(self, data, device=device, **attrs)
+        require_one_rank(self, 'PopulatedHaloCatalog')
         self.model = model
 
 

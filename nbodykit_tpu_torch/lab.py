@@ -18,6 +18,7 @@ from .cosmology import (Cosmology, CorrelationFunction,  # noqa: F401
                         FNLGalaxyPower, HalofitPower, LinearNbody,
                         LinearPower, Planck13, Planck15, WMAP5, WMAP7,
                         WMAP9, ZeldovichPower)
+from .parallel.runtime import CurrentMesh, cpu_mesh, use_mesh  # noqa: F401
 from .pmesh import ParticleMesh  # noqa: F401
 from .source.catalog import (ArrayCatalog, LogNormalCatalog,  # noqa: F401
                              MultipleSpeciesCatalog, RandomCatalog,

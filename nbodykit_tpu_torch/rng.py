@@ -86,15 +86,19 @@ def _size(shape):
     return int(np.prod(shape, dtype=np.int64))
 
 
-def random_bits(key, bit_width, shape, device=None):
+def random_bits(key, bit_width, shape, device=None, offset=0):
     """JAX's ``random.bits``: uint32 (h1 ^ h2) or uint64 (h1 << 32 | h2)
     of the hash words of counters 0, 1, ... in row-major order, on
-    ``device`` (default: the ``device`` option, else ``cuda``)."""
+    ``device`` (default: the ``device`` option, else ``cuda``).
+
+    ``offset`` (here and in the draws below) starts the counters there:
+    the elements [offset, offset + size) of a larger draw, as a rank
+    draws its rows of a global one."""
     if bit_width not in (32, 64):
         raise ValueError("bit_width must be 32 or 64, got %r"
                          % (bit_width,))
     shape = tuple(shape)
-    return threefry_fill(key, 0, _size(shape), 'bits%d' % bit_width,
+    return threefry_fill(key, offset, _size(shape), 'bits%d' % bit_width,
                          device=resolve_device(device)).reshape(shape)
 
 
@@ -105,20 +109,21 @@ def _kind(base, dtype):
     return base + ('32' if dt.itemsize == 4 else '64')
 
 
-def uniform(key, shape, dtype='f8', minval=0.0, maxval=1.0, device=None):
+def uniform(key, shape, dtype='f8', minval=0.0, maxval=1.0, device=None,
+            offset=0):
     """JAX's ``random.uniform`` (values in [minval, maxval)), on
     ``device`` as :func:`random_bits`."""
     shape = tuple(shape)
-    return threefry_fill(key, 0, _size(shape), _kind('uniform', dtype),
+    return threefry_fill(key, offset, _size(shape), _kind('uniform', dtype),
                          minval, maxval,
                          device=resolve_device(device)).reshape(shape)
 
 
-def normal(key, shape, dtype='f8', device=None):
+def normal(key, shape, dtype='f8', device=None, offset=0):
     """JAX's ``random.normal``: sqrt(2) erf_inv(u), u uniform in
     (nextafter(-1, 0), 1), on ``device`` as :func:`random_bits`."""
     shape = tuple(shape)
-    return threefry_fill(key, 0, _size(shape), _kind('normal', dtype),
+    return threefry_fill(key, offset, _size(shape), _kind('normal', dtype),
                          device=resolve_device(device)).reshape(shape)
 
 
@@ -134,7 +139,7 @@ def poisson(key, lam, shape=None, device=None):
     return poisson_threefry(key, lam)
 
 
-def randint(key, shape, minval, maxval, device=None):
+def randint(key, shape, minval, maxval, device=None, offset=0):
     """JAX's ``random.randint`` at int64 (x64 on): two 64-bit
     ``random_bits`` draws under ``split(key)``, the high one reduced
     through the multiplier ``(2^32 mod span)^2 mod span``, as in JAX.
@@ -154,7 +159,7 @@ def randint(key, shape, minval, maxval, device=None):
 
     def reduced(k):
         # a 64-bit draw (hi << 32 | lo) mod span, from its two words
-        b = random_bits(k, 64, shape, device).view(torch.int64)
+        b = random_bits(k, 64, shape, device, offset).view(torch.int64)
         hi, lo = (b >> 32) & M32, b & M32
         return ((hi % span) * two32 + lo % span) % span
 
@@ -202,7 +207,7 @@ def _on(x, device):
     return x.to(device)
 
 
-def choice(key, choices, shape, p=None, device=None):
+def choice(key, choices, shape, p=None, device=None, offset=0):
     """JAX's ``random.choice(key, choices, shape, replace=True, p=p)``
     at x64: without ``p`` a ``randint`` index; with ``p`` the left
     ``searchsorted`` of ``p_cuml[-1] * (1 - uniform)`` in ``p_cuml``,
@@ -224,7 +229,7 @@ def choice(key, choices, shape, p=None, device=None):
         raise ValueError("a must be greater than 0 unless no samples are "
                          "taken")
     if p is None:
-        ind = randint(key, shape, 0, n, device)
+        ind = randint(key, shape, 0, n, device, offset)
     else:
         p = _on(p, device)
         if not p.is_floating_point():
@@ -235,7 +240,7 @@ def choice(key, choices, shape, p=None, device=None):
                              "a.shape[axis] is %d." % (tuple(p.shape), n))
         p_cuml = cumsum_xla(p)
         dt = 'f8' if p.dtype == torch.float64 else 'f4'
-        u = uniform(key, shape, dt, device=device)
+        u = uniform(key, shape, dt, device=device, offset=offset)
         r = p_cuml[-1] * (1 - u)
         ind = torch.searchsorted(p_cuml, r.reshape(-1)).reshape(shape)
     if scalar:
@@ -249,12 +254,23 @@ class DistributedRNG(object):
 
     Each call folds the next value of a call counter into the seed's
     key, so a sequence of calls reproduces the JAX package's
-    ``DistributedRNG`` draw for draw."""
+    ``DistributedRNG`` draw for draw. With a ``comm`` of P ranks,
+    ``size`` is the global length and each rank draws the counters of
+    its own rows (:func:`~.parallel.runtime.row_range`): the union over
+    the ranks equals the one-rank draw bit for bit. The Poisson draw
+    cannot be cut so (its rejection loop runs over the whole draw) and
+    refuses more than one rank."""
 
-    def __init__(self, seed, size, device=None):
+    def __init__(self, seed, size, device=None, comm=None):
+        from .parallel.runtime import CurrentMesh, row_range
         self.seed = int(seed)
         self.size = int(size)
+        self.comm = CurrentMesh.resolve(comm)
+        if self.comm is not None and device is None:
+            device = self.comm.device
         self.device = resolve_device(device)
+        self._start, self._stop = (0, self.size) if self.comm is None \
+            else row_range(self.size, self.comm.size, self.comm.rank)
         self._counter = 0
 
     def _next_key(self):
@@ -264,24 +280,35 @@ class DistributedRNG(object):
 
     def _shape(self, itemshape):
         if itemshape is None:
-            return (self.size,)
-        if np.isscalar(itemshape):
+            itemshape = ()
+        elif np.isscalar(itemshape):
             itemshape = (itemshape,)
-        return (self.size,) + tuple(itemshape)
+        return (self._stop - self._start,) + tuple(itemshape)
+
+    def _offset(self, shape):
+        """The first counter of this rank's rows of a draw of ``shape``
+        (this rank's)."""
+        return self._start * _size(shape[1:])
 
     def uniform(self, low=0.0, high=1.0, itemshape=None, dtype='f8'):
-        return uniform(self._next_key(), self._shape(itemshape),
-                       working_dtype(dtype), low, high, self.device)
+        shape = self._shape(itemshape)
+        return uniform(self._next_key(), shape, working_dtype(dtype), low,
+                       high, self.device, self._offset(shape))
 
     def normal(self, loc=0.0, scale=1.0, itemshape=None, dtype='f8'):
-        g = normal(self._next_key(), self._shape(itemshape),
-                   working_dtype(dtype), self.device)
+        shape = self._shape(itemshape)
+        g = normal(self._next_key(), shape, working_dtype(dtype),
+                   self.device, self._offset(shape))
         if (scale, loc) == (1.0, 0.0):
             return g
         # XLA contracts g * scale + loc into one fused multiply-add
         return fma(g, torch.full_like(g, scale), torch.full_like(g, loc))
 
     def poisson(self, lam, itemshape=None, dtype='i8'):
+        if self.comm is not None and self.comm.size > 1:
+            raise NotImplementedError(
+                "the Poisson draw runs on one rank: its rejection loop "
+                "runs over the whole draw (ROADMAP Queue A item 4)")
         lam = torch.as_tensor(lam, device=self.device) \
             if not isinstance(lam, torch.Tensor) else lam
         shape = self._shape(itemshape)
@@ -294,5 +321,6 @@ class DistributedRNG(object):
         """Draws with replacement from ``choices`` (an int n or an
         array), uniform or with probabilities ``p``, as
         ``jax.random.choice`` under the next key."""
-        return choice(self._next_key(), choices, self._shape(itemshape),
-                      p=p, device=self.device)
+        shape = self._shape(itemshape)
+        return choice(self._next_key(), choices, shape, p=p,
+                      device=self.device, offset=self._offset(shape))

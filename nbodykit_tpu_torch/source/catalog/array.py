@@ -4,6 +4,7 @@
 import numpy as np
 
 from ...base.catalog import CatalogSource
+from ...parallel.runtime import CurrentMesh, mesh_size, row_range
 
 
 class ArrayCatalog(CatalogSource):
@@ -11,11 +12,14 @@ class ArrayCatalog(CatalogSource):
     structured numpy array; the columns are moved to ``device``.
 
     data : dict of (name -> array) or structured array, all of one
-        length; device : 'cuda' or 'cpu' (default: the ``device``
-        option, else 'cuda'); **kwargs : stored in :attr:`attrs`
+        length; device : 'cuda' or 'cpu' (default: the comm's device,
+        else the ``device`` option, else 'cuda'); comm : a RankMesh of
+        P ranks, each given the whole columns and keeping its rows, as
+        the JAX package shards a global column; **kwargs : stored in
+        :attr:`attrs`
     """
 
-    def __init__(self, data, device=None, **kwargs):
+    def __init__(self, data, device=None, comm=None, **kwargs):
         if isinstance(data, np.ndarray) and data.dtype.names is not None:
             data = {name: data[name] for name in data.dtype.names}
         if not isinstance(data, dict):
@@ -25,8 +29,12 @@ class ArrayCatalog(CatalogSource):
         if len(set(sizes.values())) > 1:
             raise ValueError("column length mismatch: %s" % sizes)
         size = next(iter(sizes.values())) if sizes else 0
+        comm = CurrentMesh.resolve(comm)
+        if mesh_size(comm) > 1:
+            start, stop = row_range(size, comm.size, comm.rank)
+            size = stop - start
 
-        CatalogSource.__init__(self, size, device=device)
+        CatalogSource.__init__(self, size, device=device, comm=comm)
         self.attrs.update(kwargs)
         for name, value in data.items():
             self[name] = value

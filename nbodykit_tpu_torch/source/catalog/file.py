@@ -13,6 +13,7 @@ import torch
 from ... import io as _io
 from ... import resolve_device
 from ...base.catalog import CatalogSource
+from ...parallel.runtime import require_one_rank
 
 
 class FileCatalogBase(CatalogSource):
@@ -38,6 +39,7 @@ class FileCatalogBase(CatalogSource):
                 self._source = _io.FileStack(filetype, path, *rest,
                                              **kwargs)
         CatalogSource.__init__(self, self._source.size, device=device)
+        require_one_rank(self, 'FileCatalogBase')
         self.attrs.update(getattr(self._source, 'attrs', {}))
 
     @property

@@ -64,6 +64,7 @@ class HaloCatalog(CatalogSource):
                  position='Position', velocity='Velocity',
                  particle_mass=None):
         CatalogSource.__init__(self, len(source), device=source.device)
+        require_one_rank(self, 'HaloCatalog')
         self._src = source
         self.cosmo = cosmo
         self.attrs.update(source.attrs)
@@ -134,3 +135,4 @@ class HaloCatalog(CatalogSource):
 # PopulatedHaloCatalog is importable from this module, as in the JAX
 # package; the class lives with the HOD code to avoid an import cycle
 from ...hod import PopulatedHaloCatalog  # noqa: F401,E402
+from ...parallel.runtime import require_one_rank

@@ -14,6 +14,7 @@ import torch
 from ...base.catalog import CatalogSource, column
 from ...pmesh import ParticleMesh
 from ... import mockmaker
+from ...parallel.runtime import CurrentMesh, require_one_rank
 
 
 class LogNormalCatalog(CatalogSource):
@@ -42,6 +43,7 @@ class LogNormalCatalog(CatalogSource):
     def __init__(self, Plin, nbar, BoxSize, Nmesh, bias=2.0, seed=None,
                  cosmo=None, redshift=None, unitary_amplitude=False,
                  inverted_phase=False, dtype='f4', device=None):
+        require_one_rank(CurrentMesh.get(), 'LogNormalCatalog')
         if seed is None:
             seed = np.random.randint(0, 2 ** 31 - 1)
 

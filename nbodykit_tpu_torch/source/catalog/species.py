@@ -8,6 +8,7 @@ the container. Each species' attrs appear in the container's attrs as
 """
 
 from ...base.catalog import CatalogSourceBase
+from ...parallel.runtime import require_one_rank
 
 
 class MultipleSpeciesCatalog(CatalogSourceBase):
@@ -30,6 +31,7 @@ class MultipleSpeciesCatalog(CatalogSourceBase):
                              % sorted(devices))
 
         CatalogSourceBase.__init__(self, device=species[0].device)
+        require_one_rank(self, 'MultipleSpeciesCatalog')
         self.attrs['species'] = list(names)
         self._species = dict(zip(names, species))
         for name, cat in self._species.items():

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .array import ArrayCatalog
+from ...parallel.runtime import require_one_rank
 
 
 class SubVolumesCatalog(ArrayCatalog):
@@ -44,4 +45,5 @@ class SubVolumesCatalog(ArrayCatalog):
         data = {c: source[c][order] for c in cols}
         data['SubVolumeIndex'] = flat[order]
         ArrayCatalog.__init__(self, data, device=dev, **source.attrs)
+        require_one_rank(self, 'SubVolumesCatalog')
         self.attrs['domain'] = domain

@@ -5,6 +5,7 @@ import numpy as np
 import torch
 
 from ...base.catalog import CatalogSource, column
+from ...parallel.runtime import CurrentMesh, row_range
 from ...rng import DistributedRNG
 from ...utils import torch_dtype, working_dtype
 
@@ -12,16 +13,22 @@ from ...utils import torch_dtype, working_dtype
 class RandomCatalog(CatalogSource):
     """A catalog whose columns are drawn from the seeded threefry
     generator exposed as :attr:`rng` (the JAX package's draws, call for
-    call)."""
+    call). ``csize`` is the global size; with a ``comm`` of P ranks each
+    rank holds and draws its own rows, bit for bit those rows of the
+    one-rank catalog."""
 
-    def __init__(self, csize, seed=None, device=None):
+    def __init__(self, csize, seed=None, device=None, comm=None):
         if seed is None:
             seed = np.random.randint(0, 2 ** 31 - 1)
         if csize == 0:
             raise ValueError("no random particles generated!")
-        CatalogSource.__init__(self, csize, device=device)
+        comm = CurrentMesh.resolve(comm)
+        start, stop = (0, csize) if comm is None else \
+            row_range(csize, comm.size, comm.rank)
+        CatalogSource.__init__(self, stop - start, device=device, comm=comm)
         self.attrs['seed'] = seed
-        self._rng = DistributedRNG(seed, csize, device=self.device)
+        self._rng = DistributedRNG(seed, csize, device=self.device,
+                                   comm=self.comm)
 
     @property
     def rng(self):
@@ -42,7 +49,8 @@ class UniformCatalog(RandomCatalog):
     there).
     """
 
-    def __init__(self, nbar, BoxSize, seed=None, dtype='f8', device=None):
+    def __init__(self, nbar, BoxSize, seed=None, dtype='f8', device=None,
+                 comm=None):
         _BoxSize = np.empty(3, dtype='f8')
         _BoxSize[:] = BoxSize
         if seed is None:
@@ -52,7 +60,7 @@ class UniformCatalog(RandomCatalog):
         if N == 0:
             raise ValueError("no uniform particles generated; "
                              "increase nbar")
-        RandomCatalog.__init__(self, N, seed=seed, device=device)
+        RandomCatalog.__init__(self, N, seed=seed, device=device, comm=comm)
         self.attrs['BoxSize'] = _BoxSize
         self.attrs['nbar'] = nbar
 

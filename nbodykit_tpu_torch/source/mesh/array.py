@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from ...base.mesh import Field, MeshSource
+from ...parallel.runtime import require_one_rank
 
 
 class ArrayMesh(MeshSource):
@@ -27,6 +28,7 @@ class ArrayMesh(MeshSource):
             raise ValueError("ArrayMesh expects a 3-D array")
         MeshSource.__init__(self, tuple(array.shape), BoxSize, dtype=dtype,
                             device=device)
+        require_one_rank(self, 'ArrayMesh')
         self.attrs.update(kwargs)
         self._value = torch.as_tensor(array).to(device=self.device,
                                                 dtype=self.pm.torch_dtype)

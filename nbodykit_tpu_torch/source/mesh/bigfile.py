@@ -16,6 +16,7 @@ from ... import resolve_device
 from ...base.mesh import Field, MeshSource
 from ...io.bigfile import BigFileDataset, read_attrs_file
 from ...utils import bf16_from_numpy
+from ...parallel.runtime import require_one_rank
 
 
 class BigFileMesh(MeshSource):
@@ -57,6 +58,7 @@ class BigFileMesh(MeshSource):
         MeshSource.__init__(self, Nmesh, BoxSize,
                             dtype='bf16' if self._bf16 else dtype.str,
                             device=device)
+        require_one_rank(self, 'BigFileMesh')
 
     def to_real_field(self):
         data = self._block.read(0, self._block.size).reshape(self._shape)

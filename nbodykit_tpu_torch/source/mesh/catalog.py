@@ -27,7 +27,7 @@ class CatalogMesh(MeshSource):
         self.source = source
         self.attrs = dict(source.attrs)
         MeshSource.__init__(self, Nmesh, BoxSize, dtype=dtype,
-                            device=source.device)
+                            device=source.device, comm=source.comm)
         self.resampler = resampler
         self.interlaced = interlaced
         self.compensated = compensated
@@ -49,7 +49,7 @@ class CatalogMesh(MeshSource):
 
     def to_real_field(self, normalize=True):
         """Paint and normalize to 1 + delta; attrs gain N, W, W2,
-        shotnoise, num_per_cell."""
+        shotnoise, num_per_cell (sums over every rank's rows)."""
         pm = self.pm
         src = self.source
         pos = src[self.position]
@@ -66,9 +66,13 @@ class CatalogMesh(MeshSource):
             weight = torch.where(sel, weight, 0.0)
         mass = (weight * value).to(pm.torch_dtype)
 
-        N = float(sel.sum()) if sel is not None else float(n)
-        W = float(weight.sum())
-        W2 = float((weight ** 2).sum())
+        sums = torch.stack([
+            sel.sum().double() if sel is not None else
+            torch.tensor(float(n), dtype=torch.float64, device=pm.device),
+            weight.sum().double(), (weight ** 2).sum().double()])
+        if pm.nproc > 1:
+            sums = pm.comm.all_reduce(sums)
+        N, W, W2 = (float(v) for v in sums)
 
         if not self.interlaced:
             field = pm.paint(pos, mass, resampler=self.resampler)

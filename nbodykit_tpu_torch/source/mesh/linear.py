@@ -6,6 +6,7 @@ import numpy as np
 
 from ...base.mesh import MeshSource
 from ... import mockmaker
+from ...parallel.runtime import require_one_rank
 
 
 class LinearMesh(MeshSource):
@@ -28,6 +29,7 @@ class LinearMesh(MeshSource):
         self.Plin = Plin
         MeshSource.__init__(self, Nmesh, BoxSize, dtype=dtype,
                             device=device)
+        require_one_rank(self, 'LinearMesh')
         if seed is None:
             seed = np.random.randint(0, 2 ** 31 - 1)
         self.attrs['seed'] = seed

@@ -8,6 +8,7 @@ of all species together).
 
 from ...base.mesh import Field, MeshSource
 from .catalog import CatalogMesh
+from ...parallel.runtime import require_one_rank
 
 
 class MultipleSpeciesCatalogMesh(MeshSource):
@@ -24,6 +25,7 @@ class MultipleSpeciesCatalogMesh(MeshSource):
         self.attrs = attrs
         MeshSource.__init__(self, Nmesh, BoxSize, dtype=dtype,
                             device=source.device)
+        require_one_rank(self, 'MultipleSpeciesCatalogMesh')
         self.interlaced = interlaced
         self.compensated = compensated
         self.resampler = resampler

@@ -152,8 +152,9 @@ def split_size_3d(s):
 def get_data_bounds(data, comm=None, selection=None):
     """(min, max) of an array along its first axis, as host numpy;
     with ``selection``, over the selected rows only (an empty selection
-    gives the dtype's extremes, as in the JAX package). ``comm`` is
-    accepted for the JAX signature: a column lives on one device."""
+    gives the dtype's extremes, as in the JAX package). With a ``comm``
+    of several ranks, each passes its rows and every rank gets the
+    bounds over all of them."""
     import torch
     arr = torch.as_tensor(data)
     lo = hi = arr
@@ -168,7 +169,73 @@ def get_data_bounds(data, comm=None, selection=None):
                                                  device=arr.device))
         hi = torch.where(mask, arr, torch.tensor(small, dtype=arr.dtype,
                                                  device=arr.device))
-    return as_numpy(torch.amin(lo, dim=0)), as_numpy(torch.amax(hi, dim=0))
+    lo, hi = torch.amin(lo, dim=0), torch.amax(hi, dim=0)
+    if comm is not None and comm.size > 1:
+        lo = comm.all_reduce(lo.to(comm.device), 'min')
+        hi = comm.all_reduce(hi.to(comm.device), 'max')
+    return as_numpy(lo), as_numpy(hi)
+
+
+def GatherArray(data, comm=None, root=0):
+    """Every rank's rows of ``data`` concatenated in rank order, as host
+    numpy on rank ``root`` and None on the others (the reference's
+    ``utils.GatherArray``). A collective of the comm's ranks; without a
+    comm (or on one rank), ``data`` as host numpy."""
+    import torch
+    if comm is None or comm.size == 1:
+        return as_numpy(data)
+    t = torch.as_tensor(data).to(comm.device)
+    sizes = comm.all_gather(torch.tensor([t.shape[0]], device=comm.device))
+    sizes = [int(v) for v in sizes.reshape(-1)]
+    mine = comm.rank == root
+    got = comm.all_to_all(
+        t, [t.shape[0] if d == root else 0 for d in range(comm.size)],
+        [sizes[s] if mine else 0 for s in range(comm.size)])
+    return as_numpy(got) if mine else None
+
+
+# the dtypes ScatterArray can send, by code
+_SCATTER_DTYPES = ('float64', 'float32', 'float16', 'bfloat16', 'int64',
+                   'int32', 'int16', 'int8', 'uint8', 'bool', 'complex128',
+                   'complex64')
+
+
+def ScatterArray(data, comm=None, root=0, counts=None):
+    """Rank ``root``'s array cut along its first axis among the ranks
+    (the reference's ``utils.ScatterArray``): rank r gets its even rows
+    (``parallel.runtime.row_range``), or ``counts[r]`` rows in rank
+    order, as a tensor on its device; ranks other than ``root`` may pass
+    None. A collective; without a comm, ``data`` as a tensor."""
+    import torch
+    from .parallel.runtime import row_range
+    if comm is None or comm.size == 1:
+        return torch.as_tensor(data)
+    mine = comm.rank == root
+    # the shape and dtype travel from root first
+    meta = torch.zeros(9, dtype=torch.int64, device=comm.device)
+    if mine:
+        t = torch.as_tensor(data).to(comm.device)
+        if t.ndim > 7:
+            raise ValueError("ScatterArray takes up to 7 dimensions")
+        meta[0] = _SCATTER_DTYPES.index(str(t.dtype).split('.')[-1])
+        meta[1] = t.ndim
+        meta[2:2 + t.ndim] = torch.tensor(t.shape)
+    meta = [int(v) for v in comm.broadcast(meta, src=root)]
+    dtype = getattr(torch, _SCATTER_DTYPES[meta[0]])
+    shape = tuple(meta[2:2 + meta[1]])
+    n = shape[0]
+    if counts is None:
+        counts = [b - a for a, b in (row_range(n, comm.size, r)
+                                     for r in range(comm.size))]
+    counts = [int(c) for c in counts]
+    if len(counts) != comm.size or sum(counts) != n:
+        raise ValueError("counts %s do not cut %d rows among %d ranks"
+                         % (counts, n, comm.size))
+    if not mine:
+        t = torch.empty((0,) + shape[1:], dtype=dtype, device=comm.device)
+    return comm.all_to_all(
+        t, counts if mine else [0] * comm.size,
+        [counts[comm.rank] if s == root else 0 for s in range(comm.size)])
 
 
 class captured_output(object):

@@ -23,7 +23,8 @@ def _forbidden(name):
 
 
 def _port_files():
-    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    files = [os.path.join(ROOT, 'chip_smoke.py'),
+             os.path.join(ROOT, 'tests', '_torch_ranks.py')]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith('.py')]
@@ -54,8 +55,14 @@ def test_no_jax_import_in_source(path):
 
 
 def test_import_loads_no_jax():
-    code = ("import sys; before = set(sys.modules); "
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "before = set(sys.modules); "
             "import nbodykit_tpu_torch, nbodykit_tpu_torch.lab, "
+            "nbodykit_tpu_torch.parallel, "
+            "nbodykit_tpu_torch.parallel.runtime, "
+            "nbodykit_tpu_torch.parallel.exchange, "
+            "nbodykit_tpu_torch.parallel.halo, "
+            "nbodykit_tpu_torch.parallel.dfft, _torch_ranks, "
             "nbodykit_tpu_torch._build, nbodykit_tpu_torch.convert, "
             "nbodykit_tpu_torch.transform, "
             "nbodykit_tpu_torch.algorithms.convpower, "
@@ -249,7 +256,8 @@ def test_lab_exports_every_ported_name():
         if not _port_module(module):
             continue
         checked += 1
-        if not hasattr(tlab, name):
+        if not hasattr(tlab, name) and \
+                '%s.%s' % (module, name) not in OMISSIONS:
             missing.append('%s (%s)' % (name, module))
     assert not missing, "the port's lab lacks %s" % missing
     for name in ('Planck15', 'FKPPower', 'FOF', 'HaloCatalog', 'FFTRecon',
@@ -270,15 +278,30 @@ def test_lab_exports_every_ported_name():
 # Public names of the JAX package that the port leaves out on purpose,
 # each with its reason. Queue A is ROADMAP.md's queue of modules to port.
 _MULTI_DEVICE = 'multi-GPU sharding and routing (ROADMAP Queue A item 4)'
+_PENCIL = ('the pencil decomposition of the distributed FFT (ROADMAP Queue '
+           'A item 4, next slice)')
+_LOWMEM = ("the JAX single-device lowmem FFT programs (ROADMAP Queue A item "
+           "4, next slice); the port's ParticleMesh.forward_slabs "
+           "transforms slab by slab")
+_SHARDING = 'JAX-only: a NamedSharding of a jax.sharding.Mesh'
 OMISSIONS = {
     'nbodykit_tpu.algorithms.pair_counters.core.paircount_dist':
         _MULTI_DEVICE,
     'nbodykit_tpu.ops.devicehash.DeviceGridHash.pvary': _MULTI_DEVICE,
-    'nbodykit_tpu.pmesh.ParticleMesh.sharding': _MULTI_DEVICE,
-    'nbodykit_tpu.pmesh.ParticleMesh.exchange_capacity': _MULTI_DEVICE,
-    'nbodykit_tpu.pmesh.memory_plan': _MULTI_DEVICE,
-    'nbodykit_tpu.utils.GatherArray': _MULTI_DEVICE,
-    'nbodykit_tpu.utils.ScatterArray': _MULTI_DEVICE,
+    'nbodykit_tpu.pmesh.ParticleMesh.sharding': _SHARDING,
+    'nbodykit_tpu.parallel.runtime.sharding': _SHARDING,
+    'nbodykit_tpu.parallel.runtime.tpu_mesh':
+        'TPU-only: a mesh of TPU devices',
+    'nbodykit_tpu.parallel.runtime.reform_decomposition':
+        'the relaunch plan of resilience/ (ROADMAP Queue A item 5)',
+    'nbodykit_tpu.parallel.runtime.default_pencil_factor': _PENCIL,
+    'nbodykit_tpu.parallel.runtime.pencil_mesh': _PENCIL,
+    'nbodykit_tpu.parallel.runtime.is_pencil': _PENCIL,
+    'nbodykit_tpu.parallel.runtime.mesh_shape2d': _PENCIL,
+    'nbodykit_tpu.parallel.runtime.leading_axes': _PENCIL,
+    'nbodykit_tpu.parallel.dfft.rfftn_single_lowmem': _LOWMEM,
+    'nbodykit_tpu.parallel.dfft.irfftn_single_lowmem': _LOWMEM,
+    'nbodykit_tpu.parallel.dfft.fftn_c2c_single_lowmem': _LOWMEM,
     'nbodykit_tpu.base.mesh.Field.tree_flatten':
         'JAX-only: registers Field as a pytree',
     'nbodykit_tpu.base.mesh.Field.tree_unflatten':

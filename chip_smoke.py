@@ -26,8 +26,17 @@ drives eleven paths through the user entry points:
   gathered painted field within 1e-5 of its largest value, every rank's
   exchange rank pass (D = P) bit for bit against its plain version and
   rank 0's extended-slab deposit within its tolerance; stage times,
-  peaks and launches a rank. ``python3 chip_smoke.py --dist-nccl`` on a
-  host of 4 cards runs only this phase over NCCL, one rank a card;
+  peaks and launches a rank; then, in the same worlds, the convpower
+  flow's catalogs at Nmesh 512 (``dist_convpower``: the poles within
+  1e-8, alpha, the normalizations and the shot noise within 1e-10 of
+  the one-rank run, the flow's physical gates; every rank's exchange
+  rank pass on its randoms' destinations bit for bit; rank 0's TSC f8
+  slab deposits of the data and of 16 stripes of the randoms) and the
+  FFTRecon flow (``dist_recon``: the field gathered to rank 0 within
+  1e-4 of its largest value, P(k) within 1e-4; rank 0's CIC f4 slab
+  deposit of the shifted randoms), each held against a one-rank run of
+  the same configuration. ``python3 chip_smoke.py --dist-nccl`` on a
+  host of 4 cards runs only these phases over NCCL, one rank a card;
 - the lognormal path, the repo's FFTPower benchmark flow
   (``benchmarks/test_fftpower.py`` at its ``desi_like`` scale):
   LogNormalCatalog(LinearPower(Planck15, 0.55, 'EisensteinHu'),
@@ -1858,23 +1867,25 @@ def class_path():
 CP_BOX, CP_NMESH, CP_N, CP_DK, CP_POLES = 5000.0, 1024, 1e7, 0.005, [0, 2, 4]
 
 
-def convpower_data():
-    """The benchmark's Data phase: the data and randoms UniformCatalogs,
-    their NZ columns from numpy, the FKPCatalog and its TSC mesh in f8
-    (the bounding box from the randoms). Each step is a stage of
-    ``utils.stage_timer``."""
+def convpower_data(nmesh=CP_NMESH, comm=None):
+    """The benchmark's Data phase: the data and randoms UniformCatalogs
+    (this rank's rows with a ``comm``), their NZ columns from numpy, the
+    FKPCatalog and its TSC mesh in f8 (the bounding box from the
+    randoms). Each step is a stage of ``utils.stage_timer``."""
     from nbodykit_tpu_torch.algorithms.convpower import FKPCatalog
     from nbodykit_tpu_torch.source.catalog import UniformCatalog
     from nbodykit_tpu_torch.utils import stage
     nbar = CP_N / CP_BOX ** 3
     with stage('draws'):
-        data = UniformCatalog(nbar=nbar, BoxSize=CP_BOX, seed=42)
-        randoms = UniformCatalog(nbar=10 * nbar, BoxSize=CP_BOX, seed=84)
+        data = UniformCatalog(nbar=nbar, BoxSize=CP_BOX, seed=42,
+                              comm=comm)
+        randoms = UniformCatalog(nbar=10 * nbar, BoxSize=CP_BOX, seed=84,
+                                 comm=comm)
     with stage('nz_columns'):
         data['NZ'] = nbar * np.ones(data.size)
         randoms['NZ'] = nbar * np.ones(randoms.size)
     with stage('fkp_catalog_and_bbox'):
-        return FKPCatalog(data, randoms).to_mesh(Nmesh=CP_NMESH,
+        return FKPCatalog(data, randoms).to_mesh(Nmesh=nmesh,
                                                  resampler='tsc')
 
 
@@ -1908,8 +1919,36 @@ def convpower_path():
     assert launches['radix_rank'] == 4, launches
     assert launches['threefry_fill'] >= 4, launches
 
+    gates = convpower_gates(r, mesh, CP_NMESH)
+    del r
+
+    # the results are dropped as they come: a second catalog pair would
+    # take 8 GB beside the Algorithm's peak
+    convpower_data()
+    t_data = spread(convpower_data, LN_REPS)[1]
+    convpower_algorithm(mesh)
+    t_alg = spread(lambda: convpower_algorithm(mesh), LN_REPS)[1]
+    emit({'phase': 'convpower_1024', 'nmesh': CP_NMESH,
+          'box': mesh.attrs['BoxSize'].tolist(),
+          'box_center': mesh.attrs['BoxCenter'].tolist(), **gates,
+          'peak_gb_data': peak_data / 1e9,
+          'peak_gb_algorithm': peak_alg / 1e9,
+          'peak_gb_reserved': reserved / 1e9,
+          'launches': launches, 'reps': LN_REPS,
+          'data_ms': t_data, 'algorithm_ms': t_alg})
+    return mesh, launches
+
+
+def convpower_gates(r, mesh, nmesh):
+    """The flow's gates on a ConvolvedFFTPower result ``r`` of ``mesh``:
+    alpha at N_data / N_randoms, the two normalizations within 1%, the
+    number of k bins, finite poles, and (data and randoms are
+    independent Poisson samples, so the field is noise) P0 at the shot
+    noise and P2, P4 at 0 within 2% over 0.02 < k < 0.1, where the exact
+    TSC shot-noise compensation leaves the noise flat. Returns the
+    gated values."""
     fkp = mesh.source
-    Nd, Nr = len(fkp['data']), len(fkp['randoms'])
+    Nd, Nr = fkp['data'].csize, fkp['randoms'].csize
     alpha = r.attrs['alpha']
     assert abs(alpha / (Nd / Nr) - 1) <= 1e-3, (alpha, Nd, Nr)
     norms = r.attrs['data.norm'], r.attrs['randoms.norm']
@@ -1917,7 +1956,7 @@ def convpower_path():
     poles = r.poles
     k, modes = poles['k'], poles['modes']
     nbins = len(poles['k'])
-    assert nbins == len(np.arange(0, np.pi * CP_NMESH /
+    assert nbins == len(np.arange(0, np.pi * nmesh /
                                   mesh.attrs['BoxSize'].max()
                                   + CP_DK / 2, CP_DK)) - 1, nbins
     for ell in CP_POLES:
@@ -1929,28 +1968,11 @@ def convpower_path():
                         / np.sum(wts) / shot) for ell in CP_POLES}
     assert abs(ratio[0] - 1) < 0.02, "P0/shotnoise = %r" % ratio[0]
     assert abs(ratio[2]) < 0.02 and abs(ratio[4]) < 0.02, ratio
-    del r
-
-    # the results are dropped as they come: a second catalog pair would
-    # take 8 GB beside the Algorithm's peak
-    convpower_data()
-    t_data = spread(convpower_data, LN_REPS)[1]
-    convpower_algorithm(mesh)
-    t_alg = spread(lambda: convpower_algorithm(mesh), LN_REPS)[1]
-    emit({'phase': 'convpower_1024', 'nmesh': CP_NMESH,
-          'box': mesh.attrs['BoxSize'].tolist(),
-          'box_center': mesh.attrs['BoxCenter'].tolist(),
-          'N_data': Nd, 'N_randoms': Nr, 'alpha': alpha,
-          'alpha_over_ratio_minus_1': alpha / (Nd / Nr) - 1,
-          'norms': norms, 'shotnoise': shot, 'nbins_k': nbins,
-          'bins_in_ratio': int(sel.sum()), 'modes_in_ratio': int(wts.sum()),
-          'P_over_shot_mean_0.02_0.1': ratio,
-          'peak_gb_data': peak_data / 1e9,
-          'peak_gb_algorithm': peak_alg / 1e9,
-          'peak_gb_reserved': reserved / 1e9,
-          'launches': launches, 'reps': LN_REPS,
-          'data_ms': t_data, 'algorithm_ms': t_alg})
-    return mesh, launches
+    return {'N_data': Nd, 'N_randoms': Nr, 'alpha': alpha,
+            'alpha_over_ratio_minus_1': alpha / (Nd / Nr) - 1,
+            'norms': norms, 'shotnoise': shot, 'nbins_k': nbins,
+            'bins_in_ratio': int(sel.sum()), 'modes_in_ratio': int(wts.sum()),
+            'P_over_shot_mean_0.02_0.1': ratio}
 
 
 def convpower_kernels(mesh):
@@ -2063,6 +2085,20 @@ DIST_REPS = 3
 DIST_KERNELS = ('radix_rank', 'paint_deposit', 'threefry')
 # the f4 bar of BASELINE.md for P(k) (relative to each column's largest)
 DIST_PK_RTOL = 1e-4
+# dist_convpower: the convpower flow's catalogs across ranks at
+# DCP_NMESH (cut from CP_NMESH, PERF.md section 4), f8: the poles within
+# DCP_PK_RTOL of each column's largest value, alpha, the normalizations
+# and the shot noise within DCP_SCALAR_RTOL of the one-rank run's
+DCP_NMESH = 512
+DCP_PK_RTOL = 1e-8
+DCP_SCALARS = ('alpha', 'data.norm', 'randoms.norm', 'shotnoise')
+DCP_SCALAR_RTOL = 1e-10
+# dist_recon: the FFTRecon flow across ranks; the f4 field gathered to
+# rank 0 within DRC_FIELD_RTOL of its largest value (the bar of
+# tests/test_torch_fftrecon.py), P(k) within DIST_PK_RTOL
+DRC_FIELD_RTOL = 1e-4
+# x-stripes of a randoms payload that the plain deposit checks
+DIST_STRIPES = 16
 
 
 def _quiet(fn, *args, **kw):
@@ -2075,7 +2111,8 @@ def _quiet(fn, *args, **kw):
     return out, [json.loads(line) for line in buf.getvalue().splitlines()]
 
 
-def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, q):
+def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
+              rc_ref_path, q):
     """One rank of ``dist_main``: joins the world of ``nproc`` ranks
     (``backend`` 'gloo': all on cuda:0, collectives staged through the
     host; 'nccl': rank r on cuda:r), draws its rows of the main path's
@@ -2085,8 +2122,10 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, q):
     pass on its destinations and (rank 0) the deposit on its extended
     slab against their plain versions, gathers the painted field to
     rank 0, which compares it with the one-rank field saved at
-    ``ref_path``, and puts its record on ``q``. ``workdir`` holds the
-    world's rendezvous file."""
+    ``ref_path``; then runs ``dist_convpower`` and ``dist_recon`` (the
+    recon's data at ``rc_pos_path``, the one-rank field at
+    ``rc_ref_path``) and puts its record on ``q``. ``workdir`` holds
+    the world's rendezvous file."""
     from nbodykit_tpu_torch import _build, utils
     from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
                                                    pass_rank_hist_plain,
@@ -2184,9 +2223,192 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, q):
     rec['field_mean'] = mean
     rec['power'] = {c: np.asarray(r.power[c]) for c in r.power.variables}
     rec['poles'] = {c: np.asarray(r.poles[c]) for c in r.poles.variables}
+    del m, r, field, whole_field, cat, cpos, dest
+    torch.cuda.empty_cache()
+    rec['main_seconds'] = time.perf_counter() - t_start
+    t1 = time.perf_counter()
+    rec['convpower'] = dist_convpower_rank(mesh)
+    rec['convpower']['seconds'] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rec['recon'] = dist_recon_rank(mesh, rc_pos_path, rc_ref_path)
+    rec['recon']['seconds'] = time.perf_counter() - t1
     rec['rank_seconds'] = time.perf_counter() - t_start
     q.put(rec)
     torch.distributed.destroy_process_group()
+
+
+def staged_run(fn, comm=None):
+    """(fn's result, its record): one call of ``fn`` with every kernel's
+    launches counted, ``utils.stage_timer`` set (a CUDA-event window a
+    stage), its CUDA-event time and the peak memory allocated. With a
+    ``comm`` the ranks start together (one all_reduce first), so a
+    rank's window does not hold its wait for a late rank."""
+    from nbodykit_tpu_torch import utils
+    if comm is not None:
+        comm.all_reduce(torch.zeros(1, device=comm.device))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = StageTimes()
+    utils.stage_timer = times
+    try:
+        with counted_launches() as launches:
+            out, ms = timed(fn)
+    finally:
+        utils.stage_timer = None
+    stages = {k: {'total': float(sum(v)), 'calls': len(v)}
+              for k, v in times.ms.items()}
+    return out, dict(ms=ms, stages_ms=stages, launches=launches,
+                     peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def slab_payload(mesh, pm, cpos, mass):
+    """This rank's particles, in cell units, and masses exchanged to
+    the owners of their slabs (a collective): (positions, masses) of
+    the rows this rank receives, pads at mass 0."""
+    from nbodykit_tpu_torch.parallel.exchange import exchange_by_dest
+    dest = pm._route_dest(cpos).contiguous()
+    (cpos_r, mass_r), valid, _ = exchange_by_dest(dest, [cpos, mass], mesh)
+    return cpos_r, torch.where(valid, mass_r, 0.0)
+
+
+def slab_deposit(label, pm, cpos_r, mass_r, resampler, stripes=None):
+    """Rank 0's deposit on its extended slab against its plain version
+    (on ``stripes`` x-stripes when given, as convpower_kernels does),
+    and its time beside its bound: the whole payload's, and the
+    stripes' with the plain version's. Returns ({record}, lines)."""
+    from nbodykit_tpu_torch.ops.window import window_support
+    h = window_support(resampler)
+    N = int(pm.Nmesh[0])
+    n0 = N // pm.nproc
+    (plan, payload, geom, err, _), lines = _quiet(
+        deposit_case, '%s slab n0l=%d origin=%d of %d^3, rank 0 of %d: %s'
+        % (resampler, n0 + 2 * h, -h, N, pm.nproc, label), cpos_r, mass_r,
+        (n0 + 2 * h, N, N), (N,) * 3, -h, resampler, stripes=stripes)
+    recs = {label: time_deposit(payload, geom, plan, err,
+                                plain=stripes is None)}
+    if stripes:
+        sub = tuple(a[:stripes].contiguous() for a in payload)
+        recs['%s_%d_stripes' % (label, stripes)] = time_deposit(
+            sub, geom, plan, err)
+    return recs, lines
+
+
+def exchange_rank_check(mesh, pm, cpos):
+    """The exchange's rank pass at D = P on this rank's destinations
+    against its plain version, bit for bit; rank 0 also times it.
+    Returns (bit-identical, rank 0's time record or None, lines)."""
+    from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
+                                                   pass_rank_hist_plain,
+                                                   raise_on_bad_digits)
+    dest = pm._route_dest(cpos).contiguous()
+    got = pass_rank_hist_cuda(dest, mesh.size)
+    raise_on_bad_digits(pm.device)
+    want = pass_rank_hist_plain(dest, mesh.size)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    assert same, "rank %d: the exchange's rank pass differs" % mesh.rank
+    del got, want
+    if mesh.rank != 0:
+        return same, None, []
+    rec, lines = _quiet(time_rank, dest.shape[0], D=mesh.size,
+                        digits=dest, plain_reps=1)
+    return same, rec, lines
+
+
+def dist_convpower_rank(mesh):
+    """One rank of ``dist_convpower``: the convpower flow's Data and
+    Algorithm on this rank's rows at DCP_NMESH, once, staged; its gates;
+    the exchange's rank pass on its randoms' destinations; rank 0's TSC
+    f8 deposit on its extended slab, for the data and on DIST_STRIPES
+    stripes of the randoms."""
+    mesh_cp, data_rec = staged_run(lambda: convpower_data(DCP_NMESH, mesh),
+                                   mesh)
+    r, alg_rec = staged_run(lambda: convpower_algorithm(mesh_cp), mesh)
+    # two paints, each an exchange (a rank pass at D = P) and bucket
+    # passes; four catalog draws
+    for name, want in (('paint_deposit', 2), ('radix_rank', 4)):
+        assert alg_rec['launches'][name] >= want, alg_rec['launches']
+    assert data_rec['launches']['threefry_fill'] >= 4, data_rec['launches']
+    out = dict(data=data_rec, algorithm=alg_rec,
+               gates=convpower_gates(r, mesh_cp, DCP_NMESH),
+               poles={c: np.asarray(r.poles[c]) for c in r.poles.variables},
+               attrs={k: r.attrs[k] for k in DCP_SCALARS},
+               box=mesh_cp.attrs['BoxSize'].tolist(),
+               box_center=mesh_cp.attrs['BoxCenter'].tolist(),
+               n_rows={n: len(mesh_cp.source[n])
+                       for n in ('data', 'randoms')}, lines=[])
+    del r
+    kernels = {}
+    for name, stripes in (('data', None), ('randoms', DIST_STRIPES)):
+        sm = mesh_cp[name]
+        cpos = sm.pm._to_cell_units(sm.source[sm.position])
+        if name == 'randoms':
+            same, rank_rec, lines = exchange_rank_check(mesh, sm.pm, cpos)
+            out['rank_pass_bit_identical'] = same
+            out['lines'] += lines
+            kernels['rank'] = rank_rec
+        cpos_r, mass_r = slab_payload(
+            mesh, sm.pm, cpos, sm.source[sm.weight].to(torch.float64))
+        del cpos
+        if mesh.rank == 0:
+            recs, lines = slab_deposit(name, sm.pm, cpos_r, mass_r, 'tsc',
+                                       stripes=stripes)
+            kernels.update(recs)
+            out['lines'] += lines
+        del cpos_r, mass_r, sm
+        torch.cuda.empty_cache()
+    out['kernels'] = kernels
+    return out
+
+
+def dist_recon_rank(mesh, pos_path, ref_path):
+    """One rank of ``dist_recon``: the FFTRecon flow on this rank's rows
+    of the positions at ``pos_path`` (an ArrayCatalog) and of ~1e8
+    uniform randoms (seed 84), once, staged; the field gathered to rank
+    0 and held against the one-rank field at ``ref_path``; rank 0's CIC
+    f4 deposit on its extended slab of the shifted randoms (on
+    DIST_STRIPES stripes against the plain version)."""
+    from nbodykit_tpu_torch.source.catalog import (ArrayCatalog,
+                                                   UniformCatalog)
+    from nbodykit_tpu_torch.utils import GatherArray
+    data = ArrayCatalog({'Position': np.load(pos_path)},
+                        comm=mesh, BoxSize=LN_BOX)
+    randoms = UniformCatalog(nbar=10 * LN_N / LN_BOX ** 3, BoxSize=LN_BOX,
+                             seed=84, comm=mesh)
+    randoms['Position']
+    (recon, field, p), rec = staged_run(lambda: fftrecon_run(data, randoms),
+                                        mesh)
+    # three paints (data, shifted randoms, shifted data), each an exchange
+    # and bucket passes
+    for name, want in (('paint_deposit', 3), ('radix_rank', 6)):
+        assert rec['launches'][name] >= want, rec['launches']
+    value = field.value
+    pm = recon.pm
+    out = dict(run=rec, n_rows=(len(data), len(randoms)),
+               power={c: np.asarray(p.power[c])
+                      for c in p.power.variables},
+               field_mean=float(mesh.all_reduce(value.double().sum()))
+               / pm.Ntot, lines=[])
+    whole = GatherArray(value, mesh, root=0)
+    if mesh.rank == 0:
+        ref = np.load(ref_path, mmap_mode='r')
+        assert whole.shape == ref.shape, whole.shape
+        out['field_max_abs_diff'] = float(np.abs(whole - ref).max())
+        out['field_max'] = float(np.abs(ref).max())
+    del whole, field, value, p
+    # the shifted randoms the second paint deposits
+    s_r = recon._compute_s()[1]
+    cpos = pm._to_cell_units(randoms['Position'].to(torch.float32) - s_r)
+    del s_r
+    cpos_r, mass_r = slab_payload(
+        mesh, pm, cpos, torch.ones(len(randoms), dtype=torch.float32,
+                                   device=pm.device))
+    del cpos
+    if mesh.rank == 0:
+        out['kernels'], out['lines'] = slab_deposit(
+            'shifted_randoms', pm, cpos_r, mass_r, 'cic',
+            stripes=DIST_STRIPES)
+    return out
 
 
 def run_ranks(target, nproc, args, timeout_s=600):
@@ -2227,8 +2449,8 @@ def run_ranks(target, nproc, args, timeout_s=600):
                 p.join(timeout=30)
 
 
-def _pk_close(got, want, what):
-    """Every column of ``got`` within DIST_PK_RTOL of ``want``'s largest;
+def _pk_close(got, want, what, rtol=DIST_PK_RTOL):
+    """Every column of ``got`` within ``rtol`` of ``want``'s largest;
     ``modes`` identical. Returns the largest relative difference."""
     np.testing.assert_array_equal(got['modes'], want['modes'])
     worst = 0.0
@@ -2238,10 +2460,116 @@ def _pk_close(got, want, what):
         w = np.asarray(w)
         scale = float(np.nanmax(np.abs(w)))
         d = float(np.nanmax(np.abs(np.asarray(got[col]) - w))) / scale
-        assert d <= DIST_PK_RTOL, "%s %s: %g > %g" % (what, col, d,
-                                                      DIST_PK_RTOL)
+        assert d <= rtol, "%s %s: %g > %g" % (what, col, d, rtol)
         worst = max(worst, d)
     return worst
+
+
+def dist_convpower_reference():
+    """The one-rank run of dist_convpower's configuration, staged as a
+    rank's: its poles, scalars, box, gates and records."""
+    mesh, data_rec = staged_run(lambda: convpower_data(DCP_NMESH))
+    r, alg_rec = staged_run(lambda: convpower_algorithm(mesh))
+    ref = dict(data=data_rec, algorithm=alg_rec,
+               gates=convpower_gates(r, mesh, DCP_NMESH),
+               poles={c: np.asarray(r.poles[c]) for c in r.poles.variables},
+               attrs={k: r.attrs[k] for k in DCP_SCALARS},
+               box=mesh.attrs['BoxSize'].tolist(),
+               box_center=mesh.attrs['BoxCenter'].tolist())
+    del mesh, r
+    torch.cuda.empty_cache()
+    return ref
+
+
+def dist_recon_reference(pos_path, ref_path):
+    """The one-rank run of dist_recon's configuration: the FOF path's
+    lognormal catalog (its positions saved at ``pos_path`` for the
+    ranks, which have no multi-rank lognormal draw) and ~1e8 uniform
+    randoms, staged as a rank's; the field saved at ``ref_path``."""
+    from nbodykit_tpu_torch.source.catalog import UniformCatalog
+    cat = lognormal_catalog()
+    np.save(pos_path, cat['Position'].cpu().numpy())
+    randoms = UniformCatalog(nbar=10 * LN_N / LN_BOX ** 3, BoxSize=LN_BOX,
+                             seed=84)
+    randoms['Position']
+    (recon, field, p), rec = staged_run(lambda: fftrecon_run(cat, randoms))
+    np.save(ref_path, field.value.cpu().numpy())
+    ref = dict(run=rec, n_rows=(len(cat), len(randoms)),
+               power={c: np.asarray(p.power[c]) for c in p.power.variables},
+               field_mean=float(field.value.double().mean()))
+    del cat, randoms, recon, field, p
+    torch.cuda.empty_cache()
+    return ref
+
+
+def dist_survey_phases(nproc, backend, recs, cp_ref, rc_ref):
+    """The parent's checks of dist_convpower and dist_recon at ``nproc``
+    ranks against the one-rank runs, and their lines. Returns
+    ({'dist_convpower_P<n>': launches, 'dist_recon_P<n>': ...} summed
+    over the ranks, rank 0's kernel records)."""
+    cps = [rec['convpower'] for rec in recs]
+    rcs = [rec['recon'] for rec in recs]
+    for c in cps + rcs:
+        for line in c.pop('lines'):
+            emit(dict(line, dist_ranks=nproc))
+    cp_worst = max(_pk_close(c['poles'], cp_ref['poles'],
+                             'dist_convpower P=%d' % nproc, DCP_PK_RTOL)
+                   for c in cps)
+    scalar_worst = 0.0
+    for c in cps:
+        assert c['box'] == cp_ref['box'], (c['box'], cp_ref['box'])
+        assert c['box_center'] == cp_ref['box_center']
+        for key in DCP_SCALARS:
+            d = abs(c['attrs'][key] / cp_ref['attrs'][key] - 1)
+            assert d <= DCP_SCALAR_RTOL, (key, d)
+            scalar_worst = max(scalar_worst, d)
+    assert sum(c['n_rows']['randoms'] for c in cps) == \
+        cp_ref['gates']['N_randoms']
+    rc_worst = max(_pk_close(c['power'], rc_ref['power'],
+                             'dist_recon P=%d' % nproc) for c in rcs)
+    r0 = rcs[0]
+    assert r0['field_max_abs_diff'] <= DRC_FIELD_RTOL * r0['field_max'], r0
+    assert all(abs(c['field_mean']) <= 1e-4 for c in rcs)
+    assert sum(c['n_rows'][1] for c in rcs) == rc_ref['n_rows'][1]
+
+    def summed(runs):
+        return {k: sum(run['launches'][k] for run in runs)
+                for k in runs[0]['launches']}
+    launches = {
+        'dist_convpower_P%d' % nproc: summed([c['data'] for c in cps]
+                                             + [c['algorithm'] for c in cps]),
+        'dist_recon_P%d' % nproc: summed([c['run'] for c in rcs])}
+    setting = DIST_SETTINGS[backend]
+    emit({'phase': 'dist_convpower', 'ranks': nproc, 'nmesh': DCP_NMESH,
+          'backend': backend, 'setting': setting,
+          'poles_max_rel_diff_vs_one_rank': cp_worst,
+          'poles_rtol': DCP_PK_RTOL,
+          'scalars_max_rel_diff_vs_one_rank': scalar_worst,
+          'scalars_rtol': DCP_SCALAR_RTOL, 'gates_rank0': cps[0]['gates'],
+          'one_rank': {k: cp_ref[k] for k in ('data', 'algorithm')},
+          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
+                            data=c['data'], algorithm=c['algorithm'],
+                            rank_pass_bit_identical=c[
+                                'rank_pass_bit_identical'],
+                            seconds=c['seconds'])
+                       for rec, c in zip(recs, cps)],
+          'kernels_rank0': cps[0]['kernels']})
+    emit({'phase': 'dist_recon', 'ranks': nproc, 'nmesh': RC_NMESH,
+          'backend': backend, 'setting': setting,
+          'pk_max_rel_diff_vs_one_rank': rc_worst, 'pk_rtol': DIST_PK_RTOL,
+          'field_max_abs_diff_vs_one_rank': r0['field_max_abs_diff'],
+          'field_max': r0['field_max'], 'field_rtol': DRC_FIELD_RTOL,
+          'one_rank': rc_ref['run'],
+          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
+                            run=c['run'], field_mean=c['field_mean'],
+                            seconds=c['seconds'])
+                       for rec, c in zip(recs, rcs)],
+          'kernels_rank0': r0['kernels']})
+    kernels = dict(cp_rank=cps[0]['kernels']['rank'],
+                   cp_deposit={k: v for k, v in cps[0]['kernels'].items()
+                               if k != 'rank'},
+                   rc_deposit=r0['kernels'])
+    return launches, kernels
 
 
 # what each backend's dist_main line says of its setting
@@ -2268,6 +2596,7 @@ def dist_main(run, nmesh, backend='gloo'):
     ref_field = mesh.to_real_field().value
     ref = {'power': {c: np.asarray(r1.power[c]) for c in r1.power.variables},
            'poles': {c: np.asarray(r1.poles[c]) for c in r1.poles.variables}}
+    del mesh, r1
     launches, kernel_recs = {}, {}
     workroot = tempfile.mkdtemp(prefix='nbk-dist-main-')
     try:
@@ -2275,12 +2604,21 @@ def dist_main(run, nmesh, backend='gloo'):
         np.save(ref_path, ref_field.cpu().numpy())
         del ref_field
         torch.cuda.empty_cache()
+        # the one-rank runs of dist_convpower and dist_recon
+        t_ref = time.perf_counter()
+        cp_ref = dist_convpower_reference()
+        rc_pos_path = os.path.join(workroot, 'recon_positions.npy')
+        rc_ref_path = os.path.join(workroot, 'recon_field.npy')
+        rc_ref = dist_recon_reference(rc_pos_path, rc_ref_path)
+        emit({'phase': 'dist_one_rank_references',
+              'seconds': time.perf_counter() - t_ref})
         for nproc in DIST_RANKS:
             workdir = os.path.join(workroot, 'P%d' % nproc)
             os.makedirs(workdir)
             tw = time.perf_counter()
             recs = run_ranks(dist_rank, nproc,
-                             (workdir, ref_path, nmesh, backend))
+                             (workdir, ref_path, nmesh, backend,
+                              rc_pos_path, rc_ref_path))
             world_s = time.perf_counter() - tw
             for rec in recs:
                 for line in rec.pop('lines'):
@@ -2308,10 +2646,15 @@ def dist_main(run, nmesh, backend='gloo'):
                   'per_rank': [{k: rec[k] for k in (
                       'rank', 'n_rows', 'wall_s', 'run_ms', 'stages_ms',
                       'peak_bytes', 'launches', 'field_mean',
-                      'rank_pass_bit_identical', 'rank_seconds')}
+                      'rank_pass_bit_identical', 'main_seconds',
+                      'rank_seconds')}
                       for rec in recs],
                   'rank_pass_D_eq_P': r0['rank_timing'],
                   'deposit_extended_slab': r0['deposit_timing']})
+            survey_launches, survey_kernels = dist_survey_phases(
+                nproc, backend, recs, cp_ref, rc_ref)
+            launches.update(survey_launches)
+            kernel_recs[nproc].update(survey_kernels)
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     emit({'phase': 'dist_main_total', 'seconds': time.perf_counter() - t0})
@@ -4395,6 +4738,8 @@ def main():
              at_bispectrum_256=bs_kernels['rank'],
              at_segsum_512=segsum_rank,
              **{'at_dist_main_P%d' % p: k['rank']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_convpower_P%d' % p: k['cp_rank']
                 for p, k in dist_kernels.items()}),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
@@ -4403,6 +4748,10 @@ def main():
              at_convpower_1024=cp_dep,
              at_bispectrum_256=bs_kernels['deposit'],
              **{'at_dist_main_P%d' % p: k['deposit']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_convpower_P%d' % p: k['cp_deposit']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_recon_P%d' % p: k['rc_deposit']
                 for p, k in dist_kernels.items()}),
         dict(name='threefry_fill', route='cuda', source=rng_src,
              replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),

@@ -182,12 +182,12 @@ def _combine_triangles(q, shell, delta, nbins, chunk=512):
     return S, cnt
 
 
-def direct_bispectrum(pos, w, BoxSize, nbins, tile=None):
+def direct_bispectrum(pos, w, BoxSize, nbins, tile=None, comm=None):
     """The blocked direct-summation estimator: exact mode sums by
     :func:`~nbodykit_tpu_torch.ops.pairblock.pairblock_sum` on the
     device of ``pos``, host triangle combination. ``(B, ntri)`` as
     (nbins,)*3 host arrays, NaN where no closed (unwrapped) triangle
-    exists."""
+    exists. ``comm`` is :func:`pairblock_sum`'s."""
     from ..ops.pairblock import lattice_kvecs, pairblock_sum
 
     BoxSize = np.ones(3) * np.asarray(BoxSize, dtype='f8')
@@ -196,7 +196,7 @@ def direct_bispectrum(pos, w, BoxSize, nbins, tile=None):
     kv = lattice_kvecs(q_half, BoxSize)
     pos = torch.as_tensor(pos)
     w = torch.as_tensor(w, device=pos.device)
-    modes = pairblock_sum(pos, w, kv, tile=tile)
+    modes = pairblock_sum(pos, w, kv, tile=tile, comm=comm)
     W = float(torch.sum(w))
     d_half = as_numpy(modes) / W
 

@@ -1,12 +1,16 @@
 """FKPCatalog: data and randoms under one namespace, with FKP weights
 and a shared bounding box (counterpart of
-``nbodykit_tpu/algorithms/convpower/catalog.py``)."""
+``nbodykit_tpu/algorithms/convpower/catalog.py``).
+
+With P ranks each rank holds its rows of both catalogs; the bounding
+box and every choice that precedes a collective come from totals over
+the ranks, so every rank takes the same branch."""
 
 import numpy as np
 import torch
 
 from ...source.catalog.species import MultipleSpeciesCatalog
-from ...parallel.runtime import require_one_rank
+from ...parallel.runtime import mesh_size
 
 
 def FKPWeightFromNbar(P0, nbar):
@@ -30,7 +34,6 @@ class FKPCatalog(MultipleSpeciesCatalog):
 
     def __init__(self, data, randoms, BoxSize=None, BoxPad=0.02,
                  P0=None, nbar='NZ'):
-        require_one_rank(data, 'FKPCatalog')
         if randoms is None:
             randoms = data[:0]
         MultipleSpeciesCatalog.__init__(self, ['data', 'randoms'],
@@ -59,20 +62,34 @@ class FKPCatalog(MultipleSpeciesCatalog):
 
     def _define_bbox(self, position, selection, species):
         """(BoxSize, BoxCenter) from the extent of the selected
-        positions of ``species``: the extent times 1 + BoxPad, rounded
-        up to whole units, unless BoxSize was given. The extent is
-        reduced on the device; six numbers reach the host."""
+        positions of ``species`` on every rank: the extent times 1 +
+        BoxPad, rounded up to whole units, unless BoxSize was given. The
+        extent is reduced on the device (a rank with no selected rows
+        gives the reduction's identities, +inf and -inf); six numbers
+        reach the host."""
         cat = self[species]
         pos = cat[position]
         sel = cat[selection].to(torch.bool)
         nsel = int(sel.sum())
-        if nsel == 0:
+        ranks = mesh_size(self.comm) > 1
+        total = int(self.comm.all_reduce(torch.tensor(
+            [nsel], device=self.device))) if ranks else nsel
+        if total == 0:
             raise ValueError("no selected objects in %r to define the "
                              "bounding box" % species)
         if nsel < len(sel):
             pos = pos[sel]
-        pos_min, pos_max = torch.stack(
-            torch.aminmax(pos, dim=0)).cpu().numpy()
+        if nsel > 0:
+            lo, hi = torch.aminmax(pos, dim=0)
+        else:
+            lo = torch.full(pos.shape[1:], float('inf'), dtype=pos.dtype,
+                            device=pos.device)
+            hi = -lo
+        if ranks:
+            lo, neg_hi = self.comm.all_reduce(torch.stack([lo, -hi]),
+                                              op='min')
+            hi = -neg_hi
+        pos_min, pos_max = torch.stack([lo, hi]).cpu().numpy()
         if np.isinf(pos_min).any() or np.isinf(pos_max).any():
             raise ValueError("infinite position range in %r" % species)
 
@@ -102,7 +119,7 @@ class FKPCatalog(MultipleSpeciesCatalog):
             if Nmesh is None:
                 raise ValueError("pass Nmesh to to_mesh")
         if bbox_from_species is None:
-            bbox_from_species = 'randoms' if len(self['randoms']) > 0 \
+            bbox_from_species = 'randoms' if self['randoms'].csize > 0 \
                 else 'data'
         box, center = self._define_bbox(position, selection,
                                         bbox_from_species)

@@ -4,7 +4,8 @@
 F(x) = [w n_data(x) - alpha w n_randoms(x)] / cell volume, with w the
 completeness weight times the FKP weight and the positions re-centred
 on the box, each species painted unnormalized through the port's
-paint.
+paint. With P ranks each species is painted across the ranks and every
+sum is a total over them.
 """
 
 import numpy as np
@@ -13,8 +14,8 @@ import torch
 from ...base.mesh import Field
 from ...source.mesh.catalog import CatalogMesh
 from ...source.mesh.species import MultipleSpeciesCatalogMesh
+from ...parallel.runtime import mesh_size
 from ...utils import stage
-from ...parallel.runtime import require_one_rank
 
 
 class FKPCatalogMesh(MultipleSpeciesCatalogMesh):
@@ -43,7 +44,6 @@ class FKPCatalogMesh(MultipleSpeciesCatalogMesh):
             selection=selection, position='_RecenteredPosition',
             interlaced=interlaced, compensated=compensated,
             resampler=resampler)
-        require_one_rank(self, 'FKPCatalogMesh')
 
     def RecenteredPosition(self, name):
         """Positions less BoxCenter, in [-L/2, L/2)."""
@@ -58,10 +58,14 @@ class FKPCatalogMesh(MultipleSpeciesCatalogMesh):
                 * self.source[name][self.fkp_weight])
 
     def weighted_total(self, name):
-        """W: the sum of the selected completeness weights."""
+        """W: the sum of the selected completeness weights (over every
+        rank's rows)."""
         cat = self.source[name]
-        w = torch.where(cat[self.selection], cat[self.comp_weight], 0.0)
-        return float(w.sum())
+        w = torch.where(cat[self.selection], cat[self.comp_weight],
+                        0.0).sum().reshape(1)
+        if mesh_size(self.pm.comm) > 1:
+            w = self.pm.comm.all_reduce(w)
+        return float(w)
 
     def __getitem__(self, species):
         """The CatalogMesh of one species, painting its re-centred
@@ -99,7 +103,7 @@ class FKPCatalogMesh(MultipleSpeciesCatalogMesh):
         total = data_field.value
         del data_field
 
-        if len(self.source['randoms']) > 0:
+        if self.source['randoms'].csize > 0:
             with stage('paint_randoms'):
                 ran_field = self['randoms'].to_real_field(normalize=False)
             for k, v in ran_field.attrs.items():

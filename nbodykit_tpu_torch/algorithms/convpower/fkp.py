@@ -12,6 +12,13 @@ take 52 GB at 1024^3 in f64).
 Even multipoles take the r2c half spectrum. Any odd multipole switches
 to the full c2c spectrum, since the hermitian shortcut holds only for
 even ell under a varying line of sight.
+
+With P ranks the density is this rank's x-slab and every transform its
+ky-slab: the Y_lm(x) weights are formed on the rank's x rows, the
+Y_lm(k) weights on its ky rows, the normalization and shot noise are
+f64 sums over every rank's rows, and the binning sums the ranks'
+histograms (``project_to_basis``), so the result is the same on every
+rank.
 """
 
 import json
@@ -29,7 +36,6 @@ from ...utils import JSONDecoder, JSONEncoder, stage
 from ..fftpower import _find_unique_edges, project_to_basis
 from .catalog import FKPCatalog
 from .catalogmesh import FKPCatalogMesh
-from ...parallel.runtime import require_one_rank
 
 # elements of one slab of the Y_lm weights (each f64 temporary of the
 # polynomial is a slab of this size)
@@ -106,7 +112,6 @@ class ConvolvedFFTPower(object):
 
     def __init__(self, first, poles, second=None, Nmesh=None, kmin=0.,
                  kmax=None, dk=None):
-        require_one_rank(first, 'ConvolvedFFTPower')
         if isinstance(first, FKPCatalog):
             first = first.to_mesh(Nmesh=Nmesh)
         if not isinstance(first, FKPCatalogMesh):
@@ -116,6 +121,7 @@ class ConvolvedFFTPower(object):
             second = first
         self.first = first
         self.second = second
+        self.comm = first.comm
 
         if np.isscalar(poles):
             poles = [poles]
@@ -165,8 +171,11 @@ class ConvolvedFFTPower(object):
 
         def forward(slab):
             # the scaled transform of the field whose x-slabs are
-            # slab(a, b), as a view in the transposed layout
-            return pm.forward_slabs(slab, full=use_c2c).permute(1, 0, 2)
+            # slab(a, b), in the transposed layout: a view of the
+            # natural layout forward_slabs gives on one rank, the ky-slab
+            # it gives with P ranks
+            out = pm.forward_slabs(slab, full=use_c2c)
+            return out.permute(1, 0, 2) if pm.nproc == 1 else out
 
         transfer = compensation_transfer(self.first.resampler,
                                          self.first.interlaced)
@@ -216,7 +225,8 @@ class ConvolvedFFTPower(object):
         else:
             norm = 1.0
 
-        # axis vectors only: the unit vectors are formed per slab
+        # axis vectors only: the unit vectors are formed per slab; x
+        # runs over this rank's rows
         N0, N1, N2 = pm.shape_real
         H = pm.cellsize
         offset = self.attrs['BoxCenter'] - pm.BoxSize / 2.0 + 0.5 * H
@@ -224,9 +234,12 @@ class ConvolvedFFTPower(object):
         xvec = []
         for ax, n in enumerate((N0, N1, N2)):
             shape = [1, 1, 1]
-            shape[ax] = n
-            xvec.append((torch.arange(n, dtype=f8, device=dev)
-                         * float(H[ax]) + float(offset[ax])).reshape(shape))
+            i = torch.arange(n, dtype=f8, device=dev)
+            if ax == 0:
+                i = i[pm._rows(n)]
+            shape[ax] = i.shape[0]
+            xvec.append((i * float(H[ax]) + float(offset[ax])).reshape(
+                shape))
         kvec = pm.k_list(dtype='f8', full=use_c2c)
 
         dtype = [('k', 'f8')] + [('power_%d' % l, 'c16') for l in
@@ -309,13 +322,20 @@ class ConvolvedFFTPower(object):
             mesh2.source[name][mesh2.fkp_weight]
         return cat1[mesh1.selection], cat1[mesh1.comp_weight], w1, w2
 
+    def _total(self, terms):
+        """The sum of ``terms`` over every rank's rows, as a float."""
+        s = terms.sum().reshape(1)
+        if self.first.pm.nproc > 1:
+            s = self.comm.all_reduce(s)
+        return float(s)
+
     def normalization(self, name, alpha):
         """A = sum n(z) w_comp w_fkp1 w_fkp2 over the selected objects of
         ``name`` (times alpha for the randoms); Beutler et al. 2014 eqs.
         13-14. One host read."""
         sel, comp, w1, w2 = self._species_columns(name)
         nbar = self.second.source[name][self.second.nbar]
-        A = float(torch.where(sel, nbar * comp * w1 * w2, 0.0).sum())
+        A = self._total(torch.where(sel, nbar * comp * w1 * w2, 0.0))
         if name == 'randoms':
             A *= alpha
         return A
@@ -327,7 +347,7 @@ class ConvolvedFFTPower(object):
         Pshot = 0.0
         for name in ['data', 'randoms']:
             sel, comp, w1, w2 = self._species_columns(name)
-            S = float(torch.where(sel, comp ** 2 * w1 * w2, 0.0).sum())
+            S = self._total(torch.where(sel, comp ** 2 * w1 * w2, 0.0))
             if name == 'randoms':
                 S *= alpha ** 2
             Pshot += S
@@ -369,10 +389,11 @@ class ConvolvedFFTPower(object):
             json.dump(self.__getstate__(), ff, cls=JSONEncoder)
 
     @classmethod
-    def load(cls, output, format='current'):
+    def load(cls, output, comm=None, format='current'):
         """Load a saved result; ``format='pre000305'`` reads the layout
         of files written by nbodykit before 0.3.5 (the poles as a raw
-        structured array beside flat edges)."""
+        structured array beside flat edges). Every rank of ``comm``
+        reads the same file."""
         with open(output, 'r') as ff:
             state = json.load(ff, cls=JSONDecoder)
         self = object.__new__(cls)
@@ -382,6 +403,7 @@ class ConvolvedFFTPower(object):
             self.__setstate_pre000305__(state)
         else:
             raise ValueError("format must be 'current' or 'pre000305'")
+        self.comm = comm
         return self
 
     def __getstate__(self):

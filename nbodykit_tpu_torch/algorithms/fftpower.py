@@ -358,11 +358,14 @@ class FFTBase(object):
             json.dump(self.__getstate__(), ff, cls=JSONEncoder)
 
     @classmethod
-    def load(cls, output):
+    def load(cls, output, comm=None):
+        """A saved result; every rank of ``comm`` reads the same file
+        (results are the same on every rank)."""
         with open(output, 'r') as ff:
             state = json.load(ff, cls=JSONDecoder)
         self = object.__new__(cls)
         self.__setstate__(state)
+        self.comm = comm
         return self
 
 

@@ -12,6 +12,13 @@ under x64: the line of sight is an f8 numpy array, so mu and the kernels
 are f8 (complex128) while k and the smoothing stay f4. The three
 components share one forward FFT; each component's kernel is built in
 turn, so one complex128 kernel is alive at a time.
+
+With P ranks (the data's ``comm``) the paints, the r2c and the three
+c2r run on the slab path, the kernels on this rank's ky rows, and the
+mean density counts every rank's rows. The three displacement fields
+are read out together (``ParticleMesh.readout_many``), so each
+catalog's particles travel to their slabs once, not three times; on
+one rank each field is read and freed in turn.
 """
 
 import logging
@@ -22,7 +29,7 @@ import torch
 
 from ..base.catalog import CatalogSourceBase
 from ..base.mesh import Field, MeshSource
-from ..parallel.runtime import require_one_rank
+from ..parallel.runtime import same_mesh
 
 
 class FFTRecon(MeshSource):
@@ -41,7 +48,6 @@ class FFTRecon(MeshSource):
     def __init__(self, data, ran, Nmesh, bias=1.0, f=0.0, los=[0, 0, 1],
                  R=20, position='Position', revert_rsd_random=False,
                  scheme='LGS', BoxSize=None, resampler='cic'):
-        require_one_rank(data, 'FFTRecon')
         if scheme not in ('LGS', 'LF2', 'LRR'):
             raise ValueError("scheme must be LGS, LF2 or LRR")
         if not isinstance(data, CatalogSourceBase) or \
@@ -50,6 +56,9 @@ class FFTRecon(MeshSource):
         if data.device != ran.device:
             raise ValueError("data on %s, randoms on %s"
                              % (data.device, ran.device))
+        if not same_mesh(data.comm, ran.comm):
+            raise ValueError("data and randoms on different meshes of "
+                             "ranks: %s, %s" % (data.comm, ran.comm))
 
         if Nmesh is None:
             Nmesh = data.attrs['Nmesh']
@@ -60,7 +69,7 @@ class FFTRecon(MeshSource):
         los /= (los ** 2).sum() ** 0.5
 
         MeshSource.__init__(self, Nmesh, BoxSize, dtype='f4',
-                            device=data.device)
+                            device=data.device, comm=data.comm)
         if (self.pm.BoxSize / self.pm.Nmesh).max() > R:
             warnings.warn("smoothing radius is smaller than the mesh "
                           "cell; expect numerical noise")
@@ -81,13 +90,13 @@ class FFTRecon(MeshSource):
 
     def _paint_overdensity(self, cat, shift):
         """Paint ``cat`` at Position - shift (f4), over its mean
-        density."""
+        density (every rank's rows)."""
         pm = self.pm
         pos = cat[self.position].to(torch.float32)
         if shift is not None:
             pos = pos - shift
         field = pm.paint(pos, 1.0, resampler=self.resampler)
-        nbar = len(cat) / pm.Ntot
+        nbar = cat.csize / pm.Ntot
         return field / nbar
 
     def _kernel_base(self):
@@ -120,15 +129,22 @@ class FFTRecon(MeshSource):
         k2, k2s, base = self._kernel_base()
         pos_d = self.data[self.position].to(torch.float32)
         pos_r = self.ran[self.position].to(torch.float32)
-        s_d, s_r = [], []
+        s_d, s_r, disps = [], [], []
         for d in range(3):
             kern = self._displacement_kernel(d, k2, k2s, base)
             disp = pm.c2r(delta_k * kern)
             del kern
+            if pm.nproc > 1:
+                disps.append(disp)
+                continue
             s_d.append(pm.readout(disp, pos_d, resampler=self.resampler))
             s_r.append(pm.readout(disp, pos_r, resampler=self.resampler))
             del disp
-        del delta_k, k2, k2s, base, pos_d, pos_r
+        del delta_k, k2, k2s, base
+        if disps:
+            s_d = pm.readout_many(disps, pos_d, resampler=self.resampler)
+            s_r = pm.readout_many(disps, pos_r, resampler=self.resampler)
+        del disps, pos_d, pos_r
         s_d = torch.stack(s_d, dim=-1)
         s_r = torch.stack(s_r, dim=-1)
 

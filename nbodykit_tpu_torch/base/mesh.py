@@ -86,13 +86,25 @@ class Field(object):
     def preview(self, axes=None):
         """Project the (real) field onto ``axes`` by summing the others;
         returns host numpy (float32 for a bfloat16 field:
-        :func:`~nbodykit_tpu_torch.utils.as_numpy`)."""
+        :func:`~nbodykit_tpu_torch.utils.as_numpy`). With P ranks the
+        projection is of the whole field and the same on every rank (a
+        collective)."""
         v = self.value
         if axes is None:
-            return as_numpy(v)
+            axes = (0, 1, 2)
         axes = tuple(axes) if np.iterable(axes) else (axes,)
         other = tuple(i for i in range(3) if i not in axes)
-        return as_numpy(v.sum(dim=other))
+        if other:
+            v = v.sum(dim=other)
+        if self.pm.nproc > 1:
+            comm = self.pm.comm
+            if 0 in axes:
+                # the x-slabs, stacked in rank order along x
+                v = comm.all_gather(v)
+                v = v.reshape((-1,) + tuple(v.shape[2:]))
+            else:
+                v = comm.all_reduce(v)
+        return as_numpy(v)
 
     def numpy(self):
         return as_numpy(self.value)
@@ -155,6 +167,12 @@ class MeshSource(object):
     @property
     def device(self):
         return self.pm.device
+
+    @property
+    def comm(self):
+        """The mesh's ranks (its ParticleMesh's ``comm``; None: one
+        rank)."""
+        return self.pm.comm
 
     @property
     def actions(self):
@@ -231,9 +249,11 @@ class MeshSource(object):
             field = field.r2c()
         return field
 
-    def preview(self, axes=None, Nmesh=None):
+    def preview(self, axes=None, Nmesh=None, root=0):
         """Project the (optionally ``Nmesh``-resampled) real field onto
-        ``axes`` and return host numpy."""
+        ``axes`` and return host numpy. The projection is the same on
+        every rank, so ``root`` (the reference's rank that receives it)
+        changes nothing."""
         return self.compute(mode='real', Nmesh=Nmesh).preview(axes=axes)
 
     def save(self, output, dataset='Field', mode='real'):
@@ -299,9 +319,10 @@ def _resample_runs(n_src, n_dst):
 
 class FieldMesh(MeshSource):
     """Wrap an existing :class:`Field` (or a real tensor plus BoxSize) as
-    a MeshSource."""
+    a MeshSource. A Field keeps its mesh's ranks; a tensor is one rank's
+    whole field (``comm`` of more than one rank raises)."""
 
-    def __init__(self, field, BoxSize=None):
+    def __init__(self, field, BoxSize=None, comm=None):
         if isinstance(field, Field):
             pm = field.pm
             self.attrs = dict(field.attrs)
@@ -319,7 +340,9 @@ class FieldMesh(MeshSource):
             dtype = {torch.float64: 'f8', torch.bfloat16: 'bf16'}.get(
                 field.dtype, 'f4')
             MeshSource.__init__(self, tuple(field.shape), BoxSize,
-                                dtype=dtype, device=field.device)
+                                dtype=dtype, device=field.device,
+                                comm=comm)
+            require_one_rank(self, 'FieldMesh of a tensor')
             self._field = Field(field, self.pm, 'real')
 
     def to_real_field(self):

@@ -23,6 +23,7 @@ conditions take the growth factors of :class:`GrowthTable`.
 import numpy as np
 import torch
 
+from ..parallel.runtime import require_one_rank
 from ..pmesh import ParticleMesh
 from .lpt import _k_inv_k2, lpt_init, linear_amplitude, modes_from_white
 from .adjoint import make_paint
@@ -139,8 +140,10 @@ class ForwardModel:
     (default nmesh^3); pm_steps : KDK steps from ``a_start`` to
     ``a_end``; order : 1 (ZA) or 2 (2LPT); linear_power : P(k)
     callable (default a power law of ``spectral_index`` normalized to
-    ``delta_rms``); dtype : mesh dtype; device : 'cuda' or 'cpu'
-    (default: the ``device`` option, else 'cuda').
+    ``delta_rms``); dtype : mesh dtype; comm : the mesh of ranks
+    (default: the ambient one), one rank only, as the model's branch
+    across ranks is not ported; device : 'cuda' or 'cpu' (default: the
+    ``device`` option, else 'cuda').
 
     The model owns ``lattice`` (ng^3: the linear modes and the
     inference leaf) and ``pm`` (nmesh^3: forces and the painted
@@ -150,7 +153,7 @@ class ForwardModel:
     def __init__(self, nmesh, npart=None, BoxSize=1000.0, pm_steps=5,
                  a_start=0.1, a_end=1.0, order=2, resampler='cic',
                  linear_power=None, spectral_index=-2.5, delta_rms=1.0,
-                 omega_m=1.0, dtype='f8', device=None):
+                 omega_m=1.0, dtype='f8', comm=None, device=None):
         if npart is None:
             npart = int(nmesh) ** 3
         ng = int(round(float(npart) ** (1.0 / 3.0)))
@@ -159,9 +162,12 @@ class ForwardModel:
                              "lattice needs ng^3" % npart)
         if int(pm_steps) < 1:
             raise ValueError("pm_steps must be >= 1")
-        self.pm = ParticleMesh(nmesh, BoxSize, dtype, device=device)
+        self.pm = ParticleMesh(nmesh, BoxSize, dtype, device=device,
+                               comm=comm)
+        require_one_rank(self.pm.comm, 'ForwardModel')
         self.lattice = self.pm if ng == int(self.pm.Nmesh[0]) \
-            else ParticleMesh(ng, BoxSize, dtype, device=self.pm.device)
+            else ParticleMesh(ng, BoxSize, dtype, device=self.pm.device,
+                              comm=self.pm.comm)
         self.device = self.pm.device
         self.npart = int(npart)
         self.pm_steps = int(pm_steps)

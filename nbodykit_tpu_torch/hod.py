@@ -22,8 +22,8 @@ class PopulatedHaloCatalog(ArrayCatalog):
     source/catalog/halos.py PopulatedHaloCatalog): an ArrayCatalog
     that remembers the ``model`` that made it."""
 
-    def __init__(self, data, model=None, device=None, **attrs):
-        ArrayCatalog.__init__(self, data, device=device, **attrs)
+    def __init__(self, data, model=None, comm=None, device=None, **attrs):
+        ArrayCatalog.__init__(self, data, device=device, comm=comm, **attrs)
         require_one_rank(self, 'PopulatedHaloCatalog')
         self.model = model
 

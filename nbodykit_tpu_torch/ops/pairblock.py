@@ -21,6 +21,8 @@ accumulators widen to the common dtype of the positions and weights.
 import numpy as np
 import torch
 
+from ..parallel.runtime import require_one_rank
+
 # The cold-cache ``pairblock_tile`` of the JAX tuner (tune/resolve.py
 # FALLBACKS): the tile edge that ``tile=None`` resolves to
 DEFAULT_TILE = 1024
@@ -61,7 +63,7 @@ def _pairblock_tiles(pos, w, kvecs, tile_p, tile_k):
     return re, im
 
 
-def pairblock_sum(pos, w, kvecs, tile=None):
+def pairblock_sum(pos, w, kvecs, tile=None, comm=None):
     """``sum_j w_j exp(-i k_q . x_j)`` for every row ``k_q`` of
     ``kvecs``: the blocked direct Fourier sum, on the device of
     ``pos``.
@@ -69,10 +71,13 @@ def pairblock_sum(pos, w, kvecs, tile=None):
     pos : (Np, 3) positions (phases are computed in their dtype);
     w : (Np,) weights; kvecs : (Nk, 3) wavevectors (numpy or tensor);
     tile : tile edge of both axes, the unit of the padding and of the
-    blocks (``None``: the JAX tuner's cold-cache 1024).
+    blocks (``None``: the JAX tuner's cold-cache 1024); comm : a mesh
+    of ranks over which the particles are split (None: none), one rank
+    only, as the sum across ranks is not ported.
 
     Returns a complex (Nk,) tensor ``re - 1j * im``.
     """
+    require_one_rank(comm, 'pairblock_sum')
     pos = torch.as_tensor(pos)
     w = torch.as_tensor(w, device=pos.device).to(pos.dtype)
     kvecs = torch.as_tensor(kvecs, device=pos.device).to(pos.dtype)

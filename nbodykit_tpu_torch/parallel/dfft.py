@@ -148,8 +148,8 @@ def resolve_decomp(nproc, shape=None, dtype=None, decomp=None,
     pencil decomposition is not ported; asking for it raises."""
     if decomp not in (None, 'slab') or pencil is not None:
         raise NotImplementedError(
-            "the pencil decomposition is not ported to torch yet (ROADMAP "
-            "Queue A item 4, next slice); only 'slab' runs")
+            "the pencil decomposition is not ported to torch yet (ROADMAP.md, "
+            "Queue A: modules to port); only 'slab' runs")
     return 'slab', None
 
 

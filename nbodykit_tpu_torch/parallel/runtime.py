@@ -309,7 +309,16 @@ def require_one_rank(obj, what):
     if mesh_size(comm) > 1:
         raise NotImplementedError(
             "%s runs on one rank; its multi-rank branch is not ported yet "
-            "(ROADMAP Queue A item 4)" % what)
+            "(ROADMAP.md, Queue A: modules to port)" % what)
+
+
+def same_mesh(a, b):
+    """Whether meshes ``a`` and ``b`` are one group of ranks: both one
+    rank (None or a 1-rank mesh), or the same process group over the
+    same ranks."""
+    if mesh_size(a) == 1 or mesh_size(b) == 1:
+        return mesh_size(a) == mesh_size(b)
+    return a.group is b.group and a.ranks == b.ranks
 
 
 def row_range(n, nproc, rank):

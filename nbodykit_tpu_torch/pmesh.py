@@ -200,20 +200,34 @@ class ParticleMesh(object):
             1, 0, 2).contiguous()
 
     def forward_slabs(self, slab, full=False):
-        """The forward-normalized transform, in the natural (N0, N1, nz)
-        layout, of the real field whose rows [a, b) along axis 0 are
-        ``slab(a, b)``: the r2c half spectrum, or with ``full`` the c2c
-        spectrum. The field is never whole: each x-slab's 2-D transform
-        is written into the output, then the x-axis transform runs over
-        y-slabs of it in place, so the peak is the output and a slab.
-        ``permute(1, 0, 2)`` of the result is the transposed layout, as
-        a view. One rank only."""
-        require_one_rank(self.comm, 'forward_slabs')
+        """The forward-normalized transform of the real field whose rows
+        [a, b) along axis 0 (this rank's x-slab) are ``slab(a, b)``: the
+        r2c half spectrum, or with ``full`` the c2c spectrum.
+
+        The layout of the result depends on the rank count. On one rank
+        it is the natural (N0, N1, nz) layout, and ``permute(1, 0, 2)``
+        of it is the transposed layout, as a view: the field is never
+        whole, since each x-slab's 2-D transform is written into the
+        output, then the x-axis transform runs over y-slabs of it in
+        place, so the peak is the output and a slab. With P ranks it is
+        this rank's transposed ky-slab (N1/P, N0, nz) itself: the x-slab
+        is built slab by slab and goes through the plan's r2c (or c2c).
+        """
         N0, N1, N2 = self.shape_real
         nz = N2 if full else N2 // 2 + 1
+        rows = max(1, _SLAB_ELEMENTS // (N1 * N2))
+        if self.nproc > 1:
+            n0 = self.local_shape_real[0]
+            x = torch.empty(self.local_shape_real, dtype=self.complex_dtype
+                            if full else self.torch_compute_dtype,
+                            device=self.device)
+            for a in range(0, n0, rows):
+                x[a:a + rows] = _widen(slab(a, min(a + rows, n0)))
+            out = self._plan.c2c(x) if full else self._plan.r2c(x)
+            del x
+            return out.mul_(1.0 / self.Ntot)
         out = torch.empty((N0, N1, nz), dtype=self.complex_dtype,
                           device=self.device)
-        rows = max(1, _SLAB_ELEMENTS // (N1 * N2))
         for a in range(0, N0, rows):
             x = _widen(slab(a, min(a + rows, N0)))
             if full:
@@ -439,7 +453,7 @@ class ParticleMesh(object):
         return block, over
 
     def paint(self, pos, mass=1.0, resampler=None, out=None, shift=0.0,
-              capacity=None):
+              capacity=None, return_dropped=False):
         """Scatter particles onto the mesh; returns a real field in the
         storage dtype (this rank's slab).
 
@@ -448,13 +462,16 @@ class ParticleMesh(object):
         inert), taken in the compute dtype; shift : cell units, paints
         onto a half-cell-shifted grid (interlacing); capacity : the
         exchange's per-(source, destination) capacity with P ranks
-        (default: the exact count).
+        (default: the exact count); return_dropped : also return the
+        number of particles dropped, which is 0.
 
         With ``paint_method='mxu'`` an overflowing bucket is retried with
         4x the slack until nothing drops; an explicit ``capacity`` that
         drops particles is retried doubled, up to ceil(N/P) + 8. Both
         counts are summed over the ranks, so every rank retries
-        together.
+        together, and the paint never drops a particle: the JAX
+        package's ``return_dropped`` serves its traced paints, which
+        cannot retry.
         """
         resampler = resampler or _global_options['resampler']
         if pos.device != self.device:
@@ -484,7 +501,8 @@ class ParticleMesh(object):
         # widened before the add, and the sum narrowed once, here
         if out is not None:
             block = block + out.to(block.dtype)
-        return block.to(self.torch_dtype)
+        block = block.to(self.torch_dtype)
+        return (block, 0) if return_dropped else block
 
     def _paint_ranks(self, cpos, massa, resampler, cfg, slack, capacity):
         """The paint across ranks: exchange to the slab owners, the
@@ -547,7 +565,7 @@ class ParticleMesh(object):
         return result, capacity
 
     def readout(self, real, pos, resampler=None, grad_axis=None,
-                capacity=None):
+                capacity=None, return_dropped=False):
         """Interpolate a real field at particle positions (a narrow
         field re-widened to f32 first). ``grad_axis`` (0/1/2) reads
         d(readout)/d(pos[grad_axis]) instead, in cell units (times
@@ -557,34 +575,48 @@ class ParticleMesh(object):
         With P ranks, ``real`` is this rank's slab and ``pos`` its rows:
         the particles travel to their slab's owner, which reads them
         out of its slab with halo rows from its neighbours, and the
-        values travel back. ``capacity`` follows :meth:`paint`'s
-        contract."""
+        values travel back. ``capacity`` and ``return_dropped`` follow
+        :meth:`paint`'s contract."""
+        vals = self.readout_many([real], pos, resampler=resampler,
+                                 grad_axis=grad_axis, capacity=capacity)[0]
+        return (vals, 0) if return_dropped else vals
+
+    def readout_many(self, reals, pos, resampler=None, grad_axis=None,
+                     capacity=None):
+        """:meth:`readout` of each real field of the list ``reals`` at
+        the same positions, as a list of values. With P ranks the
+        particles are routed to their slabs' owners once for all the
+        fields, and each particle's values travel back together."""
         resampler = resampler or _global_options['resampler']
         if self.nproc == 1:
-            return readout_local(_widen(real), self._to_cell_units(pos),
-                                 resampler=resampler,
-                                 period=self.shape_real, origin=0,
-                                 grad_axis=grad_axis)
+            cpos = self._to_cell_units(pos)
+            return [readout_local(_widen(real), cpos, resampler=resampler,
+                                  period=self.shape_real, origin=0,
+                                  grad_axis=grad_axis) for real in reals]
         h = window_support(resampler)
         n0 = self._check_halo(h)
         cpos = self._to_cell_units(pos)
         npart = pos.shape[0]
         dest = self._route_dest(cpos)
         lidx = torch.arange(npart, dtype=torch.int64, device=self.device)
-        ext = halo_fill(_widen(real), h, self.comm)
+        exts = [halo_fill(_widen(real), h, self.comm) for real in reals]
         origin = self.rank * n0 - h
 
         def attempt(cap):
             (cpos_r, lidx_r), valid, dropped = exchange_by_dest(
                 dest, [cpos, lidx], self.comm, cap)
-            vals = readout_local(ext, cpos_r, resampler=resampler,
-                                 period=self.shape_real, origin=origin,
-                                 grad_axis=grad_axis)
-            # back to the source ranks, into their rows' order
-            vals = self.comm.all_to_all(torch.where(valid, vals, 0.0))
-            lidx_r = self.comm.all_to_all(
-                torch.where(valid, lidx_r, npart))
-            out = torch.zeros(npart + 1, dtype=vals.dtype,
+            vals = torch.stack([
+                readout_local(ext, cpos_r, resampler=resampler,
+                              period=self.shape_real, origin=origin,
+                              grad_axis=grad_axis) for ext in exts], dim=1)
+            # back to the source ranks, into their rows' order; a pad
+            # row goes back as -1, which its receiver sends to the spare
+            # row past its own particles
+            vals = self.comm.all_to_all(
+                torch.where(valid[:, None], vals, 0.0))
+            lidx_r = self.comm.all_to_all(torch.where(valid, lidx_r, -1))
+            lidx_r = torch.where(lidx_r < 0, npart, lidx_r)
+            out = torch.zeros((npart + 1, len(exts)), dtype=vals.dtype,
                               device=self.device)
             out.index_add_(0, lidx_r, vals)
             return out[:npart], dropped
@@ -592,7 +624,7 @@ class ParticleMesh(object):
         result = attempt(capacity)
         if capacity is not None and int(result[1]) > 0:
             result, _ = self._retry_grown(attempt, result, capacity, npart)
-        return result[0]
+        return list(result[0].unbind(1))
 
 
 def memory_plan(Nmesh, npart, ndevices=1, dtype='f4', resampler='cic',

@@ -308,7 +308,8 @@ class DistributedRNG(object):
         if self.comm is not None and self.comm.size > 1:
             raise NotImplementedError(
                 "the Poisson draw runs on one rank: its rejection loop "
-                "runs over the whole draw (ROADMAP Queue A item 4)")
+                "runs over the whole draw (ROADMAP.md, Queue A: modules to "
+                "port)")
         lam = torch.as_tensor(lam, device=self.device) \
             if not isinstance(lam, torch.Tensor) else lam
         shape = self._shape(itemshape)

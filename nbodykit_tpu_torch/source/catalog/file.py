@@ -13,7 +13,7 @@ import torch
 from ... import io as _io
 from ... import resolve_device
 from ...base.catalog import CatalogSource
-from ...parallel.runtime import require_one_rank
+from ...parallel.runtime import CurrentMesh, require_one_rank
 
 
 class FileCatalogBase(CatalogSource):
@@ -21,13 +21,17 @@ class FileCatalogBase(CatalogSource):
 
     A column is read whole from the file on its first access and moved
     to the catalog's ``device`` ('cuda' unless the caller asks for the
-    CPU); then it is cached.
+    CPU); then it is cached. ``comm`` (default: the ambient mesh) must
+    be one rank: the partitioned read is not ported.
     """
 
-    def __init__(self, filetype, args=(), kwargs={}, device=None):
-        # the device first: without CUDA and without a request for the
-        # CPU, raise before any file is opened
+    def __init__(self, filetype, args=(), kwargs={}, comm=None,
+                 device=None):
+        # the device and the ranks first: without CUDA and without a
+        # request for the CPU, or with several ranks, raise before any
+        # file is opened
         device = resolve_device(device)
+        require_one_rank(CurrentMesh.resolve(comm), 'FileCatalogBase')
         path = args[0] if args else kwargs.get('path')
         rest = args[1:]
         if isinstance(path, str) and ('*' in path or '?' in path):
@@ -38,8 +42,8 @@ class FileCatalogBase(CatalogSource):
             except (IOError, OSError, FileNotFoundError):
                 self._source = _io.FileStack(filetype, path, *rest,
                                              **kwargs)
-        CatalogSource.__init__(self, self._source.size, device=device)
-        require_one_rank(self, 'FileCatalogBase')
+        CatalogSource.__init__(self, self._source.size, device=device,
+                               comm=comm)
         self.attrs.update(getattr(self._source, 'attrs', {}))
 
     @property
@@ -59,9 +63,9 @@ class FileCatalogBase(CatalogSource):
 
 
 def _make_file_catalog(name, filetype, doc_fmt):
-    def __init__(self, *args, device=None, **kwargs):
+    def __init__(self, *args, comm=None, device=None, **kwargs):
         FileCatalogBase.__init__(self, filetype, args=args,
-                                 kwargs=kwargs, device=device)
+                                 kwargs=kwargs, comm=comm, device=device)
     cls = type(name, (FileCatalogBase,), {'__init__': __init__})
     cls.__doc__ = ("CatalogSource of a %s (reference factory: "
                    "nbodykit/source/catalog/file.py:232-238). Accepts "
@@ -90,10 +94,10 @@ class FileCatalog(FileCatalogBase):
     argument (reference: nbodykit/source/catalog/file.py:202-231):
     ``FileCatalog(filetype, path, ...)``."""
 
-    def __init__(self, filetype, path, *args, device=None, attrs=None,
-                 **kwargs):
+    def __init__(self, filetype, path, *args, comm=None, device=None,
+                 attrs=None, **kwargs):
         FileCatalogBase.__init__(self, filetype, args=(path,) + args,
-                                 kwargs=kwargs, device=device)
+                                 kwargs=kwargs, comm=comm, device=device)
         self.attrs.update(attrs or {})
 
 

@@ -63,7 +63,8 @@ class HaloCatalog(CatalogSource):
     def __init__(self, source, cosmo, redshift, mdef='vir', mass='Mass',
                  position='Position', velocity='Velocity',
                  particle_mass=None):
-        CatalogSource.__init__(self, len(source), device=source.device)
+        CatalogSource.__init__(self, len(source), device=source.device,
+                               comm=source.comm)
         require_one_rank(self, 'HaloCatalog')
         self._src = source
         self.cosmo = cosmo

@@ -32,6 +32,8 @@ class LogNormalCatalog(CatalogSource):
     seed : realization seed
     cosmo, redshift : override Plin's attributes
     dtype : mesh dtype ('f4' or 'f8'); the columns are f32 either way
+    comm : the mesh of ranks (default: the ambient one); one rank only,
+        as the Poisson draw is not ported across ranks
     device : 'cuda' (default) or 'cpu'
 
     The fields live one at a time where they can: delta_k stays while
@@ -42,8 +44,9 @@ class LogNormalCatalog(CatalogSource):
 
     def __init__(self, Plin, nbar, BoxSize, Nmesh, bias=2.0, seed=None,
                  cosmo=None, redshift=None, unitary_amplitude=False,
-                 inverted_phase=False, dtype='f4', device=None):
-        require_one_rank(CurrentMesh.get(), 'LogNormalCatalog')
+                 inverted_phase=False, dtype='f4', comm=None,
+                 device=None):
+        require_one_rank(CurrentMesh.resolve(comm), 'LogNormalCatalog')
         if seed is None:
             seed = np.random.randint(0, 2 ** 31 - 1)
 
@@ -51,7 +54,8 @@ class LogNormalCatalog(CatalogSource):
         redshift = redshift if redshift is not None else \
             getattr(Plin, 'redshift', None)
 
-        self._pm = ParticleMesh(Nmesh, BoxSize, dtype=dtype, device=device)
+        self._pm = ParticleMesh(Nmesh, BoxSize, dtype=dtype, device=device,
+                                comm=comm)
         pm = self._pm
 
         delta_k, _ = mockmaker.gaussian_complex_fields(
@@ -99,7 +103,7 @@ class LogNormalCatalog(CatalogSource):
             self._voff = psi * f  # f * psi, Mpc/h
         del pos, psi
 
-        CatalogSource.__init__(self, ntot, device=pm.device)
+        CatalogSource.__init__(self, ntot, device=pm.device, comm=comm)
         self.attrs['BoxSize'] = pm.BoxSize.copy()
         self.attrs['Nmesh'] = pm.Nmesh.copy()
         self.attrs.update(nbar=nbar, bias=bias, seed=seed)

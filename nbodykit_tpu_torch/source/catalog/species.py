@@ -5,14 +5,18 @@ Columns are addressed as ``"<species>/<column>"``; ``cat[species]``
 returns the species' own catalog, so a column set on it is seen through
 the container. Each species' attrs appear in the container's attrs as
 ``"<species>.<key>"``.
+
+With P ranks the species share one mesh of ranks, which the container
+takes as its ``comm``; each holds its own rows on every rank.
 """
 
 from ...base.catalog import CatalogSourceBase
-from ...parallel.runtime import require_one_rank
+from ...parallel.runtime import same_mesh
 
 
 class MultipleSpeciesCatalog(CatalogSourceBase):
-    """A container of named catalogs, all on one device.
+    """A container of named catalogs, all on one device and one mesh of
+    ranks (its ``comm``).
 
     names : list of str, the species names (no '/'); *species : the
     catalogs, one per name.
@@ -30,8 +34,15 @@ class MultipleSpeciesCatalog(CatalogSourceBase):
             raise ValueError("species on different devices: %s"
                              % sorted(devices))
 
-        CatalogSourceBase.__init__(self, device=species[0].device)
-        require_one_rank(self, 'MultipleSpeciesCatalog')
+        comm = getattr(species[0], 'comm', None)
+        if not all(same_mesh(comm, getattr(cat, 'comm', None))
+                   for cat in species[1:]):
+            raise ValueError("species on different meshes of ranks: %s"
+                             % [getattr(cat, 'comm', None)
+                                for cat in species])
+
+        CatalogSourceBase.__init__(self, device=species[0].device,
+                                   comm=comm)
         self.attrs['species'] = list(names)
         self._species = dict(zip(names, species))
         for name, cat in self._species.items():
@@ -51,11 +62,14 @@ class MultipleSpeciesCatalog(CatalogSourceBase):
         return sorted(out)
 
     def __len__(self):
+        """The rows of every species on this rank."""
         return sum(len(self._species[name]) for name in self.species)
 
     @property
     def csize(self):
-        return len(self)
+        """The rows of every species on every rank (a collective when
+        there are several)."""
+        return sum(self._species[name].csize for name in self.species)
 
     def __getitem__(self, key):
         if isinstance(key, str):

@@ -16,12 +16,14 @@ from ... import resolve_device
 from ...base.mesh import Field, MeshSource
 from ...io.bigfile import BigFileDataset, read_attrs_file
 from ...utils import bf16_from_numpy
-from ...parallel.runtime import require_one_rank
+from ...parallel.runtime import CurrentMesh, require_one_rank
 
 
 class BigFileMesh(MeshSource):
     """A MeshSource backed by a saved field directory; ``device`` as for
-    every mesh ('cuda' unless the caller asks for the CPU).
+    every mesh ('cuda' unless the caller asks for the CPU); ``comm`` one
+    rank (default: the ambient mesh), as the partitioned read is not
+    ported.
 
     As in the JAX package, :meth:`to_real_field` returns the saved
     values as a ``'real'`` Field whatever mode they were saved in: a
@@ -29,10 +31,12 @@ class BigFileMesh(MeshSource):
     of the complex values (ROADMAP Queue C records the reference's
     behaviour)."""
 
-    def __init__(self, path, dataset='Field', device=None):
-        # the device first: without CUDA and without a request for the
-        # CPU, raise before any file is read
+    def __init__(self, path, dataset='Field', comm=None, device=None):
+        # the device and the ranks first: without CUDA and without a
+        # request for the CPU, or with several ranks, raise before any
+        # file is read
         device = resolve_device(device)
+        require_one_rank(CurrentMesh.resolve(comm), 'BigFileMesh')
         self.path = path
         self.dataset = dataset
         attrs = read_attrs_file(os.path.join(path, dataset))
@@ -57,8 +61,7 @@ class BigFileMesh(MeshSource):
         self._bf16 = dtype.kind == 'V' and dtype.itemsize == 2
         MeshSource.__init__(self, Nmesh, BoxSize,
                             dtype='bf16' if self._bf16 else dtype.str,
-                            device=device)
-        require_one_rank(self, 'BigFileMesh')
+                            device=device, comm=comm)
 
     def to_real_field(self):
         data = self._block.read(0, self._block.size).reshape(self._shape)

@@ -3,12 +3,13 @@
 
 Each species is painted with its own columns onto the same mesh; the
 sum is normalized by the combined weighted number per cell (1 + delta
-of all species together).
+of all species together). With P ranks each species is painted across
+the ranks (its paint attrs, N and W among them, are totals over the
+ranks), so the normalization is the same on every rank.
 """
 
 from ...base.mesh import Field, MeshSource
 from .catalog import CatalogMesh
-from ...parallel.runtime import require_one_rank
 
 
 class MultipleSpeciesCatalogMesh(MeshSource):
@@ -24,8 +25,7 @@ class MultipleSpeciesCatalogMesh(MeshSource):
         attrs.update(getattr(self, 'attrs', {}))  # a subclass's pre-set wins
         self.attrs = attrs
         MeshSource.__init__(self, Nmesh, BoxSize, dtype=dtype,
-                            device=source.device)
-        require_one_rank(self, 'MultipleSpeciesCatalogMesh')
+                            device=source.device, comm=source.comm)
         self.interlaced = interlaced
         self.compensated = compensated
         self.resampler = resampler

@@ -186,16 +186,25 @@ class _retries(object):
 
 def _refused(P, cat, pm):
     """The names of the calls with no multi-rank branch yet that raise
-    NotImplementedError (at P = 1 each runs, so none is tried)."""
-    from nbodykit_tpu_torch.lab import FOF, KDDensity
+    NotImplementedError (at P = 1 each runs, so none is tried). Each is
+    built on the P-rank mesh of ``cat`` and ``pm``."""
+    from nbodykit_tpu_torch.forward import ForwardModel
+    from nbodykit_tpu_torch.lab import (FOF, Bispectrum, HaloCatalog,
+                                        KDDensity, Planck15,
+                                        PopulatedHaloCatalog)
     if P == 1:
         return []
     calls = {'FOF': lambda: FOF(cat, 0.2, 2),
              'KDDensity': lambda: KDDensity(cat),
              'sort': lambda: cat.sort('Index'),
              'save': lambda: cat.save('unused-path'),
-             'forward_slabs': lambda: pm.forward_slabs(lambda a, b: None),
-             'poisson': lambda: cat.rng.poisson(1.0)}
+             'poisson': lambda: cat.rng.poisson(1.0),
+             'Bispectrum': lambda: Bispectrum(cat, nbins=2, Nmesh=8,
+                                              method='fft'),
+             'ForwardModel': lambda: ForwardModel(8, comm=pm.comm),
+             'PopulatedHaloCatalog': lambda: PopulatedHaloCatalog(
+                 {'Position': np.zeros((8, 3))}, comm=pm.comm),
+             'HaloCatalog': lambda: HaloCatalog(cat, Planck15, 0.5)}
     out = []
     for name, call in calls.items():
         try:
@@ -277,6 +286,14 @@ def parallel_cases(rank):
         for window in READOUT_WINDOWS:
             out['readout', window, P] = _np(pm.readout(real, pos,
                                                        resampler=window))
+        # rows split unevenly over the ranks, and two fields read at once
+        uneven = T(rows(particles(NPARTS[1])['pos'], P, r))
+        out['readout_uneven', P] = _np(pm.readout(real, uneven,
+                                                  resampler='cic'))
+        out['readout_many', P] = [_np(v) for v in pm.readout_many(
+            [real, 2 * real], uneven, resampler='tsc')]
+        out['readout_one', P] = _np(pm.readout(2 * real, uneven,
+                                               resampler='tsc'))
         for case, call in (
                 ('paint_retry', lambda: pm.paint(pos, mass, capacity=4)),
                 ('readout_retry', lambda: pm.readout(real, pos,
@@ -286,6 +303,10 @@ def parallel_cases(rank):
             out[case, P].update(retries=len(seen),
                                 capacity=seen[-1] if seen else 4)
         out['whitenoise', P] = _np(pm.generate_whitenoise(7))
+        # a seed drawn for seed=None: each rank's numpy state differs
+        from nbodykit_tpu_torch.lab import LinearMesh
+        out['drawn_seed', P] = LinearMesh(power_law, BoxSize=BOX, Nmesh=8,
+                                          comm=mesh).attrs['seed']
         out['particle_grid', P] = _np(
             ParticleMesh(8, BOX, comm=mesh).generate_uniform_particle_grid())
         cat = UniformCatalog(nbar=0.03, BoxSize=BOX, seed=42, comm=mesh)
@@ -363,8 +384,8 @@ def fft_case(lab, cat, case, mesh_kw=None):
 
 
 def fftpower_cases(rank):
-    """The FFT algorithms across ranks: every rank's result (replicated)
-    at each rank count."""
+    """The FFT algorithms, then the mesh algorithms and sources
+    (SV_CASES), across ranks: every rank's result at each rank count."""
     import nbodykit_tpu_torch
     from nbodykit_tpu_torch.lab import (FFTCorr, FFTPower,
                                         ProjectedFFTPower, UniformCatalog)
@@ -372,9 +393,167 @@ def fftpower_cases(rank):
                FFTPower=FFTPower, FFTCorr=FFTCorr,
                ProjectedFFTPower=ProjectedFFTPower)
     out = {}
+    survey_lab = port_lab()
     for P, mesh in _meshes():
         cat = UniformCatalog(nbar=CAT_NBAR, BoxSize=CAT_BOX, seed=42,
                              comm=mesh)
         for case in FFT_CASES:
             out[case, P] = fft_case(lab, cat, case)
+        for case in SV_CASES:
+            t0 = time.perf_counter()
+            out[case, P] = survey_case(survey_lab, case, mesh)
+            out[case, P]['seconds'] = time.perf_counter() - t0
+    return out
+
+
+# the mesh algorithms and mesh sources on the slab path
+# (test_torch_dist_fftpower.py): surveys through ConvolvedFFTPower, BAO
+# reconstruction, n(z), ArrayMesh, LinearMesh and the species mesh
+SV_NMESH = 16
+SV_BOX = 200.0
+SV_NBAR = 2001 / 300.0 ** 3
+SV_CASES = ('cp_even', 'cp_odd', 'cp_cross', 'cp_sparse', 'recon_LGS',
+            'recon_LRR', 'recon_LF2', 'zhist_auto', 'zhist_int',
+            'arraymesh', 'linearmesh', 'species')
+# the corners of the surveys' extent: a randoms catalog of 5 rows leaves
+# the last of 4 ranks with none
+SPARSE_RANDOMS = [[95.0, 95.0, 95.0], [410.0, 410.0, 410.0],
+                  [95.0, 410.0, 250.0], [410.0, 95.0, 250.0],
+                  [250.0, 250.0, 95.0]]
+
+
+def survey(seed=1, nd=2001, nr=6003):
+    """Data and randoms of a survey: weights, selections and an n(z)
+    column that varies, its randoms mean scaled to the data's."""
+    rng = np.random.RandomState(seed)
+    data = {'Position': rng.uniform(100, 400, (nd, 3)),
+            'NZ': SV_NBAR * rng.uniform(0.8, 1.2, nd),
+            'Weight': rng.uniform(0.5, 1.5, nd),
+            'Selection': rng.uniform(size=nd) > 0.1}
+    randoms = {'Position': rng.uniform(95, 410, (nr, 3)),
+               'NZ': SV_NBAR * rng.uniform(0.8, 1.2, nr),
+               'Selection': rng.uniform(size=nr) > 0.05}
+    randoms['NZ'] *= data['NZ'].mean() / randoms['NZ'].mean()
+    return data, randoms
+
+
+def sparse_survey():
+    """The survey's data with a constant n(z) and 5 randoms at the
+    corners of its extent: with unit FKP weights both normalizations
+    are nbar times the selected data weight."""
+    data, _ = survey()
+    data['NZ'] = np.full(len(data['NZ']), SV_NBAR)
+    randoms = {'Position': np.array(SPARSE_RANDOMS),
+               'NZ': np.full(len(SPARSE_RANDOMS), SV_NBAR)}
+    return data, randoms
+
+
+def recon_catalogs(seed=3, nd=2001, nr=6003):
+    """Clustered data and uniform randoms in SV_BOX, f8."""
+    rng = np.random.RandomState(seed)
+    centres = rng.uniform(0, SV_BOX, (30, 3))
+    data = np.mod(centres[rng.randint(30, size=nd)]
+                  + rng.normal(scale=12.0, size=(nd, 3)), SV_BOX)
+    return data, rng.uniform(0, SV_BOX, (nr, 3))
+
+
+def power_law(k):
+    """A linear power spectrum for LinearMesh, on either package's
+    arrays."""
+    return 1e4 * (k + 0.05) ** -2
+
+
+def survey_case(lab, case, comm=None):
+    """Run case ``case`` of SV_CASES with ``lab`` (either package's
+    names) on catalogs of ``comm``; returns {name: numpy value}. Fields
+    are this rank's slab; everything else is the same on every rank."""
+    as_numpy = lab['as_numpy']
+
+    def cat(cols, **kw):
+        return lab['ArrayCatalog'](cols, comm=comm, **kw)
+
+    def power(mesh):
+        p = lab['FFTPower'](mesh, mode='1d').power
+        return {c: as_numpy(p[c]) for c in ('k', 'power', 'modes')}
+
+    out = {}
+    if case.startswith('cp_'):
+        data, randoms = sparse_survey() if case == 'cp_sparse' else \
+            survey()
+        fkp = lab['FKPCatalog'](cat(data), cat(randoms),
+                                P0=None if case == 'cp_sparse' else 1e4)
+        mesh = fkp.to_mesh(Nmesh=SV_NMESH, resampler='cic' if
+                           case == 'cp_odd' else 'tsc')
+        kw = dict(poles=[0, 2, 4], dk=0.05)
+        if case == 'cp_odd':
+            kw['poles'] = [0, 1, 2]
+        elif case == 'cp_cross':
+            kw.update(poles=[0, 2], second=fkp.to_mesh(Nmesh=SV_NMESH,
+                                                        resampler='cic'))
+        r = lab['ConvolvedFFTPower'](mesh, **kw)
+        out.update({c: as_numpy(r.poles[c]) for c in r.poles.variables})
+        for key in ('alpha', 'data.norm', 'randoms.norm', 'shotnoise',
+                    'data.W', 'randoms.W', 'data.N', 'randoms.N'):
+            out[key] = float(r.attrs[key])
+        out['BoxSize'] = np.asarray(mesh.attrs['BoxSize'])
+        out['BoxCenter'] = np.asarray(mesh.attrs['BoxCenter'])
+    elif case.startswith('recon_'):
+        scheme = case.split('_')[1]
+        data, ran = recon_catalogs()
+        r = lab['FFTRecon'](cat({'Position': data}, BoxSize=SV_BOX),
+                            cat({'Position': ran}, BoxSize=SV_BOX),
+                            Nmesh=SV_NMESH, bias=2.0, f=0.77, R=15,
+                            scheme=scheme, revert_rsd_random=scheme == 'LRR')
+        field = r.compute()
+        out['field'] = as_numpy(field.value)
+        out.update(power(lab['FieldMesh'](field)))
+    elif case.startswith('zhist_'):
+        rng = np.random.RandomState(7)
+        z = rng.uniform(0.1, 1.0, 4001) ** 1.3
+        w = rng.uniform(0.5, 1.5, 4001)
+        h = lab['RedshiftHistogram'](
+            cat({'Redshift': z, 'W': w}), 0.1, lab['Planck15'],
+            bins=None if case == 'zhist_auto' else 10, weight='W')
+        out.update(bin_edges=np.asarray(h.bin_edges), nbar=h.nbar,
+                   counts=np.asarray(h.hist['counts']), dV=h.dV)
+    elif case == 'arraymesh':
+        arr = np.random.RandomState(9).standard_normal((SV_NMESH,) * 3)
+        mesh = lab['ArrayMesh'](arr, SV_BOX, comm=comm)
+        out['rows'] = int(mesh.compute().value.shape[0])
+        out.update(power(mesh))
+        out['preview_x'] = mesh.preview(axes=[0])
+        out['preview_yz'] = mesh.preview(axes=[1, 2])
+    elif case == 'linearmesh':
+        mesh = lab['LinearMesh'](power_law, BoxSize=SV_BOX, Nmesh=SV_NMESH,
+                                 seed=42, dtype='f8', comm=comm)
+        out['rows'] = int(mesh.compute().value.shape[0])
+        out.update(power(mesh))
+    elif case == 'species':
+        rng = np.random.RandomState(11)
+        a = {'Position': rng.uniform(0, SV_BOX, (2001, 3)),
+             'Weight': rng.uniform(0.5, 1.5, 2001)}
+        b = {'Position': rng.uniform(0, SV_BOX, (1503, 3))}
+        both = lab['MultipleSpeciesCatalog'](['a', 'b'], cat(a), cat(b))
+        out['csize'] = both.csize
+        out['size'] = len(both)
+        field = both.to_mesh(Nmesh=SV_NMESH, BoxSize=SV_BOX,
+                             dtype='f8').to_real_field()
+        out['field'] = as_numpy(field.value)
+        for key in ('N', 'W', 'num_per_cell'):
+            out[key] = float(field.attrs[key])
+    else:
+        raise ValueError(case)
+    return out
+
+
+def port_lab():
+    """The port's names that survey_case takes."""
+    from nbodykit_tpu_torch import lab
+    from nbodykit_tpu_torch.utils import as_numpy
+    names = ('ArrayCatalog', 'ArrayMesh', 'ConvolvedFFTPower',
+             'FFTPower', 'FFTRecon', 'FieldMesh', 'FKPCatalog',
+             'LinearMesh', 'MultipleSpeciesCatalog', 'Planck15',
+             'RedshiftHistogram')
+    out = {n: getattr(lab, n) for n in names}
+    out['as_numpy'] = as_numpy
     return out

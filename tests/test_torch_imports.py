@@ -5,6 +5,7 @@ loads none of them, and its entry points refuse to fall back to the CPU
 quietly when CUDA is absent."""
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -277,12 +278,10 @@ def test_lab_exports_every_ported_name():
 
 # Public names of the JAX package that the port leaves out on purpose,
 # each with its reason. Queue A is ROADMAP.md's queue of modules to port.
-_MULTI_DEVICE = 'multi-GPU sharding and routing (ROADMAP Queue A item 4)'
-_PENCIL = ('the pencil decomposition of the distributed FFT (ROADMAP Queue '
-           'A item 4, next slice)')
-_LOWMEM = ("the JAX single-device lowmem FFT programs (ROADMAP Queue A item "
-           "4, next slice); the port's ParticleMesh.forward_slabs "
-           "transforms slab by slab")
+_MULTI_DEVICE = 'multi-GPU sharding and routing (ROADMAP Queue A)'
+_PENCIL = 'the pencil decomposition of the distributed FFT (ROADMAP Queue A)'
+_LOWMEM = ("the JAX single-device lowmem FFT programs (ROADMAP Queue A); "
+           "the port's ParticleMesh.forward_slabs transforms slab by slab")
 _SHARDING = 'JAX-only: a NamedSharding of a jax.sharding.Mesh'
 OMISSIONS = {
     'nbodykit_tpu.algorithms.pair_counters.core.paircount_dist':
@@ -293,7 +292,7 @@ OMISSIONS = {
     'nbodykit_tpu.parallel.runtime.tpu_mesh':
         'TPU-only: a mesh of TPU devices',
     'nbodykit_tpu.parallel.runtime.reform_decomposition':
-        'the relaunch plan of resilience/ (ROADMAP Queue A item 5)',
+        'the relaunch plan of resilience/ (ROADMAP Queue A)',
     'nbodykit_tpu.parallel.runtime.default_pencil_factor': _PENCIL,
     'nbodykit_tpu.parallel.runtime.pencil_mesh': _PENCIL,
     'nbodykit_tpu.parallel.runtime.is_pencil': _PENCIL,
@@ -386,6 +385,242 @@ def test_port_defines_every_jax_name():
     assert not present, "listed as omitted but ported: %s" % present
     assert checked >= 500, checked
     assert all(OMISSIONS.values())
+
+
+# Parameters of the JAX package that the port does not take, by name
+# wherever they appear: the JAX-only knobs, each with its reason.
+JAX_ONLY_PARAMETERS = {
+    'chunk': "the static chunk of a traced XLA loop; the port's kernels "
+             'and eager loops size their own work',
+    'engine': 'picks between XLA lowerings of the rank pass; the port '
+              'names its engine (ops.radix.order_keys)',
+    'method': "picks the TPU's one-hot histogram; the port's "
+              'hist2d_weighted is the bincount form on every device',
+    'acc_dtype': "the TPU histogram's accumulator; the port bins in f64",
+    'deposit': 'picks the Pallas or the XLA deposit; the port launches '
+               'its one deposit kernel on the card',
+    'axis_name': "the shard_map axis of a JAX device mesh; the port's "
+                 'ranks are processes (parallel.runtime.RankMesh)',
+    'coordinator_address': "jax.distributed's coordinator; the port's "
+                           'init_distributed takes init_method',
+    'local_device_ids': "jax.distributed's devices of a process; the "
+                        "port's init_distributed takes device",
+    'pm_or_nproc': 'the rank count as an int or a ParticleMesh; the port '
+                   'takes the RankMesh itself',
+    'nproc': 'the rank count; the port takes the RankMesh itself',
+}
+# Parameters of one JAX function that the port does not take yet, each
+# with its reason.
+PARAMETER_OMISSIONS = {
+    'nbodykit_tpu.pmesh.memory_plan': (
+        ('fft_decomp', 'fft_pencil', 'ingest_chunk_rows', 'catalog_bytes',
+         'workload', 'pm_steps', 'nbins', 'bspec_method',
+         'pairblock_tile'),
+        'memory_plan prices the FFTPower workload on the slab path only '
+        '(ROADMAP Queue C: the forward-model, bispectrum, pencil and '
+        'ingest workloads)'),
+}
+
+
+def _parameter_names(obj):
+    """The names of the named parameters of a callable (a class: its
+    constructor's), or None when it has no signature."""
+    import inspect
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return [p.name for p in sig.parameters.values()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def test_port_takes_every_jax_parameter():
+    """Every named parameter of every public function, class and public
+    method that the JAX package defines and the port ports is a named
+    parameter of the port's counterpart (a ``**kwargs`` that swallows it
+    does not count), but for the JAX-only knobs and the written
+    omissions; and every written omission is still missing (the lists
+    stay true)."""
+    import ast
+    import importlib
+    import pkgutil
+    import nbodykit_tpu
+    missing, present, checked = [], [], 0
+    names = ['nbodykit_tpu'] + [
+        m.name for m in pkgutil.walk_packages(nbodykit_tpu.__path__,
+                                              'nbodykit_tpu.')]
+    for name in names:
+        if not _port_module(name):
+            continue
+        jmod = importlib.import_module(name)
+        tmod = importlib.import_module(
+            'nbodykit_tpu_torch' + name[len('nbodykit_tpu'):])
+        for attr, node in _public_definitions(jmod).items():
+            if not hasattr(tmod, attr):
+                continue
+            pairs = [(attr, getattr(jmod, attr), getattr(tmod, attr))]
+            if isinstance(node, ast.ClassDef):
+                jcls, tcls = pairs[0][1:]
+                pairs += [('%s.%s' % (attr, b.name), getattr(jcls, b.name),
+                           getattr(tcls, b.name)) for b in node.body
+                          if isinstance(b, ast.FunctionDef)
+                          and not b.name.startswith('_')
+                          and hasattr(tcls, b.name)]
+            for qual, jobj, tobj in pairs:
+                qual = '%s.%s' % (name, qual)
+                jp, tp = _parameter_names(jobj), _parameter_names(tobj)
+                if jp is None or tp is None:
+                    continue
+                checked += 1
+                omitted, _ = PARAMETER_OMISSIONS.get(qual, ((), None))
+                for p in jp:
+                    if p in JAX_ONLY_PARAMETERS:
+                        continue
+                    if p in omitted:
+                        if p in tp:
+                            present.append('%s(%s)' % (qual, p))
+                    elif p not in tp:
+                        missing.append('%s(%s)' % (qual, p))
+    assert not missing, "the port does not take %s" % missing
+    assert not present, "listed as omitted but taken: %s" % present
+    assert checked >= 450, checked
+    assert all(JAX_ONLY_PARAMETERS.values())
+    assert all(reason for _, reason in PARAMETER_OMISSIONS.values())
+
+
+def _two_ranks(rank=0, group=None):
+    """A 2-rank mesh that runs no collective: enough to build what takes
+    a ``comm`` and to see it refuse or cut its rows."""
+    from nbodykit_tpu_torch.parallel.runtime import RankMesh
+    return RankMesh(group, [0, 1], rank, 'cpu', 'gloo')
+
+
+@pytest.mark.parametrize('rank', [0, 1])
+def test_array_mesh_takes_its_comm(rank):
+    """ArrayMesh(array, BoxSize, comm=): each rank keeps its x-slab of
+    the array every rank passes whole, and ``comm`` is the mesh's, not
+    an attr."""
+    from nbodykit_tpu_torch.lab import ArrayMesh
+    a = np.random.RandomState(0).standard_normal((4, 4, 4))
+    comm = _two_ranks(rank)
+    mesh = ArrayMesh(a, 1.0, comm=comm, device='cpu', tag=7)
+    assert mesh.comm is comm and mesh.pm.comm is comm
+    assert mesh.pm.nproc == 2 and 'comm' not in mesh.attrs
+    assert mesh.attrs['tag'] == 7
+    np.testing.assert_array_equal(mesh.to_real_field().value.numpy(),
+                                  a[2 * rank:2 * rank + 2])
+    one = ArrayMesh(a, 1.0, device='cpu')
+    assert one.comm is None
+    np.testing.assert_array_equal(one.to_real_field().value.numpy(), a)
+
+
+def test_containers_take_their_inputs_comm():
+    """MultipleSpeciesCatalog takes its species' comm and refuses
+    species on different meshes; its mesh and FKPCatalog follow it;
+    HaloCatalog takes its source's and refuses more than one rank;
+    FFTRecon refuses data and randoms on different meshes."""
+    from nbodykit_tpu_torch.lab import (ArrayCatalog, FFTRecon, FKPCatalog,
+                                        HaloCatalog, MultipleSpeciesCatalog,
+                                        Planck15)
+    comm = _two_ranks()
+    cols = {'Position': np.random.RandomState(1).uniform(0, 1, (6, 3)),
+            'NZ': np.ones(6)}
+    a = ArrayCatalog(cols, comm=comm)
+    assert len(a) == 3 and a.comm is comm
+    both = MultipleSpeciesCatalog(['x', 'y'], a, a)
+    assert both.comm is comm and len(both) == 6
+    mesh = both.to_mesh(Nmesh=4, BoxSize=1.0)
+    assert mesh.comm is comm and mesh.pm.nproc == 2
+    assert FKPCatalog(a, a).comm is comm
+    one = ArrayCatalog(cols, device='cpu')
+    assert MultipleSpeciesCatalog(['x', 'y'], one, one).comm is None
+    with pytest.raises(ValueError, match='different meshes'):
+        MultipleSpeciesCatalog(['x', 'y'], a, one)
+    other = ArrayCatalog(cols, comm=_two_ranks(group=object()))
+    aa = ArrayCatalog(cols, comm=_two_ranks(group=object()))
+    with pytest.raises(ValueError, match='different meshes'):
+        MultipleSpeciesCatalog(['x', 'y'], aa, other)
+    with pytest.raises(ValueError, match='different meshes'):
+        FFTRecon(aa, other, Nmesh=4, BoxSize=1.0)
+    assert HaloCatalog(one, Planck15, 0.5).comm is None
+    with pytest.raises(NotImplementedError, match='HaloCatalog'):
+        HaloCatalog(a, Planck15, 0.5)
+
+
+def test_constructors_take_comm_and_refuse_ranks():
+    """Each constructor and function that the JAX package gives a
+    ``comm`` takes one; those whose branch across ranks is not ported
+    refuse a 2-rank mesh, and LinearMesh and FieldMesh of a Field run
+    on it."""
+    from nbodykit_tpu_torch import io, set_options
+    from nbodykit_tpu_torch.algorithms.bispectrum import direct_bispectrum
+    from nbodykit_tpu_torch.base.mesh import Field, FieldMesh
+    from nbodykit_tpu_torch.forward import ForwardModel
+    from nbodykit_tpu_torch.lab import (BigFileMesh, LinearMesh,
+                                        LogNormalCatalog, ParticleMesh)
+    from nbodykit_tpu_torch.ops.pairblock import pairblock_sum
+    from nbodykit_tpu_torch.source.catalog import file as fc
+    comm = _two_ranks()
+    plin = lambda k: k * 0 + 1.0                       # noqa: E731
+    pos = np.random.RandomState(2).uniform(0, 10, (5, 3))
+    refused = {
+        'LogNormalCatalog': lambda: LogNormalCatalog(
+            plin, 1e-3, 100.0, 8, seed=1, comm=comm),
+        'BigFileMesh': lambda: BigFileMesh('no-such-dir', comm=comm),
+        'FieldMesh': lambda: FieldMesh(torch.zeros((4, 4, 4)),
+                                       BoxSize=1.0, comm=comm),
+        'ForwardModel': lambda: ForwardModel(4, comm=comm),
+        'direct_bispectrum': lambda: direct_bispectrum(
+            pos, np.ones(5), 10.0, 2, comm=comm),
+        'pairblock_sum': lambda: pairblock_sum(
+            torch.as_tensor(pos), torch.ones(5), np.ones((3, 3)),
+            comm=comm),
+        'FileCatalogBase': lambda: fc.FileCatalogBase(
+            io.CSVFile, args=('no-such-file',), comm=comm),
+        'FileCatalog': lambda: fc.FileCatalog(io.CSVFile, 'no-such-file',
+                                              comm=comm),
+    }
+    for name in ('CSVCatalog', 'BinaryCatalog', 'BigFileCatalog',
+                 'HDFCatalog', 'FITSCatalog', 'TPMBinaryCatalog',
+                 'Gadget1Catalog'):
+        refused[name] = functools.partial(getattr(fc, name),
+                                          'no-such-file', comm=comm)
+    with set_options(device='cpu'):
+        for name, make in refused.items():
+            with pytest.raises(NotImplementedError, match='one rank'):
+                make()
+        lin = LinearMesh(plin, 100.0, 8, seed=1, comm=comm)
+        assert lin.comm is comm and lin.pm.nproc == 2
+        pm = ParticleMesh(4, 1.0, comm=comm)
+        fm = FieldMesh(Field(pm.create(), pm))
+        assert fm.comm is comm
+        # at one rank each takes comm=None
+        assert LinearMesh(plin, 100.0, 8, seed=1, comm=None).comm is None
+        B, _ = direct_bispectrum(pos, np.ones(5), 10.0, 2, comm=None)
+        assert B.shape == (2, 2, 2)
+        assert FieldMesh(torch.zeros((4, 4, 4)), BoxSize=1.0,
+                         comm=None).comm is None
+
+
+def test_preview_root_and_return_dropped():
+    """MeshSource.preview takes ``root`` (the projection is the same on
+    every rank); ParticleMesh.paint and readout take ``return_dropped``
+    and drop nothing."""
+    from nbodykit_tpu_torch.lab import ArrayMesh, ParticleMesh
+    a = np.random.RandomState(3).standard_normal((4, 4, 4))
+    mesh = ArrayMesh(a, 1.0, device='cpu')
+    np.testing.assert_allclose(mesh.preview(axes=[0], root=1),
+                               a.sum(axis=(1, 2)), rtol=1e-14)
+    np.testing.assert_array_equal(mesh.preview(root=0), a)
+    pm = ParticleMesh(4, 1.0, dtype='f8', device='cpu')
+    pos = torch.as_tensor(np.random.RandomState(4).uniform(0, 1, (20, 3)))
+    field, dropped = pm.paint(pos, return_dropped=True)
+    assert dropped == 0
+    torch.testing.assert_close(field, pm.paint(pos), rtol=0, atol=0)
+    vals, dropped = pm.readout(field, pos, return_dropped=True)
+    assert dropped == 0
+    torch.testing.assert_close(vals, pm.readout(field, pos), rtol=0,
+                               atol=0)
 
 
 def test_lab_star_import_runs_the_benchmark_idiom():

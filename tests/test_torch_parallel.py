@@ -257,6 +257,25 @@ def test_readout_equals_jax(world, window, P):
     close(got, want, 1e-12)
 
 
+@pytest.mark.parametrize('P', Ps)
+def test_readout_of_rows_split_unevenly(world, P):
+    """4099 particles, so the ranks hold different row counts: every
+    exchange pad goes back to a spare row of its receiver, and the
+    values equal JAX's one-device readout. ``readout_many`` of two
+    fields routes the particles once and equals a readout of each, bit
+    for bit."""
+    pos = R.particles(R.NPARTS[1])['pos']
+    want = np.asarray(JaxPM(R.NMESH, R.BOX, dtype='f8').readout(
+        jnp.asarray(R.readout_field()), jnp.asarray(pos), resampler='cic'))
+    close(np.concatenate(parts(world, ('readout_uneven',), P)), want, 1e-12)
+    for r in range(P):
+        one, two = world[r]['readout_many', P]
+        np.testing.assert_array_equal(two, world[r]['readout_one', P])
+        np.testing.assert_array_equal(two, 2 * one)
+    assert sum(len(g) for g in parts(world, ('readout_uneven',), P)) == \
+        len(pos)
+
+
 # -- per-rank draws and grids -------------------------------------------------
 
 @pytest.mark.parametrize('P', Ps)
@@ -265,6 +284,15 @@ def test_whitenoise_equals_jax(world, P):
     got = np.concatenate(parts(world, ('whitenoise',), P))
     close(got, want, 1e-12)
     close(got, world[0]['whitenoise', 1], 1e-12)
+
+
+@pytest.mark.parametrize('P', Ps[1:])
+def test_drawn_seed_is_rank_0s(world, P):
+    """LinearMesh(seed=None) draws its seed on every rank from that
+    rank's numpy state and takes rank 0's, so every rank draws the same
+    realization."""
+    seeds = [world[r]['drawn_seed', P] for r in range(P)]
+    assert len(set(seeds)) == 1, seeds
 
 
 @pytest.mark.parametrize('P', Ps)
@@ -319,9 +347,11 @@ def test_distributed_rng_rows(world, P):
 @pytest.mark.parametrize('P', Ps[1:])
 def test_unported_branches_refuse_ranks(world, P):
     """Every call with no multi-rank branch yet raises instead of
-    running on a rank's rows alone."""
-    want = sorted(['FOF', 'KDDensity', 'sort', 'save', 'forward_slabs',
-                   'poisson'])
+    running on a rank's rows alone; ``forward_slabs`` runs across ranks
+    now (tests/test_torch_dist_fftpower.py, ConvolvedFFTPower)."""
+    want = sorted(['FOF', 'KDDensity', 'sort', 'save', 'poisson',
+                   'Bispectrum', 'ForwardModel', 'PopulatedHaloCatalog',
+                   'HaloCatalog'])
     for r in range(P):
         assert world[r]['refused', P] == want
 

@@ -2099,6 +2099,21 @@ DCP_SCALAR_RTOL = 1e-10
 DRC_FIELD_RTOL = 1e-4
 # x-stripes of a randoms payload that the plain deposit checks
 DIST_STRIPES = 16
+# dist_bispectrum: the bispectrum path's flow (BS_*) across ranks: ntri
+# and its NaN pattern identical to the one-rank run's, B within
+# DBS_B_RTOL relative on the closed triangles
+DBS_B_RTOL = 1e-10
+# dist_forward: the forward path's model (FW_*) across ranks against the
+# one-rank run: the density within DFW_DENSITY_RTOL of its largest value,
+# the loss within DFW_LOSS_RTOL relative, the gathered gradient within
+# DFW_GRAD_RTOL of its largest (the scatter paint's atomics order its
+# sums), DFW_ADAM_STEPS of recover's losses within DFW_ADAM_RTOL; the
+# central differences of forward_fd_check at P = 2 within FD_RTOL
+DFW_DENSITY_RTOL = 1e-9
+DFW_LOSS_RTOL = 1e-9
+DFW_GRAD_RTOL = 1e-6
+DFW_ADAM_STEPS = 2
+DFW_ADAM_RTOL = 1e-8
 
 
 def _quiet(fn, *args, **kw):
@@ -2112,7 +2127,7 @@ def _quiet(fn, *args, **kw):
 
 
 def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
-              rc_ref_path, q):
+              rc_ref_path, fw_dir, q):
     """One rank of ``dist_main``: joins the world of ``nproc`` ranks
     (``backend`` 'gloo': all on cuda:0, collectives staged through the
     host; 'nccl': rank r on cuda:r), draws its rows of the main path's
@@ -2122,10 +2137,11 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
     pass on its destinations and (rank 0) the deposit on its extended
     slab against their plain versions, gathers the painted field to
     rank 0, which compares it with the one-rank field saved at
-    ``ref_path``; then runs ``dist_convpower`` and ``dist_recon`` (the
+    ``ref_path``; then runs ``dist_convpower``, ``dist_recon`` (the
     recon's data at ``rc_pos_path``, the one-rank field at
-    ``rc_ref_path``) and puts its record on ``q``. ``workdir`` holds
-    the world's rendezvous file."""
+    ``rc_ref_path``), ``dist_bispectrum`` and ``dist_forward`` (the
+    one-rank arrays in ``fw_dir``) and puts its record on ``q``.
+    ``workdir`` holds the world's rendezvous file."""
     from nbodykit_tpu_torch import _build, utils
     from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
                                                    pass_rank_hist_plain,
@@ -2233,6 +2249,14 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
     t1 = time.perf_counter()
     rec['recon'] = dist_recon_rank(mesh, rc_pos_path, rc_ref_path)
     rec['recon']['seconds'] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rec['bispectrum'] = dist_bispectrum_rank(mesh)
+    rec['bispectrum']['seconds'] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rec['forward'] = dist_forward_rank(mesh, fw_dir)
+    rec['forward']['seconds'] = time.perf_counter() - t1
     rec['rank_seconds'] = time.perf_counter() - t_start
     q.put(rec)
     torch.distributed.destroy_process_group()
@@ -2409,6 +2433,226 @@ def dist_recon_rank(mesh, pos_path, ref_path):
             'shifted_randoms', pm, cpos_r, mass_r, 'cic',
             stripes=DIST_STRIPES)
     return out
+
+
+def dist_bispectrum_rank(mesh):
+    """One rank of ``dist_bispectrum``: the bispectrum path's flow on
+    this rank's rows, once, staged; the exchange's rank pass on its
+    destinations; rank 0's f8 CIC deposit on its extended slab."""
+    (cat, b), rec = staged_run(lambda: bispectrum_flow(comm=mesh), mesh)
+    # the paint's exchange and bucket pass, its deposit; the draws
+    for name, want in (('paint_deposit', 1), ('radix_rank', 2),
+                       ('threefry_fill', 1)):
+        assert rec['launches'][name] >= want, rec['launches']
+    rec['memory_plan_peak_gb'] = bispectrum_plan(cat.csize, mesh.size)
+    out = dict(run=rec, n_rows=len(cat), B=np.asarray(b.B['B']),
+               ntri=np.asarray(b.B['ntri']), lines=[])
+    del b
+    pm = cat.to_mesh(Nmesh=BS_NMESH, dtype='f8', compensated=True).pm
+    cpos = pm._to_cell_units(cat['Position'])
+    same, out['rank'], lines = exchange_rank_check(mesh, pm, cpos)
+    out['rank_pass_bit_identical'] = same
+    out['lines'] += lines
+    cpos_r, mass_r = slab_payload(
+        mesh, pm, cpos, torch.ones(len(cat), dtype=torch.float64,
+                                   device=pm.device))
+    del cpos, cat
+    if mesh.rank == 0:
+        recs, lines = slab_deposit('bispectrum', pm, cpos_r, mass_r, 'cic')
+        out['deposit'] = recs['bispectrum']
+        out['lines'] += lines
+    return out
+
+
+def dist_bispectrum_reference():
+    """The one-rank run of dist_bispectrum's configuration, staged as a
+    rank's: B, ntri and its record."""
+    (cat, b), rec = staged_run(bispectrum_flow)
+    rec['memory_plan_peak_gb'] = bispectrum_plan(len(cat))
+    ref = dict(run=rec, B=np.asarray(b.B['B']), ntri=np.asarray(b.B['ntri']),
+               npart=len(cat))
+    del cat, b
+    torch.cuda.empty_cache()
+    return ref
+
+
+def forward_model(comm=None):
+    """The forward path's model (FW_*), on ``comm``'s ranks."""
+    from nbodykit_tpu_torch.forward import ForwardModel
+    return ForwardModel(FW_NMESH, FW_NMESH ** 3, BoxSize=1000.0,
+                        pm_steps=FW_STEPS, delta_rms=FW_DELTA_RMS,
+                        dtype='f8', comm=comm)
+
+
+def forward_runs(model, obs, w0, comm=None):
+    """The forward path's runs, each staged: the density of the truth
+    modes (seed 0), one value and gradient of the loss at the linear
+    start ``w0``, DFW_ADAM_STEPS of recover from it. Returns (density,
+    loss, gradient, Adam losses, {records})."""
+    from nbodykit_tpu_torch.forward import make_loss, recover
+
+    def density():
+        with torch.no_grad():
+            return model.density(model.linear_modes(0))
+    dens, d_rec = staged_run(density, comm)
+    loss = make_loss(model, obs, noise_std=FW_NOISE)
+
+    def value_and_grad():
+        x = w0.clone().requires_grad_(True)
+        val = loss(x)
+        return float(val), torch.autograd.grad(val, x)[0]
+    (val, grad), vg_rec = staged_run(value_and_grad, comm)
+    (_, losses), adam_rec = staged_run(lambda: recover(
+        model, obs, steps=DFW_ADAM_STEPS, lr=FW_LR, noise_std=FW_NOISE,
+        white0=w0), comm)
+    # the truth's draw; across ranks every paint and readout is routed
+    # by the rank pass (grad mode's scatter paint deposits no mxu blocks)
+    assert d_rec['launches']['threefry_fill'] >= 1, d_rec['launches']
+    if comm is not None:
+        assert vg_rec['launches']['radix_rank'] >= 1, vg_rec['launches']
+    return dens, val, grad, losses, dict(density=d_rec, value_and_grad=vg_rec,
+                                         adam=adam_rec)
+
+
+def dist_forward_reference(fw_dir):
+    """The one-rank run of dist_forward's configuration: the truth's
+    density (the observation) and the linear start saved in ``fw_dir``
+    for the ranks, the density and gradient saved for rank 0's checks;
+    the loss, Adam's losses and the records."""
+    from nbodykit_tpu_torch.forward import linear_init
+    model = forward_model()
+    with torch.no_grad():
+        obs = model.density(model.linear_modes(0))
+        w0 = linear_init(model, obs)
+    dens, val, grad, losses, recs = forward_runs(model, obs, w0)
+    for name, t in (('obs', obs), ('w0', w0), ('density', dens),
+                    ('grad', grad)):
+        np.save(os.path.join(fw_dir, name + '.npy'), t.cpu().numpy())
+    ref = dict(value=val, adam_losses=losses, runs=recs,
+               memory_plan_peak_gb=forward_plan())
+    del model, obs, w0, dens, grad
+    torch.cuda.empty_cache()
+    return ref
+
+
+def dist_forward_rank(mesh, fw_dir):
+    """One rank of ``dist_forward``: the forward path's model on this
+    rank's slabs (the one-rank observation and linear start from
+    ``fw_dir``), its density, value and gradient and Adam steps, staged;
+    the density and the gradient gathered to rank 0 and held against
+    the one-rank arrays; at P = 2 forward_fd_check across the ranks;
+    the exchange's rank pass on the destinations of the first paint."""
+    from nbodykit_tpu_torch import convert
+    from nbodykit_tpu_torch.forward import lpt_init
+    from nbodykit_tpu_torch.utils import GatherArray
+    model = forward_model(mesh)
+    pm = model.pm
+    obs = torch.as_tensor(np.load(os.path.join(fw_dir, 'obs.npy'),
+                                  mmap_mode='r')[pm._rows(FW_NMESH)],
+                          device=pm.device)
+    w0 = convert.white_from_numpy(np.load(os.path.join(fw_dir, 'w0.npy')),
+                                  model)
+    dens, val, grad, losses, runs = forward_runs(model, obs, w0, mesh)
+    for r in runs.values():
+        r['memory_plan_peak_gb'] = forward_plan(mesh.size)
+    out = dict(value=val, adam_losses=losses, runs=runs, lines=[])
+    for name, t in (('density', dens), ('grad', grad)):
+        whole = GatherArray(t, mesh, root=0)
+        if mesh.rank == 0:
+            ref = np.load(os.path.join(fw_dir, name + '.npy'))
+            out[name + '_max_abs_diff'] = float(np.abs(whole - ref).max())
+            out[name + '_max'] = float(np.abs(ref).max())
+        del whole
+    del dens, grad
+    if mesh.size == 2:
+        out['fd_check'] = forward_fd_check(comm=mesh)
+    # the first paint's particles: the LPT positions of the linear start
+    with torch.no_grad():
+        pos, _ = lpt_init(model.lattice, model.modes_from_white(w0),
+                          a=model.a_start, order=model.order,
+                          growth=model.growth)
+        cpos = pm._to_cell_units(pos)
+    same, out['rank'], lines = exchange_rank_check(mesh, pm, cpos)
+    out['rank_pass_bit_identical'] = same
+    out['lines'] += lines
+    return out
+
+
+def dist_slice_phases(nproc, backend, recs, bs_ref, fw_ref):
+    """The parent's checks of dist_bispectrum and dist_forward at
+    ``nproc`` ranks against the one-rank runs, and their lines. Returns
+    ({'dist_bispectrum_P<n>': launches, 'dist_forward_P<n>': ...} summed
+    over the ranks, rank 0's kernel records)."""
+    bss = [rec['bispectrum'] for rec in recs]
+    fws = [rec['forward'] for rec in recs]
+    for c in bss + fws:
+        for line in c.pop('lines'):
+            emit(dict(line, dist_ranks=nproc))
+    closed = ~np.isnan(bs_ref['B'])
+    b_worst = 0.0
+    for c in bss:
+        assert np.array_equal(np.nan_to_num(c['ntri'], nan=-1.0),
+                              np.nan_to_num(bs_ref['ntri'], nan=-1.0)), \
+            "dist_bispectrum P=%d: ntri differs from one rank's" % nproc
+        assert np.array_equal(np.isnan(c['B']), ~closed)
+        d = float(np.max(np.abs(c['B'][closed] / bs_ref['B'][closed] - 1)))
+        assert d <= DBS_B_RTOL, "dist_bispectrum P=%d: B %g" % (nproc, d)
+        b_worst = max(b_worst, d)
+    assert sum(c['n_rows'] for c in bss) == bs_ref['npart']
+    f0 = fws[0]
+    assert f0['density_max_abs_diff'] <= \
+        DFW_DENSITY_RTOL * f0['density_max'], f0
+    assert f0['grad_max_abs_diff'] <= DFW_GRAD_RTOL * f0['grad_max'], f0
+    loss_worst = max(abs(c['value'] / fw_ref['value'] - 1) for c in fws)
+    assert loss_worst <= DFW_LOSS_RTOL, loss_worst
+    adam_worst = max(float(np.max(np.abs(np.asarray(c['adam_losses'])
+                                         / fw_ref['adam_losses'] - 1)))
+                     for c in fws)
+    assert adam_worst <= DFW_ADAM_RTOL, adam_worst
+    assert nproc != 2 or f0['fd_check']['rel_err'] <= FD_RTOL
+
+    def summed(runs):
+        return {k: sum(run['launches'][k] for run in runs)
+                for k in runs[0]['launches']}
+    launches = {
+        'dist_bispectrum_P%d' % nproc: summed([c['run'] for c in bss]),
+        'dist_forward_P%d' % nproc: summed([r for c in fws
+                                            for r in c['runs'].values()])}
+    setting = DIST_SETTINGS[backend]
+    emit({'phase': 'dist_bispectrum', 'ranks': nproc, 'nmesh': BS_NMESH,
+          'nbins': BS_NBINS, 'backend': backend, 'setting': setting,
+          'B_max_rel_diff_vs_one_rank': b_worst, 'B_rtol': DBS_B_RTOL,
+          'ntri_identical': True, 'closed_cells': int(closed.sum()),
+          'one_rank': bs_ref['run'],
+          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
+                            run=c['run'], seconds=c['seconds'],
+                            rank_pass_bit_identical=c[
+                                'rank_pass_bit_identical'])
+                       for rec, c in zip(recs, bss)],
+          'kernels_rank0': {k: bss[0][k] for k in ('rank', 'deposit')}})
+    emit({'phase': 'dist_forward', 'ranks': nproc, 'nmesh': FW_NMESH,
+          'pm_steps': FW_STEPS, 'backend': backend, 'setting': setting,
+          'density_max_abs_diff_vs_one_rank': f0['density_max_abs_diff'],
+          'density_max': f0['density_max'],
+          'density_rtol': DFW_DENSITY_RTOL,
+          'loss_max_rel_diff_vs_one_rank': loss_worst,
+          'loss_rtol': DFW_LOSS_RTOL,
+          'grad_max_abs_diff_vs_one_rank': f0['grad_max_abs_diff'],
+          'grad_max': f0['grad_max'], 'grad_rtol': DFW_GRAD_RTOL,
+          'adam_steps': DFW_ADAM_STEPS,
+          'adam_losses_max_rel_diff_vs_one_rank': adam_worst,
+          'adam_rtol': DFW_ADAM_RTOL, 'fd_check': f0.get('fd_check'),
+          'one_rank': dict(fw_ref['runs'],
+                           memory_plan_peak_gb=fw_ref['memory_plan_peak_gb']),
+          'per_rank': [dict(rank=rec['rank'], runs=c['runs'],
+                            seconds=c['seconds'],
+                            rank_pass_bit_identical=c[
+                                'rank_pass_bit_identical'])
+                       for rec, c in zip(recs, fws)],
+          'kernels_rank0': {'rank': f0['rank']}})
+    kernels = dict(bs_rank=bss[0]['rank'], bs_deposit=bss[0]['deposit'],
+                   fw_rank=f0['rank'])
+    return launches, kernels
 
 
 def run_ranks(target, nproc, args, timeout_s=600):
@@ -2588,8 +2832,11 @@ def dist_main(run, nmesh, backend='gloo'):
     mu) and the poles within DIST_PK_RTOL, the gathered painted field
     within main_path's 1e-5 of its largest value, the mean of 1 + delta;
     every rank's rank pass bit for bit and rank 0's deposit within its
-    tolerance. Returns {'dist_main_P<n>': {kernel: launches summed over
-    the ranks}} and the kernels' records at each P."""
+    tolerance. The same worlds run dist_convpower, dist_recon,
+    dist_bispectrum and dist_forward against one-rank runs made here
+    first. Returns {'dist_main_P<n>': {kernel: launches summed over the
+    ranks}, 'dist_convpower_P<n>': ..., ...} and the kernels' records at
+    each P."""
     import tempfile
     t0 = time.perf_counter()
     mesh, r1 = run()
@@ -2610,6 +2857,10 @@ def dist_main(run, nmesh, backend='gloo'):
         rc_pos_path = os.path.join(workroot, 'recon_positions.npy')
         rc_ref_path = os.path.join(workroot, 'recon_field.npy')
         rc_ref = dist_recon_reference(rc_pos_path, rc_ref_path)
+        bs_ref = dist_bispectrum_reference()
+        fw_dir = os.path.join(workroot, 'forward')
+        os.makedirs(fw_dir)
+        fw_ref = dist_forward_reference(fw_dir)
         emit({'phase': 'dist_one_rank_references',
               'seconds': time.perf_counter() - t_ref})
         for nproc in DIST_RANKS:
@@ -2618,7 +2869,7 @@ def dist_main(run, nmesh, backend='gloo'):
             tw = time.perf_counter()
             recs = run_ranks(dist_rank, nproc,
                              (workdir, ref_path, nmesh, backend,
-                              rc_pos_path, rc_ref_path))
+                              rc_pos_path, rc_ref_path, fw_dir))
             world_s = time.perf_counter() - tw
             for rec in recs:
                 for line in rec.pop('lines'):
@@ -2655,6 +2906,10 @@ def dist_main(run, nmesh, backend='gloo'):
                 nproc, backend, recs, cp_ref, rc_ref)
             launches.update(survey_launches)
             kernel_recs[nproc].update(survey_kernels)
+            slice_launches, slice_kernels = dist_slice_phases(
+                nproc, backend, recs, bs_ref, fw_ref)
+            launches.update(slice_launches)
+            kernel_recs[nproc].update(slice_kernels)
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     emit({'phase': 'dist_main_total', 'seconds': time.perf_counter() - t0})
@@ -4132,10 +4387,28 @@ def spy_rank_digits(fn):
     return out, seen
 
 
-def bispectrum_flow(nmesh=BS_NMESH, nbins=BS_NBINS):
+def bispectrum_flow(nmesh=BS_NMESH, nbins=BS_NBINS, comm=None):
     from nbodykit_tpu_torch.lab import Bispectrum, UniformCatalog
-    cat = UniformCatalog(nbar=1e-2, BoxSize=BS_BOX, seed=42)
+    cat = UniformCatalog(nbar=1e-2, BoxSize=BS_BOX, seed=42, comm=comm)
     return cat, Bispectrum(cat, nbins=nbins, Nmesh=nmesh, method='fft')
+
+
+def bispectrum_plan(npart, ndevices=1):
+    """memory_plan of the bispectrum path (f8 CIC mxu paint, FFT
+    method, BS_NBINS shells): its peak in GB."""
+    from nbodykit_tpu_torch.pmesh import memory_plan
+    return memory_plan(BS_NMESH, npart, ndevices=ndevices, dtype='f8',
+                       paint_method='mxu', workload='bispectrum',
+                       nbins=BS_NBINS, bspec_method='fft')['peak_bytes'] / 1e9
+
+
+def forward_plan(ndevices=1):
+    """memory_plan of the forward path's model (f8, the scatter paint of
+    grad mode, FW_STEPS steps): its peak in GB."""
+    from nbodykit_tpu_torch.pmesh import memory_plan
+    return memory_plan(FW_NMESH, FW_NMESH ** 3, ndevices=ndevices,
+                       dtype='f8', paint_method='scatter', workload='forward',
+                       pm_steps=FW_STEPS)['peak_bytes'] / 1e9
 
 
 def imprinted_catalog(npart=BS_NPART, L=BS_BOX, seed=BS_SEED):
@@ -4370,10 +4643,12 @@ def bispectrum_path():
     mesh = cat.to_mesh(Nmesh=BS_NMESH, dtype='f8', compensated=True)
     _, paint = spread(lambda: mesh.to_real_field(), REPS)
     del mesh
+    plan = bispectrum_plan(len(cat))
     emit({'phase': 'bispectrum_256', 'npart': len(cat), 'nmesh': BS_NMESH,
           'nbins': BS_NBINS, 'triangles': ncanon, 'launches': launches,
           'run_ms': run, 'ms_per_triangle': run['median'] / ncanon,
-          'paint_ms': paint, 'peak_gb': peak})
+          'paint_ms': paint, 'peak_gb': peak, 'memory_plan_peak_gb': plan,
+          'peak_over_plan': peak / plan})
     dep, rank = bispectrum_kernels(cat)
     triple = triple_sum_timing(cat)
     del cat, r
@@ -4404,25 +4679,27 @@ FW_ADAM_STEPS, FW_LR, FW_NOISE = 40, 0.01, 0.1
 FD_NMESH, FD_EPS, FD_RTOL = 32, 1e-6, 1e-4
 
 
-def forward_fd_check(nmesh=FD_NMESH):
+def forward_fd_check(nmesh=FD_NMESH, comm=None):
     """The directional derivative of the loss along a unit whitenoise
-    direction against central differences."""
+    direction against central differences (with a ``comm``, across its
+    ranks)."""
     from nbodykit_tpu_torch.forward import ForwardModel, make_loss
+    from nbodykit_tpu_torch.parallel.runtime import global_sum
     model = ForwardModel(nmesh, nmesh ** 3, BoxSize=1000.0,
-                         pm_steps=FW_STEPS, dtype='f8')
+                         pm_steps=FW_STEPS, dtype='f8', comm=comm)
     lat = model.lattice
     with torch.no_grad():
         obs = model.density(model.linear_modes(1))
         w = lat.c2r(lat.generate_whitenoise(3)) * 0.2
         d = lat.c2r(lat.generate_whitenoise(5))
-        d = d / torch.sqrt(torch.sum(d * d))
+        d = d / torch.sqrt(global_sum(d * d, comm))
     loss = make_loss(model, obs, noise_std=0.5)
     x = w.clone().requires_grad_(True)
     g, = torch.autograd.grad(loss(x), x)
     with torch.no_grad():
         fd = (float(loss(w + FD_EPS * d)) - float(loss(w - FD_EPS * d))) \
             / (2.0 * FD_EPS)
-    dot = float(torch.sum(g * d))
+    dot = float(global_sum(g * d, comm))
     err = abs(fd - dot) / max(abs(fd), abs(dot), 1e-10)
     assert err <= FD_RTOL, "FD %r vs grad %r (rel %.3g)" % (fd, dot, err)
     return dict(nmesh=nmesh, eps=FD_EPS, fd=fd, grad_dot=dot, rel_err=err,
@@ -4531,7 +4808,10 @@ def forward_path(nmesh=FW_NMESH, steps=FW_ADAM_STEPS):
     for k, v in vjp_launches.items():
         launches[k] += v
     fd = forward_fd_check()
+    plan = forward_plan()
     emit({'phase': 'forward_128', 'nmesh': nmesh, 'npart': model.npart,
+          'memory_plan_peak_gb': plan,
+          'value_and_grad_peak_over_plan': vg_peak / plan,
           'pm_steps': FW_STEPS, 'delta_rms': FW_DELTA_RMS,
           'paint_method': cfg['paint_method'], 'paint_source': cfg['source'],
           'demoted': cfg['winner_name'], 'launches': launches,
@@ -4740,6 +5020,10 @@ def main():
              **{'at_dist_main_P%d' % p: k['rank']
                 for p, k in dist_kernels.items()},
              **{'at_dist_convpower_P%d' % p: k['cp_rank']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_bispectrum_P%d' % p: k['bs_rank']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_forward_P%d' % p: k['fw_rank']
                 for p, k in dist_kernels.items()}),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
@@ -4752,6 +5036,8 @@ def main():
              **{'at_dist_convpower_P%d' % p: k['cp_deposit']
                 for p, k in dist_kernels.items()},
              **{'at_dist_recon_P%d' % p: k['rc_deposit']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_bispectrum_P%d' % p: k['bs_deposit']
                 for p, k in dist_kernels.items()}),
         dict(name='threefry_fill', route='cuda', source=rng_src,
              replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),

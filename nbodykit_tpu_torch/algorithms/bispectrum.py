@@ -19,6 +19,15 @@ The three c2r's of a triangle run through one function with the
 integer shell thresholds as data; three real fields and one complex
 are live at a time.
 
+**Across ranks** (a complex field on a slab mesh of P ranks: this
+rank's ky-slab of the r2c output) each pass computes every shell's
+filtered field once, through the slab c2r, and holds the ``nbins``
+real x-slabs; each triangle's product is summed over this rank's slab,
+and the partial sums of every triangle and both passes cross the ranks
+in one ``all_reduce``. The count is snapped to its integer after the
+reduce. That is 2 nbins transforms a run where the one-rank loop takes
+6 a triangle, for nbins slabs of memory.
+
 **Direct path.** Exact mode sums ``delta(q) = (1/W) sum_j w_j
 exp(-i k_q . x_j)`` by :func:`~nbodykit_tpu_torch.ops.pairblock.pairblock_sum`
 on the catalog's device, then the host's triangle combination over the
@@ -39,7 +48,7 @@ from ..base.mesh import MeshSource
 from ..binned_statistic import BinnedStatistic
 from ..ops.histogram import lattice_shell_edges
 from ..ops.pairblock import DEFAULT_TILE
-from ..utils import as_numpy
+from ..utils import as_numpy, stage
 from .fftpower import FFTBase
 from ..parallel.runtime import require_one_rank
 
@@ -97,26 +106,63 @@ def _shell_edges2(nbins, BoxSize):
     return np.stack([qe[:-1], qe[1:]], axis=1), kedges
 
 
+def _held_triple_sums(pm, cplx, edges2, triangles):
+    """This rank's partial ``sum_x d1 d2 d3`` of every triangle, (2,
+    ntriangles) f8: row 0 the data pass on ``cplx``, row 1 the count
+    pass (an all-ones spectrum). Each pass holds the nbins shell
+    fields of this rank's slab, each one slab c2r."""
+    ix, iy, iz = pm.i_list_complex()
+    isq = ix * ix + iy * iy + iz * iz
+    out = torch.empty((2, len(triangles)), dtype=torch.float64,
+                      device=cplx.device)
+    for row, spectrum in enumerate((cplx, None)):
+        shells = []
+        with stage('bispectrum_shells'):
+            for lo2, hi2 in edges2:
+                mask = (isq >= int(lo2)) & (isq < int(hi2))
+                shells.append(pm.c2r(mask.to(cplx.dtype) if spectrum is None
+                                     else torch.where(mask, spectrum, 0)))
+        with stage('bispectrum_triples'):
+            for t, (i, j, l) in enumerate(triangles):
+                out[row, t] = torch.sum(shells[i] * shells[j] * shells[l])
+        del shells
+    return out
+
+
 def fft_bispectrum(pm, cplx, nbins):
     """The Scoccimarro estimator on a complex field: ``(B, ntri)`` as
     (nbins,)*3 host arrays, NaN where no closed triangle exists.
     ``ntri`` is the ordered mod-N triangle count ``sum_x(I1 I2 I3) /
-    Ntot``, snapped to an integer."""
+    Ntot``, snapped to an integer. With P ranks ``cplx`` is this rank's
+    ky-slab and every rank returns the same arrays (module
+    docstring)."""
     edges2, _ = _shell_edges2(nbins, pm.BoxSize)
     V = float(np.prod(pm.BoxSize))
     Ntot = float(pm.Ntot)
-    triple = _make_triple_sum(pm)
-    ones = torch.ones(pm.shape_complex, dtype=cplx.dtype,
-                      device=cplx.device)
+    triangles = triangle_bins(nbins)
+    if pm.nproc > 1:
+        partial = _held_triple_sums(pm, cplx, edges2, triangles)
+        with stage('bispectrum_reduce'):
+            sums = as_numpy(pm.comm.all_reduce(partial))
+
+        def data_and_count(t, e):
+            return float(sums[0, t]), float(sums[1, t])
+    else:
+        triple = _make_triple_sum(pm)
+        ones = torch.ones(pm.shape_complex, dtype=cplx.dtype,
+                          device=cplx.device)
+
+        def data_and_count(t, e):
+            return float(triple(cplx, e)), float(triple(ones, e))
 
     B = np.full((nbins,) * 3, np.nan, dtype='f8')
     ntri = np.full((nbins,) * 3, np.nan, dtype='f8')
-    for (i, j, l) in triangle_bins(nbins):
-        e = np.stack([edges2[i], edges2[j], edges2[l]])
-        S = float(triple(cplx, e))
+    for t, (i, j, l) in enumerate(triangles):
+        S, T = data_and_count(t, np.stack([edges2[i], edges2[j],
+                                           edges2[l]]))
         # the count is an integer by construction (the number of closed
         # triangles): snap off the c2r rounding, as the JAX package does
-        T = round(float(triple(ones, e)) / Ntot) * Ntot
+        T = round(T / Ntot) * Ntot
         for perm in {(i, j, l), (i, l, j), (j, i, l), (j, l, i),
                      (l, i, j), (l, j, i)}:
             ntri[perm] = T / Ntot if T > 0 else np.nan
@@ -219,7 +265,9 @@ class Bispectrum(FFTBase):
     ``method`` is ``'fft'``, ``'direct'`` or ``'auto'``; ``'auto'``
     and ``tile=None`` resolve as the JAX package's tuner does on a cold
     cache, to ``'fft'`` and tile 1024 (the port has no tuner). The
-    direct path sums over particles and needs a catalog source.
+    direct path sums over particles and needs a catalog source. The FFT
+    path runs across the ranks of the source's ``comm``; the direct
+    path on one rank only (its sharded pairblock sum is not ported).
 
     Results land in :attr:`B`, a ``BinnedStatistic`` over ``(k1, k2,
     k3)`` with fields ``B`` and ``ntri`` (NaN outside the
@@ -230,7 +278,6 @@ class Bispectrum(FFTBase):
 
     def __init__(self, source, nbins=4, Nmesh=None, BoxSize=None,
                  method='auto', tile=None):
-        require_one_rank(source, 'Bispectrum')
         if method not in ('auto', 'fft', 'direct'):
             raise ValueError("method must be 'auto', 'fft' or "
                              "'direct'")
@@ -249,6 +296,7 @@ class Bispectrum(FFTBase):
             tile = DEFAULT_TILE
 
         if method == 'direct':
+            require_one_rank(source, "Bispectrum(method='direct')")
             box = BoxSize if BoxSize is not None \
                 else source.attrs['BoxSize']
             box = np.ones(3) * np.asarray(box, dtype='f8')

@@ -72,21 +72,24 @@ def _lattice_tensor(array, model, kind):
     if tuple(array.shape) != tuple(shape):
         raise ValueError("the %s state of this model has shape %s, got %s"
                          % (kind, shape, array.shape))
+    # this rank's slab: x rows of a real field, ky rows of a complex one
+    array = array[lat._rows(shape[0])]
     dtype = lat.torch_dtype if kind == 'real' else lat.complex_dtype
     return tensor_from_numpy(array).to(device=lat.device, dtype=dtype)
 
 
 def white_from_numpy(array, model):
     """A :class:`~nbodykit_tpu_torch.forward.ForwardModel`'s real
-    whitenoise leaf (the lattice's real shape) from numpy, on the
-    model's device."""
+    whitenoise leaf from the whole numpy array (the lattice's real
+    shape), as this rank's x-slab on the model's device."""
     return _lattice_tensor(array, model, 'real')
 
 
 def modes_from_numpy(array, model):
     """A :class:`~nbodykit_tpu_torch.forward.ForwardModel`'s linear modes
-    from numpy, in the transposed hermitian layout (N1, N0, N2//2+1)
-    that the JAX package and the port share, on the model's device."""
+    from the whole numpy array, in the transposed hermitian layout (N1,
+    N0, N2//2+1) that the JAX package and the port share, as this
+    rank's ky-slab on the model's device."""
     return _lattice_tensor(array, model, 'complex')
 
 

@@ -15,6 +15,10 @@ forward:
                    ``scatter`` by ``resolve_paint(differentiable=True)``
                    (``source='grad-fallback'``, one warning).
 
+Across ranks both run through the paint's exchange and halo rows, each
+collective with its adjoint (``parallel/``); the analytic backward reads
+out all four values of a particle in one routing (``readout_many``).
+
 The analytic backward, for out = paint(pos, mass) and cotangent g:
 
   d/dmass  = readout(g, pos)
@@ -64,10 +68,12 @@ class PaintAdjoint(torch.autograd.Function):
         pm, resampler = ctx.pm, ctx.resampler
         g = cot.to(pm.torch_compute_dtype)
         scale = np.asarray(pm.Nmesh, 'f8') / np.asarray(pm.BoxSize, 'f8')
-        dmass = pm.readout(g, pos, resampler=resampler)
-        dpos = torch.stack(
-            [pm.readout(g, pos, resampler=resampler, grad_axis=d)
-             * float(scale[d]) for d in range(3)], dim=-1)
+        # one routing for the value and the three derivatives
+        vals = pm.readout_many([g] * 4, pos, resampler=resampler,
+                               grad_axis=[None, 0, 1, 2])
+        dmass = vals[0]
+        dpos = torch.stack([vals[1 + d] * float(scale[d])
+                            for d in range(3)], dim=-1)
         dpos = dpos * mass[:, None]
         return dpos.to(pos.dtype), dmass.to(mass.dtype), None, None, None
 

@@ -11,16 +11,23 @@ the modelled density against the observed painted field:
 
 FFTRecon (BAO reconstruction) is the classical baseline the recovered
 field must beat on cross-correlation with the truth.
+
+With P ranks the fields are this rank's slabs and every sum runs over
+the ranks (``global_sum``, ``replicated_sum``): the loss, the
+metrics and Adam's steps are the one-rank run's.
 """
 
 import numpy as np
 import torch
 
+from ..parallel.runtime import global_sum, replicated_sum
+
 
 def _hermitian(pm, dtype):
-    """Double-count weights of the compressed kz half-space, full
-    shape."""
-    w = torch.full(pm.shape_complex, 2.0, dtype=dtype, device=pm.device)
+    """Double-count weights of the compressed kz half-space on this
+    rank's slab."""
+    w = torch.full(pm.local_shape_complex, 2.0, dtype=dtype,
+                   device=pm.device)
     w[..., 0] = 1.0
     if int(pm.Nmesh[2]) % 2 == 0:
         w[..., -1] = 1.0
@@ -40,10 +47,12 @@ def _shells(pm):
     return idx, _hermitian(pm, n.dtype), nbins, float(kf[0])
 
 
-def _shell_sum(idx, nbins, vals):
-    return torch.zeros(nbins + 1, dtype=vals.dtype,
-                       device=vals.device).index_add_(
+def _shell_sum(idx, nbins, vals, comm=None):
+    """The per-shell sums of ``vals`` over every rank's slab."""
+    out = torch.zeros(nbins + 1, dtype=vals.dtype,
+                      device=vals.device).index_add_(
         0, idx.reshape(-1).long(), vals.reshape(-1))
+    return replicated_sum(out, comm)
 
 
 def binned_power(pm, c):
@@ -51,8 +60,8 @@ def binned_power(pm, c):
     DC dropped): (k, P, nmodes)."""
     idx, w, nbins, kf = _shells(pm)
     p = w * torch.abs(c) ** 2
-    psum = _shell_sum(idx, nbins, p)[1:]
-    nsum = _shell_sum(idx, nbins, w)[1:]
+    psum = _shell_sum(idx, nbins, p, pm.comm)[1:]
+    nsum = _shell_sum(idx, nbins, w, pm.comm)[1:]
     V = float(np.prod(pm.BoxSize))
     k = kf * torch.arange(1, nbins + 1, dtype=p.dtype, device=p.device)
     P = torch.where(nsum > 0, psum / torch.clamp(nsum, min=1) * V, 0.0)
@@ -66,10 +75,10 @@ def cross_correlation(pm, a, b):
     if a.shape != b.shape:
         raise ValueError("cross_correlation needs same-mesh modes")
     idx, w, nbins, kf = _shells(pm)
-    ab = _shell_sum(idx, nbins, w * (a * torch.conj(b)).real)[1:]
-    aa = _shell_sum(idx, nbins, w * torch.abs(a) ** 2)[1:]
-    bb = _shell_sum(idx, nbins, w * torch.abs(b) ** 2)[1:]
-    nsum = _shell_sum(idx, nbins, w)[1:]
+    ab = _shell_sum(idx, nbins, w * (a * torch.conj(b)).real, pm.comm)[1:]
+    aa = _shell_sum(idx, nbins, w * torch.abs(a) ** 2, pm.comm)[1:]
+    bb = _shell_sum(idx, nbins, w * torch.abs(b) ** 2, pm.comm)[1:]
+    nsum = _shell_sum(idx, nbins, w, pm.comm)[1:]
     denom = torch.sqrt(torch.clamp(aa * bb, min=1e-300))
     k = kf * torch.arange(1, nbins + 1, dtype=ab.dtype, device=ab.device)
     r = torch.where(nsum > 0, ab / denom, 0.0)
@@ -87,23 +96,26 @@ def mean_cross_correlation(pm, a, b, kmax=None):
     mask = _hermitian(pm, k2.dtype) * (k2 > 0)
     if kmax is not None:
         mask = mask * (k2 <= float(kmax) ** 2)
-    ab = torch.sum(mask * (a * torch.conj(b)).real)
-    aa = torch.sum(mask * torch.abs(a) ** 2)
-    bb = torch.sum(mask * torch.abs(b) ** 2)
+    ab = global_sum(mask * (a * torch.conj(b)).real, pm.comm)
+    aa = global_sum(mask * torch.abs(a) ** 2, pm.comm)
+    bb = global_sum(mask * torch.abs(b) ** 2, pm.comm)
     return ab / torch.sqrt(torch.clamp(aa * bb, min=1e-300))
 
 
 def make_loss(model, obs, noise_std=0.1):
     """The negative log posterior over the real whitenoise leaf (module
-    docstring); ``obs`` is an observed 1+delta field on ``model.pm``."""
+    docstring); ``obs`` is an observed 1+delta field on ``model.pm``
+    (this rank's slab). The value is the same on every rank."""
     obs = torch.as_tensor(obs, device=model.device).to(
         model.pm.torch_compute_dtype)
     inv = 1.0 / float(noise_std)
+    comm = model.pm.comm
 
     def loss(white):
         d = model.density(model.modes_from_white(white))
         r = (d - obs) * inv
-        return 0.5 * torch.sum(r * r) + 0.5 * torch.sum(white * white)
+        return 0.5 * global_sum(r * r, comm) \
+            + 0.5 * global_sum(white * white, comm)
     return loss
 
 
@@ -133,7 +145,8 @@ def recover(model, obs, steps=30, lr=0.05, noise_std=0.1, white0=None):
     """Adam on the whitenoise leaf against ``obs``: each step one value
     and gradient of the whole LPT + KDK + paint map, then the JAX
     package's hand-written Adam update, in its order. Returns (white,
-    losses)."""
+    losses). With P ranks the leaf and Adam's moments are this rank's
+    slabs (the update is elementwise) and the losses every rank's."""
     loss_fn = make_loss(model, obs, noise_std)
 
     def vg(white):
@@ -163,18 +176,21 @@ def fftrecon_baseline(model, pos, R=20.0, bias=1.0, ran_seed=12345):
     """The classical baseline: FFTRecon (LGS) of the evolved particles
     ``pos``, as linear-field modes on the particle lattice (directly
     cross-correlatable with the truth modes). The randoms are a uniform
-    numpy catalog of the same size from ``ran_seed``."""
+    numpy catalog of the same size from ``ran_seed``. With P ranks
+    ``pos`` is this rank's rows, and the randoms are cut into rows as
+    the JAX package shards them."""
     from ..algorithms.fftrecon import FFTRecon
     from ..source.catalog.array import ArrayCatalog
 
     lat = model.lattice
     box = np.asarray(lat.BoxSize, 'f8')
-    data = ArrayCatalog({'Position': torch.as_tensor(pos).detach()},
-                        device=lat.device, BoxSize=box)
     rng = np.random.RandomState(ran_seed)
     ran_pos = rng.uniform(0.0, 1.0, size=(model.npart, 3)) * box
     ran = ArrayCatalog({'Position': ran_pos.astype('f8')},
-                       device=lat.device, BoxSize=box)
+                       device=lat.device, comm=lat.comm, BoxSize=box)
+    # the evolved particles as this rank's rows of the data
+    data = ran._rows_catalog({'Position': torch.as_tensor(pos).detach()},
+                             {'BoxSize': box})
     recon = FFTRecon(data, ran, Nmesh=int(lat.Nmesh[0]), bias=bias,
                      R=R, BoxSize=box, scheme='LGS',
                      resampler=model.resampler)

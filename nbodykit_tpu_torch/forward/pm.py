@@ -23,7 +23,7 @@ conditions take the growth factors of :class:`GrowthTable`.
 import numpy as np
 import torch
 
-from ..parallel.runtime import require_one_rank
+from ..parallel.runtime import CurrentMesh, global_sum, mesh_size
 from ..pmesh import ParticleMesh
 from .lpt import _k_inv_k2, lpt_init, linear_amplitude, modes_from_white
 from .adjoint import make_paint
@@ -123,12 +123,12 @@ def normalized_amplitude(pm, n=-2.5, delta_rms=1.0):
     (Var[delta(x)] = sum_k P(k)/V over the hermitian-weighted
     compressed modes)."""
     amp = linear_amplitude(pm, power_law(1.0, n))
-    w = torch.full(pm.shape_complex, 2.0, dtype=amp.dtype,
+    w = torch.full(pm.local_shape_complex, 2.0, dtype=amp.dtype,
                    device=amp.device)
     w[..., 0] = 1.0
     if int(pm.Nmesh[2]) % 2 == 0:
         w[..., -1] = 1.0
-    var = torch.sum(w * amp * amp)
+    var = global_sum(w * amp * amp, pm.comm)
     return amp * (delta_rms / torch.sqrt(var))
 
 
@@ -140,14 +140,17 @@ class ForwardModel:
     (default nmesh^3); pm_steps : KDK steps from ``a_start`` to
     ``a_end``; order : 1 (ZA) or 2 (2LPT); linear_power : P(k)
     callable (default a power law of ``spectral_index`` normalized to
-    ``delta_rms``); dtype : mesh dtype; comm : the mesh of ranks
-    (default: the ambient one), one rank only, as the model's branch
-    across ranks is not ported; device : 'cuda' or 'cpu' (default: the
+    ``delta_rms``); dtype : mesh dtype; comm : the mesh of P ranks
+    (default: the ambient one); ng and nmesh must be divisible by P;
+    device : 'cuda' or 'cpu' (default: the comm's device, else the
     ``device`` option, else 'cuda').
 
     The model owns ``lattice`` (ng^3: the linear modes and the
     inference leaf) and ``pm`` (nmesh^3: forces and the painted
-    density).
+    density). With P ranks both are slab meshes on the comm: the modes
+    and the leaf are this rank's slabs, the particles start from this
+    rank's rows of the lattice (its x-slab), and the paints, transforms
+    and readouts run across the ranks, differentiable end to end.
     """
 
     def __init__(self, nmesh, npart=None, BoxSize=1000.0, pm_steps=5,
@@ -162,9 +165,14 @@ class ForwardModel:
                              "lattice needs ng^3" % npart)
         if int(pm_steps) < 1:
             raise ValueError("pm_steps must be >= 1")
+        nproc = mesh_size(CurrentMesh.resolve(comm))
+        for what, n in (('ng (npart = ng^3)', ng), ('nmesh', int(nmesh))):
+            if n % nproc:
+                raise ValueError("ForwardModel across %d ranks needs %s "
+                                 "divisible by the rank count, got %d"
+                                 % (nproc, what, n))
         self.pm = ParticleMesh(nmesh, BoxSize, dtype, device=device,
                                comm=comm)
-        require_one_rank(self.pm.comm, 'ForwardModel')
         self.lattice = self.pm if ng == int(self.pm.Nmesh[0]) \
             else ParticleMesh(ng, BoxSize, dtype, device=self.pm.device,
                               comm=self.pm.comm)
@@ -195,8 +203,9 @@ class ForwardModel:
         return self.lattice.generate_whitenoise(seed) * self.amp
 
     def white_guess(self):
-        """The zero real whitenoise leaf inference starts from."""
-        return torch.zeros(self.lattice.shape_real,
+        """The zero real whitenoise leaf inference starts from (this
+        rank's slab)."""
+        return torch.zeros(self.lattice.local_shape_real,
                            dtype=self.lattice.torch_compute_dtype,
                            device=self.device)
 
@@ -207,16 +216,17 @@ class ForwardModel:
     # -- dynamics ---------------------------------------------------------
 
     def gravity(self, pos):
-        """PM force at ``pos``: paint -> k-space Poisson -> readout x3;
-        (npart, 3) box-unit accelerations."""
+        """PM force at ``pos``: paint -> k-space Poisson -> readout x3
+        (one routing across ranks); (npart, 3) box-unit
+        accelerations."""
         pm = self.pm
         rho = self.paint_fn(pos)
         nbar = self.npart / pm.Ntot
         delta_k = pm.r2c(rho.to(pm.torch_compute_dtype) / nbar - 1.0)
         kv, inv = _k_inv_k2(pm)
-        acc = [pm.readout(
-            pm.c2r(1.5 * self.omega_m * 1j * kv[d] * inv * delta_k),
-            pos, resampler=self.resampler) for d in range(3)]
+        acc = pm.readout_many(
+            [pm.c2r(1.5 * self.omega_m * 1j * kv[d] * inv * delta_k)
+             for d in range(3)], pos, resampler=self.resampler)
         return torch.stack(acc, dim=-1)
 
     def _dkick(self, a0, a1):

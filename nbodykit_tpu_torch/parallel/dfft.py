@@ -44,8 +44,16 @@ def _a2a(y, mesh, split_axis, concat_axis, mode='none'):
     """One transpose collective with the JAX ``all_to_all(tiled=True)``
     semantics: ``y`` cut in P blocks along ``split_axis``, block d to
     rank d, the blocks received concatenated along ``concat_axis`` in
-    source order, in wire format ``mode``."""
+    source order, in wire format ``mode``. Differentiable in mode
+    ``'none'`` (the backward of ``RankMesh.all_to_all`` is the inverse
+    transpose); a compressed wire under autograd raises rather than
+    round the gradient."""
     P = mesh.size
+    if mode != 'none' and torch.is_grad_enabled() and y.requires_grad:
+        raise RuntimeError(
+            "a2a_compress=%r rounds the transposed field; it does not "
+            "run under autograd (set a2a_compress='none' for a "
+            "gradient)" % (mode,))
     if mode == 'none':
         got = mesh.all_to_all(_split_blocks(y, split_axis, P))
         return torch.cat(got.unbind(0), dim=concat_axis)

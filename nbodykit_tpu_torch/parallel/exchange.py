@@ -22,6 +22,10 @@ the ranks so every rank sees the same count.
 The bucket rank is the radix rank pass (``ops/radix_cuda.pass_rank_hist``
 at an alphabet of P, the hand kernel) on a CUDA tensor and a stable
 argsort on the CPU; both give every particle the same slot.
+
+The route is differentiable in its payloads: the bucketing is a
+scatter, the wire ``RankMesh.all_to_all``, whose backward sends each
+cotangent back to the row it came from.
 """
 
 import numpy as np
@@ -141,7 +145,10 @@ def exchange_by_dest(dest, arrays, mesh, capacity=None, fill=0.0):
     npad = per - n
     dest = dest.to(torch.int32)
     live = torch.ones(n, dtype=torch.bool, device=dev)
-    if npad:
+    # under autograd every rank pads, with or without rows to add, so
+    # every rank builds the same graph (runtime's module docstring)
+    if npad or (torch.is_grad_enabled()
+                and any(a.requires_grad for a in arrays)):
         dest = torch.cat([dest, torch.zeros(npad, dtype=dest.dtype,
                                             device=dev)])
         live = torch.cat([live, torch.zeros(npad, dtype=torch.bool,

@@ -17,6 +17,10 @@ is 2), the only collective that runs alike on gloo (host tensors),
 gloo over a CUDA device (staged, see ``RankMesh``) and NCCL. Within the
 rows bound to one rank, the rows for its role as our previous rank come
 first.
+
+Each is the other's adjoint. Under autograd the rows travel through
+``RankMesh.all_to_all``, whose backward is the route back, so the
+backward of one is the other.
 """
 
 import torch

@@ -22,6 +22,16 @@ Conventions
   device copies each payload to the host and back around the call
   (``RankMesh.staged``), an explicit path chosen by the backend. NCCL
   takes CUDA tensors as they are.
+- Autograd runs through ``all_to_all``, a ``torch.autograd.Function``
+  whose backward sends the cotangents back along the same splits; every
+  rank must build the same graph, so the backward collectives run in
+  the same order everywhere. ``all_reduce`` refuses autograd: its
+  backward depends on who consumes the sum. ``replicated_sum`` is the
+  sum for a consumer that every rank runs alike (a loss, a metric),
+  differentiated on every rank with the same cotangent, which counts
+  once: its backward is the identity. A rank-local consumer (a slab
+  scaled by a global mean) would need the cotangents summed over the
+  ranks, which nothing here provides.
 """
 
 import datetime
@@ -84,7 +94,18 @@ class RankMesh(object):
 
     def all_reduce(self, t, op='sum'):
         """The elementwise ``'sum'``, ``'max'`` or ``'min'`` of ``t``
-        over the ranks, as a new tensor on this rank's device."""
+        over the ranks, as a new tensor on this rank's device. Not
+        differentiable (module docstring): a ``t`` that requires grad
+        raises; :func:`replicated_sum` is the sum of a replicated
+        result."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(
+                "RankMesh.all_reduce does not run under autograd: use "
+                "runtime.replicated_sum for a result every rank consumes "
+                "alike, or detach the tensor")
+        return self._all_reduce(t, op)
+
+    def _all_reduce(self, t, op):
         if self.group is None:
             return t.clone()
         x = self._wire(t).clone()
@@ -117,7 +138,13 @@ class RankMesh(object):
         cut in P blocks (equal, or of ``send_splits`` rows) go to the
         ranks in order; the blocks received are concatenated in source
         order (equal, or of ``recv_splits`` rows). Any dtype: the rows
-        travel as raw bytes."""
+        travel as raw bytes. Differentiable: the backward sends the
+        cotangents back along the same splits."""
+        if torch.is_grad_enabled() and send.requires_grad:
+            return _AllToAll.apply(send, self, send_splits, recv_splits)
+        return self._all_to_all(send, send_splits, recv_splits)
+
+    def _all_to_all(self, send, send_splits, recv_splits):
         if self.group is None:
             return send.clone()
         x = self._wire(send)
@@ -137,6 +164,53 @@ class RankMesh(object):
         if send.is_complex():
             out = torch.view_as_complex(out)
         return self._home(out)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``RankMesh.all_to_all`` under autograd: the adjoint of a route is
+    the route back, along the same splits swapped."""
+
+    @staticmethod
+    def forward(ctx, send, mesh, send_splits, recv_splits):
+        ctx.mesh, ctx.splits = mesh, (send_splits, recv_splits)
+        return mesh._all_to_all(send, send_splits, recv_splits)
+
+    @staticmethod
+    def backward(ctx, grad):
+        send_splits, recv_splits = ctx.splits
+        return (ctx.mesh._all_to_all(grad, recv_splits, send_splits), None,
+                None, None)
+
+
+class _ReplicatedSum(torch.autograd.Function):
+    """The sum over the ranks of a replicated result: every rank seeds
+    the same cotangent, so the backward passes it on as it is."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh._all_reduce(t, 'sum')
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def replicated_sum(t, mesh):
+    """The elementwise sum of ``t`` over the ranks, for a consumer that
+    every rank runs alike (a loss, a metric): differentiable with an
+    identity backward (module docstring). mesh None is one rank."""
+    if mesh_size(mesh) == 1:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ReplicatedSum.apply(t, mesh)
+    return mesh.all_reduce(t)
+
+
+def global_sum(t, mesh):
+    """``t.sum()`` over every rank's part of a distributed tensor (this
+    rank's slab or rows), the same 0-d tensor on every rank
+    (:func:`replicated_sum`)."""
+    return replicated_sum(t.sum(), mesh)
 
 
 def init_distributed(init_method=None, num_processes=None, process_id=None,

@@ -584,36 +584,55 @@ class ParticleMesh(object):
     def readout_many(self, reals, pos, resampler=None, grad_axis=None,
                      capacity=None):
         """:meth:`readout` of each real field of the list ``reals`` at
-        the same positions, as a list of values. With P ranks the
-        particles are routed to their slabs' owners once for all the
-        fields, and each particle's values travel back together."""
+        the same positions, as a list of values. ``grad_axis`` is one
+        axis (or None) for every field, or a list of one a field. With
+        P ranks the particles are routed to their slabs' owners once
+        for all the fields (a field listed twice takes one halo
+        exchange), and each particle's values travel back together."""
         resampler = resampler or _global_options['resampler']
+        axes = list(grad_axis) if isinstance(grad_axis, (list, tuple)) \
+            else [grad_axis] * len(reals)
+        if len(axes) != len(reals):
+            raise ValueError("grad_axis lists %d axes for %d fields"
+                             % (len(axes), len(reals)))
         if self.nproc == 1:
             cpos = self._to_cell_units(pos)
             return [readout_local(_widen(real), cpos, resampler=resampler,
                                   period=self.shape_real, origin=0,
-                                  grad_axis=grad_axis) for real in reals]
+                                  grad_axis=ax)
+                    for real, ax in zip(reals, axes)]
         h = window_support(resampler)
         n0 = self._check_halo(h)
         cpos = self._to_cell_units(pos)
         npart = pos.shape[0]
         dest = self._route_dest(cpos)
         lidx = torch.arange(npart, dtype=torch.int64, device=self.device)
-        exts = [halo_fill(_widen(real), h, self.comm) for real in reals]
+        filled = {}
+        for real in reals:
+            if id(real) not in filled:
+                filled[id(real)] = halo_fill(_widen(real), h, self.comm)
+        exts = [filled[id(real)] for real in reals]
         origin = self.rank * n0 - h
 
         def attempt(cap):
             (cpos_r, lidx_r), valid, dropped = exchange_by_dest(
                 dest, [cpos, lidx], self.comm, cap)
-            vals = torch.stack([
-                readout_local(ext, cpos_r, resampler=resampler,
+            # only the particles received are read out; a pad row's
+            # values stay 0 (under autograd, the pads' cotangents would
+            # otherwise all be scattered into one cell)
+            live = torch.nonzero(valid).squeeze(1)
+            cpos_live = cpos_r[live]
+            got = torch.stack([
+                readout_local(ext, cpos_live, resampler=resampler,
                               period=self.shape_real, origin=origin,
-                              grad_axis=grad_axis) for ext in exts], dim=1)
+                              grad_axis=ax)
+                for ext, ax in zip(exts, axes)], dim=1)
+            vals = torch.zeros((valid.shape[0], len(exts)), dtype=got.dtype,
+                               device=self.device).index_copy(0, live, got)
             # back to the source ranks, into their rows' order; a pad
             # row goes back as -1, which its receiver sends to the spare
             # row past its own particles
-            vals = self.comm.all_to_all(
-                torch.where(valid[:, None], vals, 0.0))
+            vals = self.comm.all_to_all(vals)
             lidx_r = self.comm.all_to_all(torch.where(valid, lidx_r, -1))
             lidx_r = torch.where(lidx_r < 0, npart, lidx_r)
             out = torch.zeros((npart + 1, len(exts)), dtype=vals.dtype,
@@ -630,7 +649,9 @@ class ParticleMesh(object):
 def memory_plan(Nmesh, npart, ndevices=1, dtype='f4', resampler='cic',
                 paint_method='scatter', paint_chunk=None,
                 paint_streams=None, hbm_bytes=None, exchange='counted',
-                exchange_imbalance=1.5):
+                exchange_imbalance=1.5, workload='fftpower',
+                pm_steps=None, nbins=None, bspec_method='fft',
+                pairblock_tile=None):
     """Estimated peak bytes a rank of the FFTPower pipeline holds on its
     device (paint -> r2c -> |delta_k|^2 -> binning), the JAX package's
     model of its slab path: per-phase byte estimates, ``peak_bytes``,
@@ -645,6 +666,22 @@ def memory_plan(Nmesh, npart, ndevices=1, dtype='f4', resampler='cic',
     ceil(npart/P). ``dtype='bf16'`` bills the real field and the streams
     paint's replica meshes at 2 bytes a cell and everything that
     computes at f32.
+
+    ``workload='forward'`` prices the differentiable forward model
+    instead: ``pm_steps`` KDK steps, the particle state (positions and
+    momenta) and the three force meshes, and the reverse pass's saved
+    state of every step (linear in ``pm_steps``); the report gains
+    ``workload``, ``pm_steps``, ``forward_state_bytes`` and
+    ``grad_residual_bytes``. ``workload='bispectrum'`` prices the
+    bispectrum of ``nbins`` shells (default 4): ``bspec_method='fft'``
+    as three real fields beside the complex spectrum and the transform
+    workspace (``shell_fields_bytes``), ``'direct'`` as the dense phase
+    blocks of edge ``pairblock_tile`` (default 1024, the tile
+    ``Bispectrum`` resolves to) and the per-mode accumulators
+    (``pairblock_bytes``, ``pairblock_tile``); the report gains
+    ``workload``, ``nbins`` and ``bspec_method``. Both are the JAX
+    package's formulas; the multi-rank FFT bispectrum's held shell
+    fields (``nbins`` real slabs) are not priced.
     """
     from . import DEFAULT_PAINT_STREAMS
     from .ops.paint import ZCHUNK_BYTES
@@ -732,6 +769,48 @@ def memory_plan(Nmesh, npart, ndevices=1, dtype='f4', resampler='cic',
     peak = max(real + pos_b + paint_tmp + exch,
                real + cplx + fft_ws + pos_b,
                cplx + p3 + pos_b)
+    if workload == 'bispectrum':
+        nb = max(int(nbins or 4), 1)
+        if bspec_method == 'direct':
+            # no mesh: the dense (tile, tile) phase blocks (4 tile^2
+            # compute words) and the accumulators of the lattice modes
+            from .ops.pairblock import DEFAULT_TILE
+            if pairblock_tile is None:
+                pairblock_tile = DEFAULT_TILE
+            t = max(int(pairblock_tile), 8)
+            nk = 4.0 * np.pi / 3.0 * float(nb + 1) ** 3
+            pair_b = 4.0 * t * t * citem
+            acc_b = 4.0 * nk * citem
+            peak = pos_b + pair_b + acc_b + exch
+            phases['pairblock_bytes'] = pair_b
+            phases['pairblock_tile'] = t
+        else:
+            # a triangle's three shell-filtered real fields beside the
+            # complex spectrum and the transform workspace
+            shell_b = 3 * real
+            peak = max(real + pos_b + paint_tmp + exch,
+                       cplx + shell_b + fft_ws + pos_b)
+            phases['shell_fields_bytes'] = shell_b
+        phases['workload'] = 'bispectrum'
+        phases['nbins'] = nb
+        phases['bspec_method'] = bspec_method
+    if workload == 'forward':
+        steps = max(int(pm_steps or 1), 1)
+        # the KDK state (positions and momenta) and three force meshes
+        part_state = 6 * citem * npart / ndev
+        force_fields = 3 * real
+        fwd_peak = max(real + part_state + paint_tmp + exch,
+                       real + cplx + fft_ws + part_state,
+                       real + cplx + force_fields + part_state)
+        # the reverse pass keeps each step's state, density and
+        # potential, and a backward step's paint / readout pair adds a
+        # real and a complex field
+        residual = steps * (part_state + 2 * real)
+        peak = fwd_peak + residual + real + cplx
+        phases['workload'] = 'forward'
+        phases['pm_steps'] = steps
+        phases['forward_state_bytes'] = part_state + force_fields
+        phases['grad_residual_bytes'] = residual
     phases['peak_bytes'] = peak
     phases['budget_bytes'] = 0.85 * hbm_bytes
     phases['headroom_bytes'] = 0.85 * hbm_bytes - peak

@@ -1,12 +1,16 @@
 """Rank programs of the multi-rank CPU tests of the torch port.
 
-``run_world(program, nprocs)`` spawns ``nprocs`` processes (the
-``spawn`` start method), joins them into a gloo world through a file in
-a temporary directory (no fixed port, so concurrent test workers do not
-collide), runs ``program(rank)`` on each with one torch thread and the
-port on the CPU, and returns each rank's result. A rank that raises
-fails the whole world: the others are stopped and the traceback is
-raised in the caller.
+``run_world(program, nprocs, args=())`` spawns ``nprocs`` processes
+(the ``spawn`` start method), joins them into a gloo world through a
+file in a temporary directory (no fixed port, so concurrent test
+workers do not collide), runs ``program(rank, *args)`` on each with one
+torch thread and the port on the CPU, and returns each rank's result. A
+rank that raises fails the whole world: the others are stopped and the
+traceback is raised in the caller. Each test file spawns one world of
+its program: ``parallel_cases`` (test_torch_parallel.py),
+``exchange_cases``, ``paint_cases``, ``fftpower_cases``,
+``survey_cases``, ``forward_program`` and ``inference_program`` (the
+test_torch_dist_*.py files).
 
 This module imports only the standard library, numpy, torch and the
 port: a spawned rank imports it, and must not import JAX.
@@ -42,6 +46,8 @@ FFT_SHAPE = (16, 12, 10)
 SMALL_CAPACITY = 16
 PAINT_CASES = (('scatter', 'cic'), ('sort', 'cic'), ('mxu', 'cic'),
                ('mxu', 'tsc'), ('segsum', 'cic'), ('streams', 'cic'))
+# the main path's paints: held to JAX's multi-device paint at every P
+PAINT_AT_P = (('scatter', 'cic'), ('mxu', 'cic'))
 READOUT_WINDOWS = ('cic', 'tsc')
 A2A_MODES = ('bf16', 'int16')
 
@@ -84,9 +90,24 @@ def slab(a, P, r):
     return a[r * n:(r + 1) * n]
 
 
+# -- the tests' views of a world's results (numpy only) -------------------------
+
+def parts(world, key, P):
+    """Each rank's result of case ``key`` at P ranks, in rank order."""
+    return [world[r][key + (P,)] for r in range(P)]
+
+
+def close(got, want, rtol):
+    """``got`` within ``rtol`` of ``want``'s largest absolute value."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
+
+
 # -- the world ----------------------------------------------------------------
 
-def _rank_main(rank, world, init_file, program, q):
+def _rank_main(rank, world, init_file, program, q, args=()):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -101,7 +122,7 @@ def _rank_main(rank, world, init_file, program, q):
         init_distributed(init_method='file://' + init_file,
                          num_processes=world, process_id=rank,
                          backend='gloo', device='cpu', timeout_s=120)
-        out = globals()[program](rank)
+        out = globals()[program](rank, *args)
         q.put((rank, True, out))
     except Exception:
         q.put((rank, False, traceback.format_exc()))
@@ -110,15 +131,15 @@ def _rank_main(rank, world, init_file, program, q):
             dist.destroy_process_group()
 
 
-def run_world(program, nprocs=WORLD, timeout=240):
-    """Each rank's ``program(rank)`` result, in rank order."""
+def run_world(program, nprocs=WORLD, timeout=240, args=()):
+    """Each rank's ``program(rank, *args)`` result, in rank order."""
     import multiprocessing as mp
     ctx = mp.get_context('spawn')
     tmp = tempfile.mkdtemp(prefix='nbk-torch-world-')
     q = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
                          args=(r, nprocs, os.path.join(tmp, 'init'),
-                               program, q))
+                               program, q, tuple(args)))
              for r in range(nprocs)]
     try:
         for p in procs:
@@ -188,7 +209,6 @@ def _refused(P, cat, pm):
     """The names of the calls with no multi-rank branch yet that raise
     NotImplementedError (at P = 1 each runs, so none is tried). Each is
     built on the P-rank mesh of ``cat`` and ``pm``."""
-    from nbodykit_tpu_torch.forward import ForwardModel
     from nbodykit_tpu_torch.lab import (FOF, Bispectrum, HaloCatalog,
                                         KDDensity, Planck15,
                                         PopulatedHaloCatalog)
@@ -199,9 +219,8 @@ def _refused(P, cat, pm):
              'sort': lambda: cat.sort('Index'),
              'save': lambda: cat.save('unused-path'),
              'poisson': lambda: cat.rng.poisson(1.0),
-             'Bispectrum': lambda: Bispectrum(cat, nbins=2, Nmesh=8,
-                                              method='fft'),
-             'ForwardModel': lambda: ForwardModel(8, comm=pm.comm),
+             "Bispectrum(method='direct')": lambda: Bispectrum(
+                 cat, nbins=2, method='direct'),
              'PopulatedHaloCatalog': lambda: PopulatedHaloCatalog(
                  {'Position': np.zeros((8, 3))}, comm=pm.comm),
              'HaloCatalog': lambda: HaloCatalog(cat, Planck15, 0.5)}
@@ -221,25 +240,15 @@ def _np(t):
 
 # -- programs -----------------------------------------------------------------
 
-def parallel_cases(rank):
-    """The substrate: capacities, the exchange, halos, transforms,
-    paints, readouts, draws, gathers."""
+def exchange_cases(rank):
+    """Capacities and the exchange (tests/test_torch_dist_exchange.py)."""
     import torch
-    import nbodykit_tpu_torch
-    from nbodykit_tpu_torch.parallel import dfft
     from nbodykit_tpu_torch.parallel.exchange import (auto_capacity,
                                                       counted_capacity,
                                                       exchange_by_dest)
-    from nbodykit_tpu_torch.parallel.halo import halo_add, halo_fill
     from nbodykit_tpu_torch.pmesh import ParticleMesh
-    from nbodykit_tpu_torch.rng import DistributedRNG
-    from nbodykit_tpu_torch.source.catalog import UniformCatalog
-    from nbodykit_tpu_torch.utils import (GatherArray, ScatterArray,
-                                          get_data_bounds)
     T = torch.as_tensor
     out = {}
-    fin = fft_inputs()
-    field = readout_field()
     for P, mesh in _meshes():
         r = mesh.rank
         for n in NPARTS:
@@ -259,6 +268,69 @@ def parallel_cases(rank):
                 out['exchange', n, cap, P] = dict(
                     pos=_np(rp), mass=_np(rm), valid=_np(valid),
                     dropped=int(dropped))
+    return out
+
+
+def _paint_rows(mesh, P, cases):
+    """The pm, this rank's rows and the paints of ``cases`` (method,
+    window) of them."""
+    import torch
+    import nbodykit_tpu_torch
+    from nbodykit_tpu_torch.pmesh import ParticleMesh
+    d = particles(NPARTS[0])
+    r = mesh.rank
+    pos = torch.as_tensor(rows(d['pos'], P, r))
+    mass = torch.as_tensor(rows(d['mass'], P, r))
+    pm = ParticleMesh(NMESH, BOX, dtype='f8', comm=mesh)
+    out = {}
+    for method, window in cases:
+        with nbodykit_tpu_torch.set_options(paint_method=method):
+            out['paint', method, window, P] = _np(
+                pm.paint(pos, mass, resampler=window))
+    return pm, pos, mass, out
+
+
+def paint_cases(rank):
+    """The main path's paints, the readouts and the capacity retries of
+    both (tests/test_torch_dist_paint.py: the ones held to JAX's
+    multi-device paints)."""
+    import torch
+    out = {}
+    for P, mesh in _meshes():
+        pm, pos, mass, got = _paint_rows(mesh, P, PAINT_AT_P)
+        out.update(got)
+        real = torch.as_tensor(slab(readout_field(), P, mesh.rank))
+        for window in READOUT_WINDOWS:
+            out['readout', window, P] = _np(pm.readout(real, pos,
+                                                       resampler=window))
+        for case, call in (
+                ('paint_retry', lambda: pm.paint(pos, mass, capacity=4)),
+                ('readout_retry',
+                 lambda: pm.readout(real, pos, capacity=4))):
+            with _retries(pm) as seen:
+                out[case, P] = dict(value=_np(call()))
+            out[case, P].update(retries=len(seen),
+                                capacity=seen[-1] if seen else 4)
+    return out
+
+
+def parallel_cases(rank):
+    """The substrate: halos, transforms, paints, readouts, draws,
+    gathers, the collectives' adjoints and the refusals."""
+    import torch
+    import nbodykit_tpu_torch
+    from nbodykit_tpu_torch.parallel import dfft
+    from nbodykit_tpu_torch.parallel.halo import halo_add, halo_fill
+    from nbodykit_tpu_torch.pmesh import ParticleMesh
+    from nbodykit_tpu_torch.rng import DistributedRNG
+    from nbodykit_tpu_torch.source.catalog import UniformCatalog
+    from nbodykit_tpu_torch.utils import (GatherArray, ScatterArray,
+                                          get_data_bounds)
+    T = torch.as_tensor
+    out = {}
+    fin = fft_inputs()
+    for P, mesh in _meshes():
+        r = mesh.rank
         for h in HALO_WIDTHS:
             ext, interior = halo_blocks(P, h)
             out['halo_add', h, P] = _np(halo_add(T(slab(ext, P, r)), h,
@@ -275,18 +347,10 @@ def parallel_cases(rank):
         for mode in A2A_MODES:
             with nbodykit_tpu_torch.set_options(a2a_compress=mode):
                 out['rfftn', mode, P] = _np(dfft.dist_rfftn(x, mesh))
-        d = particles(NPARTS[0])
-        pos, mass = T(rows(d['pos'], P, r)), T(rows(d['mass'], P, r))
-        pm = ParticleMesh(NMESH, BOX, dtype='f8', comm=mesh)
-        for method, window in PAINT_CASES:
-            with nbodykit_tpu_torch.set_options(paint_method=method):
-                out['paint', method, window, P] = _np(
-                    pm.paint(pos, mass, resampler=window))
-        real = T(slab(field, P, r))
-        for window in READOUT_WINDOWS:
-            out['readout', window, P] = _np(pm.readout(real, pos,
-                                                       resampler=window))
+        pm, _, _, got = _paint_rows(mesh, P, PAINT_CASES)
+        out.update(got)
         # rows split unevenly over the ranks, and two fields read at once
+        real = T(slab(readout_field(), P, r))
         uneven = T(rows(particles(NPARTS[1])['pos'], P, r))
         out['readout_uneven', P] = _np(pm.readout(real, uneven,
                                                   resampler='cic'))
@@ -294,14 +358,7 @@ def parallel_cases(rank):
             [real, 2 * real], uneven, resampler='tsc')]
         out['readout_one', P] = _np(pm.readout(2 * real, uneven,
                                                resampler='tsc'))
-        for case, call in (
-                ('paint_retry', lambda: pm.paint(pos, mass, capacity=4)),
-                ('readout_retry', lambda: pm.readout(real, pos,
-                                                     capacity=4))):
-            with _retries(pm) as seen:
-                out[case, P] = dict(value=_np(call()))
-            out[case, P].update(retries=len(seen),
-                                capacity=seen[-1] if seen else 4)
+        d = particles(NPARTS[0])
         out['whitenoise', P] = _np(pm.generate_whitenoise(7))
         # a seed drawn for seed=None: each rank's numpy state differs
         from nbodykit_tpu_torch.lab import LinearMesh
@@ -317,6 +374,7 @@ def parallel_cases(rank):
         out['gslice', P] = dict(Position=_np(sl['Position']),
                                 csize=sl.csize)
         out['refused', P] = _refused(P, cat, pm)
+        out['forward_refuses', P] = _forward_refusals(mesh)
         rng = DistributedRNG(11, 1001, comm=mesh)
         out['drng', P] = dict(uniform=_np(rng.uniform(itemshape=(3,))),
                               normal=_np(rng.normal(dtype='f4')),
@@ -328,6 +386,258 @@ def parallel_cases(rank):
         out['gather', P] = GatherArray(mine, mesh, root=0)
         lo, hi = get_data_bounds(mine, comm=mesh)
         out['bounds', P] = (lo, hi)
+        out.update(adjoint_cases(mesh, P))
+    return out
+
+
+# -- the collectives' adjoints, the FFT bispectrum, the forward model --------
+
+def _dot(a, b, mesh):
+    """The real inner product of two distributed tensors, summed over
+    the ranks."""
+    import torch
+    from nbodykit_tpu_torch.parallel.runtime import global_sum
+    a, b = a.detach(), b.detach()
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return float(global_sum(a * b, mesh))
+
+
+def _adjoint(fn, x, mesh, seed):
+    """(<A x, y>, <x, A^T y>) for the linear map ``fn`` at this rank's
+    ``x``, A^T y the autograd backward of a seeded ``y``."""
+    import torch
+    x = x.detach().clone().requires_grad_(True)
+    ax = fn(x)
+    rs = np.random.RandomState(seed + 100 * mesh.rank)
+    yn = rs.standard_normal(tuple(ax.shape) + ((2,) if ax.is_complex()
+                                               else ()))
+    y = torch.as_tensor(yn, dtype=torch.float64)
+    if ax.is_complex():
+        y = torch.view_as_complex(y)
+    y = y.to(ax.dtype)
+    aty, = torch.autograd.grad(ax, x, grad_outputs=y)
+    return _dot(ax, y, mesh), _dot(x, aty, mesh)
+
+
+def adjoint_cases(mesh, P):
+    """Each collective's backward against the dot-product identity
+    <A x, y> = <x, A^T y>: both transposes (real and complex), a route
+    of the exchange, halo_add and halo_fill, and the loss sum (every
+    rank's gradient of a replicated sum is 1 once); the compressed
+    wire refusing autograd, and ``all_reduce`` refusing it where the
+    sum feeds a rank-local product (its backward would have to sum the
+    ranks' cotangents, which replicated_sum's identity does not)."""
+    import torch
+    import nbodykit_tpu_torch
+    from nbodykit_tpu_torch.parallel import dfft
+    from nbodykit_tpu_torch.parallel.exchange import exchange_by_dest
+    from nbodykit_tpu_torch.parallel.halo import halo_add, halo_fill
+    from nbodykit_tpu_torch.parallel.runtime import global_sum
+    T = torch.as_tensor
+    r = mesh.rank
+    out = {}
+    fin = fft_inputs()
+    for kind in ('real', 'cplx'):
+        x = T(slab(fin[kind], P, r))
+        out['adjoint', 'transpose_%s' % kind, P] = _adjoint(
+            lambda v: dfft._a2a(v, mesh, 1, 0), x, mesh, 1)
+        # the inverse transpose takes the (N0, N1/P, nz) layout
+        y = dfft.dist_fftn_c2c(T(slab(fin['cplx'], P, r)), mesh).permute(
+            1, 0, 2).contiguous()
+        out['adjoint', 'inverse_transpose_%s' % kind, P] = _adjoint(
+            lambda v: dfft._a2a(v, mesh, 0, 1),
+            y.real if kind == 'real' else y, mesh, 2)
+    d = particles(NPARTS[1])
+    dest = T(rows(d['dest'] % P, P, r))
+    out['adjoint', 'route', P] = _adjoint(
+        lambda v: exchange_by_dest(dest, [v], mesh)[0][0],
+        T(rows(d['pos'], P, r)), mesh, 3)
+    for h in HALO_WIDTHS:
+        ext, interior = halo_blocks(P, h)
+        out['adjoint', 'halo_add_%d' % h, P] = _adjoint(
+            lambda v: halo_add(v, h, mesh), T(slab(ext, P, r)), mesh, 4)
+        out['adjoint', 'halo_fill_%d' % h, P] = _adjoint(
+            lambda v: halo_fill(v, h, mesh), T(slab(interior, P, r)),
+            mesh, 5)
+    x = T(rows(d['mass'], P, r)).requires_grad_(True)
+    total = global_sum(x * x, mesh)
+    g, = torch.autograd.grad(total, x)
+    out['adjoint', 'loss_sum', P] = (float(total.detach()),
+                                     _dot(x, g, mesh) / 2)
+    x = T(slab(fin['real'], P, r)).requires_grad_(True)
+    with nbodykit_tpu_torch.set_options(a2a_compress='bf16'):
+        try:
+            dfft.dist_rfftn(x, mesh)
+            refused = P == 1
+        except RuntimeError:
+            refused = True
+    out['compressed_grad_refused', P] = refused
+    x = T(slab(fin['real'], P, r)).requires_grad_(True)
+    try:
+        mesh.all_reduce(x.sum()) * x
+        refused = False
+    except RuntimeError:
+        refused = True
+    out['local_consumer_refused', P] = refused
+    return out
+
+
+# the FFT bispectrum on a catalog's f8 CIC mesh at BS_NMESH
+BS_NMESH = 16
+BS_NBINS = (2, 4)
+
+
+def bispectrum_catalog_columns():
+    return {'Position': particles(NPARTS[0])['pos']}
+
+
+def bispectrum_cases(mesh, P):
+    """Bispectrum(method='fft') at BS_NBINS on this rank's rows: B,
+    ntri and attrs, the same on every rank."""
+    from nbodykit_tpu_torch.lab import ArrayCatalog, Bispectrum
+    cat = ArrayCatalog(bispectrum_catalog_columns(), BoxSize=BOX,
+                       comm=mesh)
+    out = {}
+    for nbins in BS_NBINS:
+        b = Bispectrum(cat.to_mesh(Nmesh=BS_NMESH, dtype='f8'), nbins=nbins,
+                       method='fft')
+        out['bispectrum', nbins, P] = dict(
+            B=np.asarray(b.B['B']), ntri=np.asarray(b.B['ntri']),
+            k1=np.asarray(b.B['k1']), attrs=dict(b.attrs))
+    return out
+
+
+# the forward model: ForwardModel(FW_NMESH, FW_NPART, BoxSize=FW_BOX, f8)
+# at each (pm_steps, order) of FW_CONFIGS, on the JAX model's truth
+# modes and a seeded white leaf and observation
+FW_NMESH, FW_NPART, FW_BOX = 16, 512, 100.0
+FW_NG = 8
+FW_CONFIGS = ((1, 1), (1, 2), (2, 1), (2, 2))
+FW_NOISE = 0.5
+FD_EPS = 1e-6
+RECOVER_STEPS, RECOVER_LR = 2, 0.05
+MODES_SEED = 3
+
+
+def forward_inputs(seed=13):
+    """The white leaf, the observed 1 + delta, a unit direction for the
+    central differences and a second observation of the linear start's
+    8^3 model."""
+    rs = np.random.RandomState(seed)
+    d = rs.standard_normal((FW_NG,) * 3)
+    return {'white': 0.3 * rs.standard_normal((FW_NG,) * 3),
+            'obs': 1.0 + 0.1 * rs.standard_normal((FW_NMESH,) * 3),
+            'direction': d / np.sqrt((d * d).sum()),
+            'obs8': 1.0 + 0.1 * rs.standard_normal((FW_NG,) * 3)}
+
+
+def forward_model(lab, steps, order, comm=None, nmesh=FW_NMESH, **kw):
+    """The test configuration of either package's ForwardModel."""
+    return lab(nmesh, FW_NPART, BoxSize=FW_BOX, pm_steps=steps, order=order,
+               dtype='f8', comm=comm, **kw)
+
+
+def forward_cases(mesh, P, modes_np):
+    """Per config: the density of the truth modes, the loss's value and
+    gradient at the white leaf; at (2, 2) the central differences along
+    a direction; at (1, 2) two Adam steps of recover. Fields and
+    gradients are this rank's slabs, the rest the same on every rank."""
+    import torch
+    from nbodykit_tpu_torch import convert
+    from nbodykit_tpu_torch import forward as F
+    from nbodykit_tpu_torch.parallel.runtime import global_sum
+    T = torch.as_tensor
+    inp = forward_inputs()
+    out = {}
+    for steps, order in FW_CONFIGS:
+        m = forward_model(F.ForwardModel, steps, order, mesh)
+        modes = convert.modes_from_numpy(modes_np, m)
+        with torch.no_grad():
+            dens = m.density(modes)
+        obs = T(slab(inp['obs'], P, mesh.rank))
+        loss = F.make_loss(m, obs, noise_std=FW_NOISE)
+        w = convert.white_from_numpy(inp['white'], m).requires_grad_(True)
+        val = loss(w)
+        g, = torch.autograd.grad(val, w)
+        rec = dict(density=_np(dens), value=float(val), grad=_np(g))
+        if (steps, order) == (2, 2):
+            d = convert.white_from_numpy(inp['direction'], m)
+            with torch.no_grad():
+                hi = float(loss(w.detach() + FD_EPS * d))
+                lo = float(loss(w.detach() - FD_EPS * d))
+            rec['fd'] = (hi - lo) / (2 * FD_EPS)
+            rec['grad_dot'] = float(global_sum(g * d, mesh))
+        if (steps, order) == (1, 2):
+            wr, losses = F.recover(m, obs, steps=RECOVER_STEPS,
+                                   lr=RECOVER_LR, noise_std=FW_NOISE)
+            rec['recover'] = dict(white=_np(wr), losses=losses)
+        out['forward', steps, order, P] = rec
+    return out
+
+
+def inference_cases(mesh, P, modes_np):
+    """The inference metrics of the (1, 2) model on the truth modes and
+    the white leaf's, its FFTRecon baseline, and the linear start on an
+    8^3 model."""
+    import torch
+    from nbodykit_tpu_torch import convert
+    from nbodykit_tpu_torch import forward as F
+    T = torch.as_tensor
+    inp = forward_inputs()
+    m = forward_model(F.ForwardModel, 1, 2, mesh)
+    modes = convert.modes_from_numpy(modes_np, m)
+    lat = m.lattice
+    with torch.no_grad():
+        b = m.modes_from_white(convert.white_from_numpy(inp['white'], m))
+        rec = dict(
+            binned_power=[_np(v) for v in F.binned_power(lat, modes)],
+            cross_correlation=[_np(v) for v in F.cross_correlation(
+                lat, modes, b)],
+            mean_cross_correlation=[float(F.mean_cross_correlation(
+                lat, modes, b, kmax)) for kmax in (None, 0.2)])
+        pos, _ = m.evolve(modes)
+        rec['baseline'] = _np(F.fftrecon_baseline(m, pos))
+    m8 = forward_model(F.ForwardModel, 1, 2, mesh, nmesh=FW_NG)
+    rec['linear_init'] = _np(F.linear_init(
+        m8, T(slab(inp['obs8'], P, mesh.rank))))
+    return {('inference', P): rec}
+
+
+def _forward_refusals(mesh):
+    """Whether ForwardModel refuses, with a ValueError naming the rule,
+    an ng (3 at npart 27) and an nmesh (6) not divisible by the rank
+    count (the nmesh one only where 6 is not divisible)."""
+    from nbodykit_tpu_torch.forward import ForwardModel
+    refused = []
+    for nmesh, npart in ((FW_NMESH, 3 ** 3), (6, 4 ** 3)):
+        try:
+            ForwardModel(nmesh, npart, comm=mesh, dtype='f8')
+        except ValueError as e:
+            refused.append('divisible by the rank count' in str(e))
+    return refused
+
+
+def forward_program(rank, modes_path):
+    """The forward model's value, gradient and Adam steps across ranks
+    (tests/test_torch_dist_forward.py); the JAX model's truth modes at
+    ``modes_path`` (an .npy file)."""
+    out = {}
+    modes = np.load(modes_path)
+    for P, mesh in _meshes():
+        out.update(forward_cases(mesh, P, modes))
+    return out
+
+
+def inference_program(rank, modes_path):
+    """The FFT bispectrum, the inference metrics, the FFTRecon baseline
+    and the linear start across ranks
+    (tests/test_torch_dist_inference.py)."""
+    out = {}
+    modes = np.load(modes_path)
+    for P, mesh in _meshes():
+        out.update(bispectrum_cases(mesh, P))
+        out.update(inference_cases(mesh, P, modes))
     return out
 
 
@@ -384,8 +694,8 @@ def fft_case(lab, cat, case, mesh_kw=None):
 
 
 def fftpower_cases(rank):
-    """The FFT algorithms, then the mesh algorithms and sources
-    (SV_CASES), across ranks: every rank's result at each rank count."""
+    """The FFT algorithms across ranks: every rank's result at each rank
+    count (tests/test_torch_dist_fftpower.py)."""
     import nbodykit_tpu_torch
     from nbodykit_tpu_torch.lab import (FFTCorr, FFTPower,
                                         ProjectedFFTPower, UniformCatalog)
@@ -393,12 +703,20 @@ def fftpower_cases(rank):
                FFTPower=FFTPower, FFTCorr=FFTCorr,
                ProjectedFFTPower=ProjectedFFTPower)
     out = {}
-    survey_lab = port_lab()
     for P, mesh in _meshes():
         cat = UniformCatalog(nbar=CAT_NBAR, BoxSize=CAT_BOX, seed=42,
                              comm=mesh)
         for case in FFT_CASES:
             out[case, P] = fft_case(lab, cat, case)
+    return out
+
+
+def survey_cases(rank):
+    """The mesh algorithms and sources of SV_CASES across ranks
+    (tests/test_torch_dist_survey.py)."""
+    out = {}
+    survey_lab = port_lab()
+    for P, mesh in _meshes():
         for case in SV_CASES:
             t0 = time.perf_counter()
             out[case, P] = survey_case(survey_lab, case, mesh)
@@ -407,7 +725,7 @@ def fftpower_cases(rank):
 
 
 # the mesh algorithms and mesh sources on the slab path
-# (test_torch_dist_fftpower.py): surveys through ConvolvedFFTPower, BAO
+# (test_torch_dist_survey.py): surveys through ConvolvedFFTPower, BAO
 # reconstruction, n(z), ArrayMesh, LinearMesh and the species mesh
 SV_NMESH = 16
 SV_BOX = 200.0
@@ -557,3 +875,4 @@ def port_lab():
     out = {n: getattr(lab, n) for n in names}
     out['as_numpy'] = as_numpy
     return out
+

@@ -17,6 +17,7 @@ import nbodykit_tpu.cosmology as jcosmo
 from nbodykit_tpu_torch import _build
 from nbodykit_tpu_torch.cosmology import boltzmann as TB
 import nbodykit_tpu_torch.cosmology as tcosmo
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-10
 SETS = ['Planck13', 'Planck15', 'WMAP5', 'WMAP7', 'WMAP9']

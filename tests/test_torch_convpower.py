@@ -30,6 +30,7 @@ from nbodykit_tpu_torch.algorithms.convpower import (ConvolvedFFTPower,
 from nbodykit_tpu_torch.lab import (ArrayCatalog, MultipleSpeciesCatalog,
                                     MultipleSpeciesCatalogMesh)
 from nbodykit_tpu_torch.utils import JSONEncoder
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NBAR = 2000 / 300.0 ** 3
 

@@ -11,6 +11,7 @@ import torch
 import jax.numpy as jnp
 import nbodykit_tpu.cosmology as J
 import nbodykit_tpu_torch.cosmology as T
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-10
 SETS = ['Planck13', 'Planck15', 'WMAP5', 'WMAP7', 'WMAP9']

@@ -13,6 +13,7 @@ import nbodykit_tpu.cosmology as J
 from nbodykit_tpu.ops import fftlog as jfftlog
 import nbodykit_tpu_torch.cosmology as T
 from nbodykit_tpu_torch.ops import fftlog as tfftlog
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-10
 

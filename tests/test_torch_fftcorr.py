@@ -19,6 +19,7 @@ from nbodykit_tpu_torch.algorithms import FFTCorr, ProjectedFFTPower
 from nbodykit_tpu_torch.algorithms.fftpower import _find_unique_edges
 from nbodykit_tpu_torch.convert import catalog_from_numpy
 from nbodykit_tpu_torch.pmesh import ParticleMesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BOX = 200.0
 

@@ -22,6 +22,7 @@ from nbodykit_tpu_torch.algorithms.fftpower import FFTPower, \
     project_to_basis
 from nbodykit_tpu_torch.convert import catalog_from_numpy, field_from_numpy
 from nbodykit_tpu_torch.source.catalog import UniformCatalog
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BOX = 200.0
 

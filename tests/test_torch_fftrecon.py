@@ -20,6 +20,7 @@ from nbodykit_tpu_torch import meshtools as tmt
 from nbodykit_tpu_torch.base.mesh import MeshFilter
 from nbodykit_tpu_torch.lab import (ArrayCatalog, ArrayMesh, FFTPower,
                                     FFTRecon, Gaussian, TopHat)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BOX, NMESH = 200.0, 32
 

@@ -25,6 +25,7 @@ from nbodykit_tpu_torch.io.fits import write_bintable
 from nbodykit_tpu_torch.source.catalog import file as tfile
 from nbodykit_tpu_torch.source.catalog.array import ArrayCatalog
 from nbodykit_tpu_torch.source.catalog.subvolumes import SubVolumesCatalog
+from _torch_threads import one_torch_thread  # noqa: F401
 
 h5py = pytest.importorskip('h5py')
 pytest.importorskip('pandas')

@@ -18,6 +18,7 @@ from nbodykit_tpu_torch.cosmology import Planck15
 from nbodykit_tpu_torch.lab import (ArrayCatalog, HaloCatalog, HODModel,
                                     HODModelFactory, PopulatedHaloCatalog,
                                     Zheng07Model)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BOX = 250.0
 

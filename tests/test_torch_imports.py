@@ -413,12 +413,10 @@ JAX_ONLY_PARAMETERS = {
 # with its reason.
 PARAMETER_OMISSIONS = {
     'nbodykit_tpu.pmesh.memory_plan': (
-        ('fft_decomp', 'fft_pencil', 'ingest_chunk_rows', 'catalog_bytes',
-         'workload', 'pm_steps', 'nbins', 'bspec_method',
-         'pairblock_tile'),
-        'memory_plan prices the FFTPower workload on the slab path only '
-        '(ROADMAP Queue C: the forward-model, bispectrum, pencil and '
-        'ingest workloads)'),
+        ('fft_decomp', 'fft_pencil', 'ingest_chunk_rows', 'catalog_bytes'),
+        'memory_plan prices the slab path only: the pencil decomposition '
+        'and the ingest workload come with their slices (ROADMAP Queue A '
+        'items 1.3 and 2)'),
 }
 
 
@@ -550,8 +548,8 @@ def test_containers_take_their_inputs_comm():
 def test_constructors_take_comm_and_refuse_ranks():
     """Each constructor and function that the JAX package gives a
     ``comm`` takes one; those whose branch across ranks is not ported
-    refuse a 2-rank mesh, and LinearMesh and FieldMesh of a Field run
-    on it."""
+    refuse a 2-rank mesh, and LinearMesh, FieldMesh of a Field and
+    ForwardModel run on it."""
     from nbodykit_tpu_torch import io, set_options
     from nbodykit_tpu_torch.algorithms.bispectrum import direct_bispectrum
     from nbodykit_tpu_torch.base.mesh import Field, FieldMesh
@@ -569,7 +567,6 @@ def test_constructors_take_comm_and_refuse_ranks():
         'BigFileMesh': lambda: BigFileMesh('no-such-dir', comm=comm),
         'FieldMesh': lambda: FieldMesh(torch.zeros((4, 4, 4)),
                                        BoxSize=1.0, comm=comm),
-        'ForwardModel': lambda: ForwardModel(4, comm=comm),
         'direct_bispectrum': lambda: direct_bispectrum(
             pos, np.ones(5), 10.0, 2, comm=comm),
         'pairblock_sum': lambda: pairblock_sum(
@@ -594,6 +591,9 @@ def test_constructors_take_comm_and_refuse_ranks():
         pm = ParticleMesh(4, 1.0, comm=comm)
         fm = FieldMesh(Field(pm.create(), pm))
         assert fm.comm is comm
+        model = ForwardModel(4, comm=comm)
+        assert model.pm.comm is comm and model.lattice is model.pm
+        assert tuple(model.white_guess().shape) == (2, 4, 4)
         # at one rank each takes comm=None
         assert LinearMesh(plin, 100.0, 8, seed=1, comm=None).comm is None
         B, _ = direct_bispectrum(pos, np.ones(5), 10.0, 2, comm=None)

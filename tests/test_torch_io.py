@@ -37,6 +37,7 @@ from nbodykit_tpu_torch.source.catalog.file import BigFileCatalog
 from nbodykit_tpu_torch.source.catalog.uniform import UniformCatalog
 from nbodykit_tpu_torch.source.mesh.bigfile import BigFileMesh
 from nbodykit_tpu_torch.source.mesh.linear import LinearMesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

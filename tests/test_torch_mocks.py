@@ -39,6 +39,7 @@ from nbodykit_tpu_torch.algorithms.fftpower import FFTPower
 from nbodykit_tpu_torch.pmesh import ParticleMesh
 from nbodykit_tpu_torch.source.catalog import LogNormalCatalog
 from nbodykit_tpu_torch.source.mesh import ArrayMesh, LinearMesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BOX, NMESH, NBAR, SEED = 500.0, 32, 3e-5, 42
 SHAPE = (16, 12, 10)

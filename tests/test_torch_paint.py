@@ -17,6 +17,7 @@ from nbodykit_tpu.ops import paint as jpaint
 from nbodykit_tpu.ops.paint_pallas import deposit_blocks_pallas
 from nbodykit_tpu_torch.ops import paint as tpaint
 from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_plain
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-12
 

@@ -1,15 +1,20 @@
-"""The rank substrate of the torch port against the JAX package: counted
-capacities, the exchange, halos, the slab FFT (and its compressed wire
-formats), paints and readouts across ranks, the per-rank draws, and the
-gather and scatter of arrays.
+"""The rank substrate of the torch port against the JAX package: halos,
+the slab FFT (and its compressed wire formats), paints and readouts
+across ranks, the per-rank draws, the gather and scatter of arrays, the
+memory plan, each collective's backward under autograd, and the calls
+that refuse ranks.
 
-One world of 4 gloo CPU ranks (``tests/_torch_ranks.py``) answers every
-case on ``cpu_mesh(1)``, ``cpu_mesh(2)`` and ``cpu_mesh(4)``; each
-rank's part is held against the same rows of the JAX function's result
-on ``cpu_mesh(P)`` of this process's 8 virtual devices. Bars: integers,
-capacities, exchange buffers and halos bit for bit; transforms f8 within
-1e-10 relative; paints and readouts within 1e-12 of the field's largest
-value; draws bit for bit.
+One world of 4 gloo CPU ranks (``tests/_torch_ranks.py``
+``parallel_cases``) answers every case on ``cpu_mesh(1)``,
+``cpu_mesh(2)`` and ``cpu_mesh(4)``; each rank's part is held against
+the same rows of the JAX function's result on ``cpu_mesh(P)`` of this
+process's 8 virtual devices. Bars: halos bit for bit; transforms f8
+within 1e-10 relative; paints and readouts within 1e-12 of the field's
+largest value; draws bit for bit; the adjoints' dot products within
+1e-12. The capacities and the exchange, and the paints and readouts
+held to JAX's multi-device ones, are in test_torch_dist_exchange.py and
+test_torch_dist_paint.py (files of few tests, which the test runner's
+file scheduling starts after the long JAX files).
 """
 
 import functools
@@ -22,9 +27,6 @@ import torch
 import _torch_ranks as R
 import nbodykit_tpu
 from nbodykit_tpu.parallel import dfft as jdfft
-from nbodykit_tpu.parallel.exchange import auto_capacity as j_auto
-from nbodykit_tpu.parallel.exchange import counted_capacity as j_counted
-from nbodykit_tpu.parallel.exchange import exchange_by_dest as j_exchange
 from nbodykit_tpu.parallel.halo import halo_add as j_halo_add
 from nbodykit_tpu.parallel.halo import halo_fill as j_halo_fill
 from nbodykit_tpu.parallel.runtime import AXIS, cpu_mesh
@@ -34,18 +36,15 @@ from nbodykit_tpu.rng import DistributedRNG as JaxRNG
 from nbodykit_tpu.source.catalog.uniform import UniformCatalog as JaxUniform
 from nbodykit_tpu.utils import as_numpy
 from nbodykit_tpu_torch.pmesh import memory_plan
+from _torch_threads import one_torch_thread  # noqa: F401
 
 Ps = R.RANK_COUNTS
+parts, close = R.parts, R.close
 
 
 @pytest.fixture(scope='module')
 def world():
     return R.run_world('parallel_cases')
-
-
-def parts(world, key, P):
-    """Each rank's result of case ``key`` at P ranks, in rank order."""
-    return [world[r][key + (P,)] for r in range(P)]
 
 
 def rank_rows(a, P):
@@ -54,61 +53,6 @@ def rank_rows(a, P):
 
 def rank_slabs(a, P):
     return [R.slab(a, P, r) for r in range(P)]
-
-
-def close(got, want, rtol):
-    got, want = np.asarray(got), np.asarray(want)
-    assert got.shape == want.shape, (got.shape, want.shape)
-    scale = np.abs(want).max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * scale)
-
-
-# -- capacities and the exchange ----------------------------------------------
-
-@pytest.mark.parametrize('P', Ps)
-@pytest.mark.parametrize('n', R.NPARTS)
-def test_capacities_equal_jax(world, n, P):
-    d = R.particles(n)
-    dest = jnp.asarray(d['dest'] % P)
-    want = j_auto(dest, P) if P > 1 else None
-    cells = jnp.asarray(d['pos'] * (R.NMESH / R.BOX))
-    counted = j_counted(P, cells, n0=R.NMESH // P)
-    jpm = JaxPM(R.NMESH, R.BOX, dtype='f8', comm=cpu_mesh(P))
-    shifted = {s: jpm.exchange_capacity(jnp.asarray(d['pos']), shift=s)
-               for s in (0.0, 0.5)}
-    for r in range(P):
-        if P > 1:
-            assert world[r]['auto_capacity', n, P] == want
-        assert world[r]['counted_capacity', n, P] == counted
-        for s, cap in shifted.items():
-            assert world[r]['exchange_capacity', n, s, P] == cap
-
-
-@functools.lru_cache(maxsize=None)
-def jax_exchange(n, cap, P):
-    d = R.particles(n)
-    recv, valid, dropped = j_exchange(
-        jnp.asarray(d['dest'] % P), [jnp.asarray(d['pos']),
-                                     jnp.asarray(d['mass'])],
-        cpu_mesh(P), cap)
-    return ([np.asarray(a) for a in recv], np.asarray(valid),
-            int(dropped))
-
-
-@pytest.mark.parametrize('P', Ps)
-@pytest.mark.parametrize('n,cap', [(R.NPARTS[0], None), (R.NPARTS[1], None),
-                                   (R.NPARTS[1], R.SMALL_CAPACITY)])
-def test_exchange_equals_jax_bit_for_bit(world, n, cap, P):
-    (pos, mass), valid, dropped = jax_exchange(n, cap, P)
-    got = parts(world, ('exchange', n, cap), P)
-    if cap is not None and P > 1:
-        assert dropped > 0
-    for r, g in enumerate(got):
-        block = slice(r * len(g['valid']), (r + 1) * len(g['valid']))
-        np.testing.assert_array_equal(g['valid'], valid[block])
-        np.testing.assert_array_equal(g['pos'], pos[block])
-        np.testing.assert_array_equal(g['mass'], mass[block])
-        assert g['dropped'] == dropped
 
 
 # -- halos ------------------------------------------------------------------
@@ -196,18 +140,18 @@ def jax_paint(method, window, P, capacity=None):
                                    resampler=window, capacity=capacity))
 
 
-# the main path's paints are held against JAX at every rank count; the
-# others against JAX's one-device paint and, through
-# test_paint_rank_count_invariance, against the port's one-rank paint
-# (a JAX multi-device paint compiles for 13-35 s on this CPU)
-PAINT_AT_P = (('scatter', 'cic'), ('mxu', 'cic'))
+# the main path's paints (R.PAINT_AT_P) are held against JAX at every rank
+# count (at P = 2 and 4 in test_torch_dist_paint.py); the others against
+# JAX's one-device paint and, through test_paint_rank_count_invariance,
+# against the port's one-rank paint (a JAX multi-device paint compiles for
+# 13-35 s on this CPU)
+ONE_DEVICE_PAINTS = [(m, w, P) for P in Ps for m, w in R.PAINT_CASES
+                     if P == 1 or (m, w) not in R.PAINT_AT_P]
 
 
-@pytest.mark.parametrize('P', Ps)
-@pytest.mark.parametrize('method,window', R.PAINT_CASES)
+@pytest.mark.parametrize('method,window,P', ONE_DEVICE_PAINTS)
 def test_paint_equals_jax(world, method, window, P):
-    jp = P if (method, window) in PAINT_AT_P else 1
-    want = jax_paint(method, window, jp)
+    want = jax_paint(method, window, 1)
     got = np.concatenate(parts(world, ('paint', method, window), P))
     close(got, want, 1e-12)
 
@@ -221,40 +165,6 @@ def test_paint_rank_count_invariance(world, method, window):
         np.testing.assert_allclose(got, one, rtol=1e-10, atol=1e-12)
     assert np.isclose(one.sum(), R.particles(R.NPARTS[0])['mass'].sum(),
                       rtol=1e-12)
-
-
-@pytest.mark.parametrize('P', Ps)
-@pytest.mark.parametrize('case', ['paint_retry', 'readout_retry'])
-def test_capacity_retry(world, case, P):
-    """An explicit capacity too small for the exchange is doubled until
-    nothing drops, as in the JAX package, and ends at the field (the
-    values) of the exact capacity."""
-    got = parts(world, (case,), P)
-    if case == 'paint_retry':
-        want = jax_paint('scatter', 'cic', P)
-    else:
-        want = jax_readout('cic', P)
-    close(np.concatenate([g['value'] for g in got]), want, 1e-12)
-    # capacity 4, doubled until no particle drops
-    for g in got:
-        assert g['retries'] == (0 if P == 1 else
-                                int(np.log2(g['capacity'] // 4))), g
-
-
-@functools.lru_cache(maxsize=None)
-def jax_readout(window, P):
-    d = R.particles(R.NPARTS[0])
-    pm = JaxPM(R.NMESH, R.BOX, dtype='f8', comm=cpu_mesh(P))
-    return np.asarray(pm.readout(jnp.asarray(R.readout_field()),
-                                 jnp.asarray(d['pos']), resampler=window))
-
-
-@pytest.mark.parametrize('P', Ps)
-@pytest.mark.parametrize('window', R.READOUT_WINDOWS)
-def test_readout_equals_jax(world, window, P):
-    want = jax_readout(window, P if window == 'cic' else 1)
-    got = np.concatenate(parts(world, ('readout', window), P))
-    close(got, want, 1e-12)
 
 
 @pytest.mark.parametrize('P', Ps)
@@ -347,10 +257,11 @@ def test_distributed_rng_rows(world, P):
 @pytest.mark.parametrize('P', Ps[1:])
 def test_unported_branches_refuse_ranks(world, P):
     """Every call with no multi-rank branch yet raises instead of
-    running on a rank's rows alone; ``forward_slabs`` runs across ranks
-    now (tests/test_torch_dist_fftpower.py, ConvolvedFFTPower)."""
+    running on a rank's rows alone; the FFT bispectrum and the forward
+    model run across ranks now (below), the direct bispectrum does
+    not."""
     want = sorted(['FOF', 'KDDensity', 'sort', 'save', 'poisson',
-                   'Bispectrum', 'ForwardModel', 'PopulatedHaloCatalog',
+                   "Bispectrum(method='direct')", 'PopulatedHaloCatalog',
                    'HaloCatalog'])
     for r in range(P):
         assert world[r]['refused', P] == want
@@ -372,6 +283,15 @@ def test_scatter_gather_round_trip(world, P):
         np.testing.assert_array_equal(hi, whole.max(axis=0))
 
 
+@pytest.mark.parametrize('P', Ps[1:])
+def test_forward_model_refuses_indivisible_lattice(world, P):
+    """ng and nmesh must be divisible by the rank count: a ValueError
+    naming it, before any collective (ng = 3 at P = 2 and 4; nmesh 6
+    at P = 4)."""
+    want = [True] if P == 2 else [True, True]
+    assert parts(world, ('forward_refuses',), P) == [want] * P
+
+
 # -- memory plan ----------------------------------------------------------------
 
 @pytest.mark.parametrize('dtype', ['f4', 'f8', 'bf16'])
@@ -389,6 +309,30 @@ def test_memory_plan_equals_jax(method, dtype):
                         j_memory_plan(nmesh, npart, **kw), kw
 
 
+@pytest.mark.parametrize('ndev', [1, 2, 4])
+@pytest.mark.parametrize('workload', ['forward', 'bispectrum'])
+def test_memory_plan_workloads_equal_jax(workload, ndev):
+    """The forward-model and bispectrum workloads: the JAX formulas,
+    key for key, over pm_steps, nbins, both bispectrum methods and a
+    given or default pairblock tile."""
+    if workload == 'forward':
+        grid = [dict(pm_steps=s) for s in (None, 1, 2, 5)]
+    else:
+        grid = [dict(nbins=nb, bspec_method=m, pairblock_tile=t)
+                for nb in (None, 4, 16) for m in ('fft', 'direct')
+                for t in (None, 256)]
+    for kw in grid:
+        for nmesh, npart in ((128, 128 ** 3), (256, 1e7)):
+            for dtype in ('f4', 'f8'):
+                for method in ('scatter', 'mxu'):
+                    kw = dict(kw, ndevices=ndev, dtype=dtype,
+                              paint_method=method, hbm_bytes=80e9,
+                              workload=workload)
+                    got = memory_plan(nmesh, npart, **kw)
+                    assert got == j_memory_plan(nmesh, npart, **kw), kw
+                    assert got['workload'] == workload
+
+
 def test_memory_plan_reads_the_card():
     if torch.cuda.is_available():
         want = torch.cuda.get_device_properties(0).total_memory
@@ -396,3 +340,36 @@ def test_memory_plan_reads_the_card():
     else:
         with pytest.raises((ValueError, RuntimeError)):
             memory_plan(64, 1e5)
+
+
+# -- the collectives under autograd -------------------------------------------
+
+ADJOINTS = ['transpose_real', 'transpose_cplx', 'inverse_transpose_real',
+            'inverse_transpose_cplx', 'route', 'loss_sum'] + [
+    'halo_%s_%d' % (op, h) for op in ('add', 'fill') for h in R.HALO_WIDTHS]
+
+
+@pytest.mark.parametrize('P', Ps)
+@pytest.mark.parametrize('name', ADJOINTS)
+def test_collective_backward_is_its_adjoint(world, name, P):
+    """<A x, y> = <x, A^T y> with A^T y the autograd backward, summed
+    over the ranks: the transposes' backward is the inverse transpose,
+    a route's the route back, halo_add's halo_fill and the reverse; the
+    loss sum's backward is 1 on every rank, once."""
+    got = parts(world, ('adjoint', name), P)
+    for ax_y, x_aty in got:
+        assert abs(ax_y - x_aty) <= 1e-12 * max(abs(ax_y), abs(x_aty))
+        assert (ax_y, x_aty) == got[0]
+
+
+@pytest.mark.parametrize('P', Ps[1:])
+def test_compressed_wire_refuses_autograd(world, P):
+    assert all(parts(world, ('compressed_grad_refused',), P))
+
+
+@pytest.mark.parametrize('P', Ps)
+def test_all_reduce_refuses_autograd(world, P):
+    """A global sum scaling this rank's slab needs the ranks'
+    cotangents summed in its backward; all_reduce refuses autograd
+    rather than give each rank only its own part."""
+    assert all(parts(world, ('local_consumer_refused',), P))

@@ -12,6 +12,7 @@ from nbodykit_tpu.pmesh import ParticleMesh as JaxPM
 from nbodykit_tpu.utils import as_numpy
 from nbodykit_tpu_torch.ops.paint_cuda import deposit_blocks_plain
 from nbodykit_tpu_torch.pmesh import ParticleMesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NMESH = (16, 12, 10)
 BOX = (100.0, 80.0, 60.0)

@@ -13,6 +13,7 @@ from nbodykit_tpu.ops.radix_pallas import pass_rank_hist_pallas
 from nbodykit_tpu_torch.ops import radix as tradix
 from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_plain,
                                                raise_on_bad_digits)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _digits(n, D, seed=5):

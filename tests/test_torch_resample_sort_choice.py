@@ -22,6 +22,7 @@ import nbodykit_tpu_torch
 from nbodykit_tpu_torch import rng
 from nbodykit_tpu_torch.convert import field_from_numpy
 from nbodykit_tpu_torch.lab import ArrayCatalog, ArrayMesh, ParticleMesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BOX = (100.0, 80.0, 60.0)
 

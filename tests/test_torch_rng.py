@@ -21,6 +21,7 @@ from nbodykit_tpu.rng import DistributedRNG as JaxRNG
 from nbodykit_tpu_torch import rng
 from nbodykit_tpu_torch.convert import key_from_numpy
 from nbodykit_tpu_torch.ops import threefry_cuda as tf
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

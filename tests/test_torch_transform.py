@@ -20,6 +20,7 @@ from nbodykit_tpu_torch import transform as tt
 from nbodykit_tpu_torch.algorithms.zhist import (RedshiftHistogram,
                                                  scotts_bin_width)
 from nbodykit_tpu_torch.lab import ArrayCatalog
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -8,6 +8,7 @@ import torch
 
 from nbodykit_tpu.ops import window as jwin
 from nbodykit_tpu_torch.ops import window as twin
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RESAMPLERS = ['nnb', 'cic', 'tsc', 'pcs']
 

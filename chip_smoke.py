@@ -27,7 +27,8 @@ drives eleven paths through the user entry points:
   exchange rank pass (D = P) bit for bit against its plain version and
   rank 0's extended-slab deposit within its tolerance; stage times,
   peaks and launches a rank; then, in the same worlds, the convpower
-  flow's catalogs at Nmesh 512 (``dist_convpower``: the poles within
+  flow's catalogs at Nmesh 512 (``dist_convpower``, at P = 2 only: the
+  poles within
   1e-8, alpha, the normalizations and the shot noise within 1e-10 of
   the one-rank run, the flow's physical gates; every rank's exchange
   rank pass on its randoms' destinations bit for bit; rank 0's TSC f8
@@ -2082,7 +2083,8 @@ DIST_RANKS = (2, 4)
 DIST_STAGES = ('dist_exchange', 'dist_paint_local', 'dist_halo',
                'dist_r2c', 'dist_binning_reduce')
 DIST_REPS = 3
-DIST_KERNELS = ('radix_rank', 'paint_deposit', 'threefry')
+DIST_KERNELS = ('radix_rank', 'paint_deposit', 'threefry', 'fof_sweep',
+                'paircount')
 # the f4 bar of BASELINE.md for P(k) (relative to each column's largest)
 DIST_PK_RTOL = 1e-4
 # dist_convpower: the convpower flow's catalogs across ranks at
@@ -2090,6 +2092,9 @@ DIST_PK_RTOL = 1e-4
 # DCP_PK_RTOL of each column's largest value, alpha, the normalizations
 # and the shot noise within DCP_SCALAR_RTOL of the one-rank run's
 DCP_NMESH = 512
+# the rank counts dist_convpower runs at (P = 4 cut for the script's
+# time, PERF.md section 4)
+DCP_RANKS = (2,)
 DCP_PK_RTOL = 1e-8
 DCP_SCALARS = ('alpha', 'data.norm', 'randoms.norm', 'shotnoise')
 DCP_SCALAR_RTOL = 1e-10
@@ -2114,6 +2119,24 @@ DFW_LOSS_RTOL = 1e-9
 DFW_GRAD_RTOL = 1e-6
 DFW_ADAM_STEPS = 2
 DFW_ADAM_RTOL = 1e-8
+# dist_fof: the FOF flow (FOF_LL, FOF_NMIN, to_halos) on the lognormal
+# catalog whose positions and velocities the parent saves, across ranks
+# against the one-rank run: every particle's group before the nmin cut
+# (named by its least member) identical, so every group the merge rounds
+# stitch is held, not the halos' alone; the halo count, the halos' Mass
+# (Length times the particle mass) and the partition identical; each halo's
+# centre of mass within DFOF_CM_TOL
+# (minimum image) and CMVelocity within DFOF_VEL_RTOL of the column's
+# largest: fof_catalog_gate's bars (their f32 sums add in another order)
+DFOF_CM_TOL = 1e-5 * LN_BOX
+DFOF_VEL_RTOL = 1e-5
+# dist_particles: the boss_like catalog and its randoms (saved by the
+# parent) through the counts of DPC_COUNTS, KDDensity and a sort on a
+# float column, across ranks against the one-rank run: npairs identical,
+# wnpairs and the weight totals within DPC_RTOL relative, the densities
+# identical, the sorted catalog bit for bit
+DPC_COUNTS = ('box_1d', 'box_cross_1d', 'survey_DD')
+DPC_RTOL = 1e-12
 
 
 def _quiet(fn, *args, **kw):
@@ -2127,7 +2150,7 @@ def _quiet(fn, *args, **kw):
 
 
 def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
-              rc_ref_path, fw_dir, q):
+              rc_ref_path, fw_dir, pt_dir, q):
     """One rank of ``dist_main``: joins the world of ``nproc`` ranks
     (``backend`` 'gloo': all on cuda:0, collectives staged through the
     host; 'nccl': rank r on cuda:r), draws its rows of the main path's
@@ -2139,8 +2162,10 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
     rank 0, which compares it with the one-rank field saved at
     ``ref_path``; then runs ``dist_convpower``, ``dist_recon`` (the
     recon's data at ``rc_pos_path``, the one-rank field at
-    ``rc_ref_path``), ``dist_bispectrum`` and ``dist_forward`` (the
-    one-rank arrays in ``fw_dir``) and puts its record on ``q``.
+    ``rc_ref_path``), ``dist_bispectrum``, ``dist_forward`` (the
+    one-rank arrays in ``fw_dir``), ``dist_fof`` and ``dist_particles``
+    (their inputs and one-rank arrays in ``pt_dir``) and puts its record
+    on ``q``.
     ``workdir`` holds the world's rendezvous file."""
     from nbodykit_tpu_torch import _build, utils
     from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
@@ -2242,10 +2267,11 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
     del m, r, field, whole_field, cat, cpos, dest
     torch.cuda.empty_cache()
     rec['main_seconds'] = time.perf_counter() - t_start
-    t1 = time.perf_counter()
-    rec['convpower'] = dist_convpower_rank(mesh)
-    rec['convpower']['seconds'] = time.perf_counter() - t1
-    torch.cuda.empty_cache()
+    if nproc in DCP_RANKS:
+        t1 = time.perf_counter()
+        rec['convpower'] = dist_convpower_rank(mesh)
+        rec['convpower']['seconds'] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
     t1 = time.perf_counter()
     rec['recon'] = dist_recon_rank(mesh, rc_pos_path, rc_ref_path)
     rec['recon']['seconds'] = time.perf_counter() - t1
@@ -2257,6 +2283,14 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
     t1 = time.perf_counter()
     rec['forward'] = dist_forward_rank(mesh, fw_dir)
     rec['forward']['seconds'] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rec['fof'] = dist_fof_rank(mesh, rc_pos_path, pt_dir)
+    rec['fof']['seconds'] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rec['particles'] = dist_particles_rank(mesh, pt_dir)
+    rec['particles']['seconds'] = time.perf_counter() - t1
     rec['rank_seconds'] = time.perf_counter() - t_start
     q.put(rec)
     torch.distributed.destroy_process_group()
@@ -2655,6 +2689,435 @@ def dist_slice_phases(nproc, backend, recs, bs_ref, fw_ref):
     return launches, kernels
 
 
+def route_rank_check(mesh, dest):
+    """The exchange's rank pass at D = P on a route's destinations
+    against its plain version, bit for bit; rank 0 also times it beside
+    ``torch.argsort``. Returns (bit-identical, rank 0's record or None,
+    lines)."""
+    from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
+                                                   pass_rank_hist_plain,
+                                                   raise_on_bad_digits)
+    dest = torch.clamp(dest.to(torch.int32), 0, mesh.size - 1).contiguous()
+    got = pass_rank_hist_cuda(dest, mesh.size)
+    raise_on_bad_digits(dest.device)
+    want = pass_rank_hist_plain(dest, mesh.size)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    assert same, "rank %d: the route's rank pass differs" % mesh.rank
+    del got, want
+    if mesh.rank != 0:
+        return same, None, []
+    rec, lines = _quiet(time_rank, dest.shape[0], D=mesh.size, digits=dest,
+                        plain_reps=1)
+    return same, rec, lines
+
+
+def links_sweep_check(where, row, links):
+    """The links sweep (``fof_links_sweep``) of the first sweep on a
+    link list against its plain version, bit for bit; its time beside
+    its byte bound and one ``scatter_reduce`` of the same min."""
+    from nbodykit_tpu_torch.ops import fof_cuda as fc
+    n = row.shape[0] - 1
+    lab = torch.arange(n, dtype=torch.int32, device='cuda')
+    got = fc.fof_links_sweep_cuda(row, links, lab)
+    want, plain_ms = timed(lambda: fc.fof_links_sweep_plain(row, links, lab))
+    assert torch.equal(got, want), "%s: the links sweep differs" % where
+    ms = cuda_ms(lambda: fc.fof_links_sweep_cuda(row, links, lab), reps=20)
+    owner = torch.repeat_interleave(torch.arange(n, device='cuda'),
+                                    row[1:] - row[:-1])
+    vals = lab[links.long()]
+    lib_ms = cuda_ms(lambda: lab.scatter_reduce(0, owner, vals, 'amin'),
+                     reps=20)
+    E = int(row[-1])
+    b_ms, b_by = bound(fc.links_sweep_bytes(n, E), 0, F32_FLOPS)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0, share_of_bound=b_ms / ms,
+                at='%s n=%d, E=%d' % (where, n, E))
+
+
+def halo_roots(labels, nhalo):
+    """Each halo's least member index (labels on the card, halos 1 ..
+    nhalo): its canonical name, independent of the label order."""
+    idx = torch.arange(labels.shape[0], device=labels.device)
+    first = torch.full((nhalo + 1,), labels.shape[0], dtype=torch.int64,
+                       device=labels.device)
+    return first.scatter_reduce(0, labels, idx, 'amin')[1:]
+
+
+def least_member(roots):
+    """Each particle's group named by its least member index; ``roots``
+    names each particle's group by any one member's index."""
+    r = roots.long()
+    idx = torch.arange(r.shape[0], device=r.device)
+    first = torch.full_like(r, r.shape[0]).scatter_reduce(0, r, idx, 'amin')
+    return first[r]
+
+
+@contextlib.contextmanager
+def captured_fof_roots():
+    """[roots] that FOF's root-label calls return inside, in order: the
+    one-device ``_fof_labels`` and the slab branch's
+    ``_fof_labels_distributed``, each particle's group before the nmin
+    cut. The functions are called through and put back on exit."""
+    from nbodykit_tpu_torch.algorithms import fof as fof_module
+    names = ('_fof_labels', '_fof_labels_distributed')
+    origs = {name: getattr(fof_module, name) for name in names}
+    roots = []
+
+    def spy(orig):
+        def call(*a, **kw):
+            out = orig(*a, **kw)
+            roots.append(out)
+            return out
+        return call
+    for name, orig in origs.items():
+        setattr(fof_module, name, spy(orig))
+    try:
+        yield roots
+    finally:
+        for name, orig in origs.items():
+            setattr(fof_module, name, orig)
+
+
+def dist_fof_catalog(pos_path, comm=None):
+    """The FOF flow's lognormal catalog from the positions and
+    velocities the parent saved (``pos_path``, and its ``_velocity``
+    twin), on ``comm``'s ranks (this rank's rows) or on one rank."""
+    from nbodykit_tpu_torch.source.catalog import ArrayCatalog
+    cols = {'Position': np.load(pos_path),
+            'Velocity': np.load(pos_path.replace('.npy', '_velocity.npy'))}
+    if comm is None:
+        return ArrayCatalog(cols, BoxSize=LN_BOX, device='cuda')
+    return ArrayCatalog(cols, BoxSize=LN_BOX, comm=comm)
+
+
+def dist_fof_reference(pos_path, pt_dir):
+    """The one-rank run of dist_fof's configuration, staged as a rank's:
+    its groups before the nmin cut (``least_member``), labels and halo
+    columns saved in ``pt_dir`` for rank 0's checks; its record."""
+    cat = dist_fof_catalog(pos_path)
+    with captured_fof_roots() as roots:
+        (fof, halos, _), rec = staged_run(lambda: fof_algorithm(cat))
+    assert len(roots) == 1, len(roots)
+    whole = least_member(roots[0])
+    idx = torch.arange(whole.shape[0], device=whole.device)
+    groups = int((whole == idx).sum())
+    linked = int((torch.bincount(whole) >= 2).sum())
+    np.save(os.path.join(pt_dir, 'fof_roots.npy'),
+            whole.to(torch.int32).cpu().numpy())
+    del roots, whole, idx
+    np.save(os.path.join(pt_dir, 'fof_labels.npy'), fof.labels.cpu().numpy())
+    np.savez(os.path.join(pt_dir, 'fof_halos.npz'), **{
+        c: halos[c].cpu().numpy() for c in ('Mass', 'Position', 'Velocity')})
+    ref = dict(run=rec, nhalo=fof._halo_count, n_rows=len(cat),
+               groups=groups, groups_of_2_or_more=linked,
+               sweeps=fof.sweeps, links=fof.links, branch=fof.branch)
+    del cat, fof, halos
+    torch.cuda.empty_cache()
+    return ref
+
+
+def dist_fof_gates(roots, labels, cols, pt_dir):
+    """Rank 0's checks of the gathered FOF run against the one-rank run
+    saved in ``pt_dir``: every particle's root before the nmin cut (the
+    slab branch's least global index of its group) equal to the one-rank
+    group's least member, so every group of any size is the same; the
+    halo count and the halos' Mass (Length
+    times the particle mass, in descending order) identical, the same
+    partition (each grouped particle named by its halo's least member),
+    and each halo, matched by that name, within DFOF_CM_TOL (Position,
+    the centre of mass, minimum image) and DFOF_VEL_RTOL (Velocity)."""
+    whole = np.load(os.path.join(pt_dir, 'fof_roots.npy'))
+    assert roots.shape == whole.shape, (roots.shape, whole.shape)
+    assert np.array_equal(roots.astype('i8'), whole), \
+        "dist_fof: the groups before the nmin cut differ from one rank's"
+    del whole
+    ref = np.load(os.path.join(pt_dir, 'fof_halos.npz'))
+    nhalo = len(ref['Mass'])
+    assert len(cols['Mass']) == nhalo, (len(cols['Mass']), nhalo)
+    assert np.array_equal(cols['Mass'], ref['Mass'])
+    got = torch.as_tensor(labels, device='cuda')
+    one = torch.as_tensor(np.load(os.path.join(pt_dir, 'fof_labels.npy')),
+                          device='cuda')
+    assert got.shape == one.shape, (got.shape, one.shape)
+    roots_g, roots_1 = halo_roots(got, nhalo), halo_roots(one, nhalo)
+    pad = torch.full((1,), -1, dtype=torch.int64, device='cuda')
+    assert torch.equal(torch.cat([pad, roots_g])[got],
+                       torch.cat([pad, roots_1])[one]), \
+        "dist_fof: the partition differs from one rank's"
+    del got, one
+    og = torch.argsort(roots_g).cpu().numpy()
+    o1 = torch.argsort(roots_1).cpu().numpy()
+    assert torch.equal(roots_g.sort().values, roots_1.sort().values)
+    d = np.abs(cols['Position'][og].astype('f8')
+               - ref['Position'][o1].astype('f8'))
+    cm = float(np.minimum(d, LN_BOX - d).max())
+    dv = float(np.abs(cols['Velocity'][og].astype('f8')
+                      - ref['Velocity'][o1].astype('f8')).max())
+    vmax = float(np.abs(ref['Velocity']).max())
+    assert cm <= DFOF_CM_TOL, ("dist_fof CMPosition", cm)
+    assert dv <= DFOF_VEL_RTOL * vmax, ("dist_fof CMVelocity", dv, vmax)
+    return dict(halos=nhalo, roots_identical=True, length_identical=True,
+                partition_identical=True,
+                cm_position_max_abs_diff=cm, cm_position_tol=DFOF_CM_TOL,
+                cm_velocity_max_abs_diff=dv, cm_velocity_max=vmax,
+                cm_velocity_rtol=DFOF_VEL_RTOL)
+
+
+def dist_fof_rank(mesh, pos_path, pt_dir):
+    """One rank of ``dist_fof``: the FOF flow's Algorithm (FOF, to_halos)
+    on this rank's rows, once, staged, on the slab branch; the labels and
+    halo columns gathered to rank 0 and held against the one-rank run
+    (``dist_fof_gates``), the roots before the nmin cut too; the route's
+    rank pass at D = P; on rank 0's
+    routed particles the link count, the link fill and the links sweep
+    against their plain versions, timed beside their bounds."""
+    from nbodykit_tpu_torch.parallel.domain import slab_route
+    from nbodykit_tpu_torch.utils import GatherArray
+    cat = dist_fof_catalog(pos_path, mesh)
+    with captured_link_calls() as link_calls, \
+            captured_fof_roots() as roots:
+        (fof, halos, _), rec = staged_run(lambda: fof_algorithm(cat), mesh)
+    assert fof.branch == 'slab', fof.branch
+    assert len(roots) == 1, len(roots)
+    # the route's exchange and the local grid's passes; one link count,
+    # one fill, the links sweeps; the merge rounds' exchanges
+    for name, want in (('radix_rank', 2), ('fof_link_count', 1),
+                       ('fof_link_fill', 1), ('fof_sweep_links', 1)):
+        assert rec['launches'][name] >= want, rec['launches']
+    out = dict(run=rec, n_rows=len(cat), nhalo=fof._halo_count,
+               branch=fof.branch, merge_rounds=fof.merge_rounds,
+               sweeps=fof.sweeps, links=fof.links, lines=[])
+    whole = GatherArray(roots[0], mesh, root=0)
+    labels = GatherArray(fof.labels, mesh, root=0)
+    cols = {c: GatherArray(halos[c], mesh, root=0)
+            for c in ('Mass', 'Position', 'Velocity')}
+    if mesh.rank == 0:
+        out['gates'] = dist_fof_gates(whole, labels, cols, pt_dir)
+    del whole, roots, labels, cols, halos
+    route, _, _ = slab_route(cat['Position'], fof.attrs['BoxSize'], fof._ll,
+                             mesh, ghosts='down', balance=True)
+    same, out['rank'], lines = route_rank_check(mesh, route.dest)
+    out['rank_pass_bit_identical'] = same
+    out['lines'] += lines
+    del route, cat, fof
+    if mesh.rank == 0:
+        names = [c[0] for c in link_calls]
+        assert names == ['fof_link_count_cuda', 'fof_link_fill_cuda'], names
+        a = link_calls[0][1]
+        where = 'dist_fof rank 0 of %d' % mesh.size
+        (recs, row, links, _), lines = _quiet(
+            link_kernel_checks, where, a[:4], a[4], a[5:10], turns=False)
+        out['lines'] += lines
+        recs['fof_sweep'] = links_sweep_check(where, row, links)
+        out['kernels'] = recs
+    del link_calls
+    return out
+
+
+def dist_particle_catalogs(pt_dir, comm=None):
+    """The boss_like catalog (Position, Weight), its randoms and the
+    catalog on the sky (``sky_catalog`` of the whole catalog), from the
+    arrays the parent saved in ``pt_dir``, on ``comm``'s ranks or on
+    one rank."""
+    from nbodykit_tpu_torch.source.catalog import ArrayCatalog
+    load = lambda name: np.load(os.path.join(pt_dir, name + '.npy'))  # noqa
+    whole = ArrayCatalog({'Position': load('pb_position'),
+                          'Weight': load('pb_weight')}, BoxSize=PB_BOX,
+                         device='cuda')
+    sky = sky_catalog(whole)
+    kw = dict(device='cuda') if comm is None else dict(comm=comm)
+    cat = ArrayCatalog({c: whole[c] for c in ('Position', 'Weight')},
+                       BoxSize=PB_BOX, **kw)
+    randoms = ArrayCatalog({'Position': load('pb_randoms')}, BoxSize=PB_BOX,
+                           **kw)
+    dsky = ArrayCatalog({c: sky[c] for c in ('RA', 'DEC', 'Redshift',
+                                             'Weight')}, **kw)
+    return cat, randoms, dsky
+
+
+def dist_particles_run(cat, randoms, dsky):
+    """The particle statistics of dist_particles through the user entry
+    points: the box 1d auto and cross counts, the survey's 2d midpoint
+    DD, KDDensity and a sort on the Weight column."""
+    from nbodykit_tpu_torch.cosmology import Planck15
+    from nbodykit_tpu_torch.lab import (KDDensity, SimulationBoxPairCount,
+                                        SurveyDataPairCount)
+    return dict(
+        box_1d=SimulationBoxPairCount('1d', cat, PB_EDGES),
+        box_cross_1d=SimulationBoxPairCount('1d', cat, PB_EDGES,
+                                            second=randoms),
+        survey_DD=SurveyDataPairCount('2d', dsky, PB_EDGES, cosmo=Planck15,
+                                      Nmu=10),
+        kddensity=KDDensity(cat), sorted=cat.sort('Weight'))
+
+
+def particle_counts(res):
+    """{count: npairs, wnpairs, the weight totals, the branch}."""
+    keys = ('total_wnpairs', 'W1', 'W2', 'N1', 'N2')
+    return {c: dict(npairs=np.asarray(res[c].pairs['npairs']),
+                    wnpairs=np.asarray(res[c].pairs['wnpairs']),
+                    branch=res[c].branch,
+                    **{k: res[c].attrs[k] for k in keys})
+            for c in DPC_COUNTS}
+
+
+def dist_particles_reference(pt_dir):
+    """The boss_like catalogs made and saved in ``pt_dir`` for the ranks,
+    and the one-rank run of dist_particles on them, staged as a rank's:
+    the counts, and the densities and the sorted catalog saved for rank
+    0's checks."""
+    cat, randoms = particles_catalogs()
+    for name, t in (('pb_position', cat['Position']),
+                    ('pb_weight', cat['Weight']),
+                    ('pb_randoms', randoms['Position'])):
+        np.save(os.path.join(pt_dir, name + '.npy'), t.cpu().numpy())
+    del cat, randoms
+    cats = dist_particle_catalogs(pt_dir)
+    res, rec = staged_run(lambda: dist_particles_run(*cats))
+    np.save(os.path.join(pt_dir, 'pb_density.npy'),
+            res['kddensity'].density.cpu().numpy())
+    for c in ('Position', 'Weight'):
+        np.save(os.path.join(pt_dir, 'pb_sorted_%s.npy' % c),
+                res['sorted'][c].cpu().numpy())
+    ref = dict(run=rec, counts=particle_counts(res), n_rows=len(cats[0]))
+    del cats, res
+    torch.cuda.empty_cache()
+    return ref
+
+
+def dist_particles_rank(mesh, pt_dir):
+    """One rank of ``dist_particles``: the run on this rank's rows, once,
+    staged; the densities and the sorted catalog gathered to rank 0 and
+    held against the one-rank run, bit for bit; the rank pass of the
+    1d count's route of primaries at D = P; on rank 0's routed particles
+    each pair count's kernel against its plain version on a query
+    sample (``pair_shape``) and KDDensity's link count on every query,
+    timed beside their bounds."""
+    from nbodykit_tpu_torch.parallel.domain import slab_route
+    from nbodykit_tpu_torch.utils import GatherArray
+    cats = dist_particle_catalogs(pt_dir, mesh)
+    with captured_pair_counts() as calls, \
+            captured_link_calls() as link_calls:
+        res, rec = staged_run(lambda: dist_particles_run(*cats), mesh)
+    for name, want in (('paircount_hist', len(DPC_COUNTS)),
+                       ('fof_link_count', 1), ('radix_rank', 6)):
+        assert rec['launches'][name] >= want, rec['launches']
+    counts = particle_counts(res)
+    assert all(c['branch'] == 'slab' for c in counts.values()), counts
+    assert res['kddensity'].branch == 'slab'
+    out = dict(run=rec, n_rows=len(cats[0]), counts=counts,
+               kddensity_branch=res['kddensity'].branch, lines=[])
+    density = GatherArray(res['kddensity'].density, mesh, root=0)
+    srt = {c: GatherArray(res['sorted'][c], mesh, root=0)
+           for c in ('Position', 'Weight')}
+    if mesh.rank == 0:
+        load = lambda name: np.load(os.path.join(pt_dir, name + '.npy'))  # noqa
+        assert np.array_equal(density, load('pb_density')), \
+            "dist_particles: KDDensity differs from one rank's"
+        for c, v in srt.items():
+            assert np.array_equal(v, load('pb_sorted_%s' % c)), \
+                "dist_particles: the sorted %s differs" % c
+        out['density_identical'] = out['sorted_identical'] = True
+    del res, density, srt
+    route, _, _ = slab_route(cats[0]['Position'].double(), PB_BOX,
+                             PB_EDGES[-1], mesh, ghosts=None, balance=True)
+    same, out['rank'], lines = route_rank_check(mesh, route.dest)
+    out['rank_pass_bit_identical'] = same
+    out['lines'] += lines
+    del route, cats
+    if mesh.rank == 0:
+        assert len(calls) == len(DPC_COUNTS), len(calls)
+        shapes = []
+        for label, call in zip(DPC_COUNTS, calls):
+            shape, lines = _quiet(pair_shape, 'dist %s rank 0 of %d'
+                                  % (label, mesh.size), call)
+            shapes.append(shape)
+            out['lines'] += lines
+        (_, a, _), = link_calls
+        (recs, *_), lines = _quiet(
+            link_kernel_checks, 'dist kddensity rank 0 of %d' % mesh.size,
+            a[:4], a[4], a[5:10], fill=False, turns=False)
+        out['lines'] += lines
+        out['kernels'] = dict(pairs=shapes, kddensity=recs['fof_link_count'])
+    del calls, link_calls
+    return out
+
+
+def dist_particle_phases(nproc, backend, recs, fof_ref, pt_ref):
+    """The parent's checks of dist_fof and dist_particles at ``nproc``
+    ranks against the one-rank runs, and their lines. Returns
+    ({'dist_fof_P<n>': launches, 'dist_particles_P<n>': ...} summed over
+    the ranks, rank 0's kernel records)."""
+    fofs = [rec['fof'] for rec in recs]
+    pts = [rec['particles'] for rec in recs]
+    for c in fofs + pts:
+        for line in c.pop('lines'):
+            emit(dict(line, dist_ranks=nproc))
+    assert sum(c['n_rows'] for c in fofs) == fof_ref['n_rows']
+    assert all(c['nhalo'] == fof_ref['nhalo'] for c in fofs)
+    assert sum(c['n_rows'] for c in pts) == pt_ref['n_rows']
+    worst = 0.0
+    for c in pts:
+        for name, want in pt_ref['counts'].items():
+            got = c['counts'][name]
+            assert np.array_equal(got['npairs'], want['npairs']), \
+                "dist_particles P=%d %s: npairs differ" % (nproc, name)
+            d = float(np.max(np.abs(got['wnpairs'] - want['wnpairs'])
+                             / np.maximum(np.abs(want['wnpairs']), 1e-300)))
+            for k in ('total_wnpairs', 'W1', 'W2'):
+                d = max(d, abs(got[k] / want[k] - 1))
+            assert d <= DPC_RTOL, (name, d)
+            assert (got['N1'], got['N2']) == (want['N1'], want['N2'])
+            worst = max(worst, d)
+    setting = DIST_SETTINGS[backend]
+
+    def summed(runs):
+        return {k: sum(run['launches'][k] for run in runs)
+                for k in runs[0]['launches']}
+    launches = {'dist_fof_P%d' % nproc: summed([c['run'] for c in fofs]),
+                'dist_particles_P%d' % nproc: summed([c['run']
+                                                      for c in pts])}
+    f0, p0 = fofs[0], pts[0]
+    emit({'phase': 'dist_fof', 'ranks': nproc, 'box': LN_BOX,
+          'linking_length': FOF_LL, 'nmin': FOF_NMIN, 'backend': backend,
+          'setting': setting, 'gates_rank0': f0['gates'],
+          'one_rank': fof_ref,
+          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
+                            run=c['run'], branch=c['branch'],
+                            merge_rounds=c['merge_rounds'],
+                            sweeps=c['sweeps'], links=c['links'],
+                            seconds=c['seconds'],
+                            rank_pass_bit_identical=c[
+                                'rank_pass_bit_identical'])
+                       for rec, c in zip(recs, fofs)],
+          'kernels_rank0': dict(f0['kernels'], rank=f0['rank'])})
+    emit({'phase': 'dist_particles', 'ranks': nproc, 'box': PB_BOX,
+          'counts': DPC_COUNTS, 'backend': backend, 'setting': setting,
+          'wnpairs_max_rel_diff_vs_one_rank': worst, 'rtol': DPC_RTOL,
+          'npairs_identical': True,
+          'branches': dict({c: p0['counts'][c]['branch'] for c in DPC_COUNTS},
+                           kddensity=p0['kddensity_branch']),
+          'density_identical': p0['density_identical'],
+          'sorted_identical': p0['sorted_identical'],
+          'one_rank': pt_ref['run'],
+          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
+                            run=c['run'], seconds=c['seconds'],
+                            rank_pass_bit_identical=c[
+                                'rank_pass_bit_identical'])
+                       for rec, c in zip(recs, pts)],
+          'kernels_rank0': dict(p0['kernels'], rank=p0['rank'])})
+    pair0 = p0['kernels']['pairs'][0]
+    kernels = dict(fof_rank=f0['rank'], pt_rank=p0['rank'],
+                   fof_sweep=f0['kernels']['fof_sweep'],
+                   fof_link_count=f0['kernels']['fof_link_count'],
+                   fof_link_fill=f0['kernels']['fof_link_fill'],
+                   kdd_link_count=p0['kernels']['kddensity'],
+                   paircount={k: pair0[k] for k in (
+                       'ms', 'bound_ms', 'bound_by', 'share_of_bound',
+                       'shape', 'n1', 'n2', 'visited')})
+    return launches, kernels
+
+
 def run_ranks(target, nproc, args, timeout_s=600):
     """Spawn ``nproc`` processes of ``target(rank, nproc, *args, q)`` (the
     ``spawn`` start method) and return their records in rank order. A
@@ -2727,12 +3190,15 @@ def dist_convpower_reference():
 
 def dist_recon_reference(pos_path, ref_path):
     """The one-rank run of dist_recon's configuration: the FOF path's
-    lognormal catalog (its positions saved at ``pos_path`` for the
-    ranks, which have no multi-rank lognormal draw) and ~1e8 uniform
+    lognormal catalog (its positions saved at ``pos_path``, and its
+    velocities beside them for dist_fof, for the ranks, which have no
+    multi-rank lognormal draw) and ~1e8 uniform
     randoms, staged as a rank's; the field saved at ``ref_path``."""
     from nbodykit_tpu_torch.source.catalog import UniformCatalog
     cat = lognormal_catalog()
     np.save(pos_path, cat['Position'].cpu().numpy())
+    np.save(pos_path.replace('.npy', '_velocity.npy'),
+            cat['Velocity'].cpu().numpy())
     randoms = UniformCatalog(nbar=10 * LN_N / LN_BOX ** 3, BoxSize=LN_BOX,
                              seed=84)
     randoms['Position']
@@ -2747,15 +3213,51 @@ def dist_recon_reference(pos_path, ref_path):
 
 
 def dist_survey_phases(nproc, backend, recs, cp_ref, rc_ref):
-    """The parent's checks of dist_convpower and dist_recon at ``nproc``
-    ranks against the one-rank runs, and their lines. Returns
-    ({'dist_convpower_P<n>': launches, 'dist_recon_P<n>': ...} summed
-    over the ranks, rank 0's kernel records)."""
-    cps = [rec['convpower'] for rec in recs]
+    """The parent's checks of dist_convpower (at DCP_RANKS) and
+    dist_recon at ``nproc`` ranks against the one-rank runs, and their
+    lines. Returns ({'dist_convpower_P<n>': launches, 'dist_recon_P<n>':
+    ...} summed over the ranks, rank 0's kernel records)."""
+    cps = [rec['convpower'] for rec in recs if 'convpower' in rec]
+    assert len(cps) == (nproc if nproc in DCP_RANKS else 0), len(cps)
     rcs = [rec['recon'] for rec in recs]
     for c in cps + rcs:
         for line in c.pop('lines'):
             emit(dict(line, dist_ranks=nproc))
+    rc_worst = max(_pk_close(c['power'], rc_ref['power'],
+                             'dist_recon P=%d' % nproc) for c in rcs)
+    r0 = rcs[0]
+    assert r0['field_max_abs_diff'] <= DRC_FIELD_RTOL * r0['field_max'], r0
+    assert all(abs(c['field_mean']) <= 1e-4 for c in rcs)
+    assert sum(c['n_rows'][1] for c in rcs) == rc_ref['n_rows'][1]
+
+    def summed(runs):
+        return {k: sum(run['launches'][k] for run in runs)
+                for k in runs[0]['launches']}
+    launches = {'dist_recon_P%d' % nproc: summed([c['run'] for c in rcs])}
+    setting = DIST_SETTINGS[backend]
+    kernels = dict(rc_deposit=r0['kernels'])
+    if cps:
+        launches['dist_convpower_P%d' % nproc] = summed(
+            [c['data'] for c in cps] + [c['algorithm'] for c in cps])
+        kernels.update(dist_convpower_checks(nproc, backend, recs, cps,
+                                             cp_ref))
+    emit({'phase': 'dist_recon', 'ranks': nproc, 'nmesh': RC_NMESH,
+          'backend': backend, 'setting': setting,
+          'pk_max_rel_diff_vs_one_rank': rc_worst, 'pk_rtol': DIST_PK_RTOL,
+          'field_max_abs_diff_vs_one_rank': r0['field_max_abs_diff'],
+          'field_max': r0['field_max'], 'field_rtol': DRC_FIELD_RTOL,
+          'one_rank': rc_ref['run'],
+          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
+                            run=c['run'], field_mean=c['field_mean'],
+                            seconds=c['seconds'])
+                       for rec, c in zip(recs, rcs)],
+          'kernels_rank0': r0['kernels']})
+    return launches, kernels
+
+
+def dist_convpower_checks(nproc, backend, recs, cps, cp_ref):
+    """The parent's checks of dist_convpower's ranks ``cps`` against the
+    one-rank run, and its line. Returns rank 0's kernel records."""
     cp_worst = max(_pk_close(c['poles'], cp_ref['poles'],
                              'dist_convpower P=%d' % nproc, DCP_PK_RTOL)
                    for c in cps)
@@ -2769,23 +3271,8 @@ def dist_survey_phases(nproc, backend, recs, cp_ref, rc_ref):
             scalar_worst = max(scalar_worst, d)
     assert sum(c['n_rows']['randoms'] for c in cps) == \
         cp_ref['gates']['N_randoms']
-    rc_worst = max(_pk_close(c['power'], rc_ref['power'],
-                             'dist_recon P=%d' % nproc) for c in rcs)
-    r0 = rcs[0]
-    assert r0['field_max_abs_diff'] <= DRC_FIELD_RTOL * r0['field_max'], r0
-    assert all(abs(c['field_mean']) <= 1e-4 for c in rcs)
-    assert sum(c['n_rows'][1] for c in rcs) == rc_ref['n_rows'][1]
-
-    def summed(runs):
-        return {k: sum(run['launches'][k] for run in runs)
-                for k in runs[0]['launches']}
-    launches = {
-        'dist_convpower_P%d' % nproc: summed([c['data'] for c in cps]
-                                             + [c['algorithm'] for c in cps]),
-        'dist_recon_P%d' % nproc: summed([c['run'] for c in rcs])}
-    setting = DIST_SETTINGS[backend]
     emit({'phase': 'dist_convpower', 'ranks': nproc, 'nmesh': DCP_NMESH,
-          'backend': backend, 'setting': setting,
+          'backend': backend, 'setting': DIST_SETTINGS[backend],
           'poles_max_rel_diff_vs_one_rank': cp_worst,
           'poles_rtol': DCP_PK_RTOL,
           'scalars_max_rel_diff_vs_one_rank': scalar_worst,
@@ -2798,22 +3285,9 @@ def dist_survey_phases(nproc, backend, recs, cp_ref, rc_ref):
                             seconds=c['seconds'])
                        for rec, c in zip(recs, cps)],
           'kernels_rank0': cps[0]['kernels']})
-    emit({'phase': 'dist_recon', 'ranks': nproc, 'nmesh': RC_NMESH,
-          'backend': backend, 'setting': setting,
-          'pk_max_rel_diff_vs_one_rank': rc_worst, 'pk_rtol': DIST_PK_RTOL,
-          'field_max_abs_diff_vs_one_rank': r0['field_max_abs_diff'],
-          'field_max': r0['field_max'], 'field_rtol': DRC_FIELD_RTOL,
-          'one_rank': rc_ref['run'],
-          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
-                            run=c['run'], field_mean=c['field_mean'],
-                            seconds=c['seconds'])
-                       for rec, c in zip(recs, rcs)],
-          'kernels_rank0': r0['kernels']})
-    kernels = dict(cp_rank=cps[0]['kernels']['rank'],
-                   cp_deposit={k: v for k, v in cps[0]['kernels'].items()
-                               if k != 'rank'},
-                   rc_deposit=r0['kernels'])
-    return launches, kernels
+    return dict(cp_rank=cps[0]['kernels']['rank'],
+                cp_deposit={k: v for k, v in cps[0]['kernels'].items()
+                            if k != 'rank'})
 
 
 # what each backend's dist_main line says of its setting
@@ -2833,8 +3307,8 @@ def dist_main(run, nmesh, backend='gloo'):
     within main_path's 1e-5 of its largest value, the mean of 1 + delta;
     every rank's rank pass bit for bit and rank 0's deposit within its
     tolerance. The same worlds run dist_convpower, dist_recon,
-    dist_bispectrum and dist_forward against one-rank runs made here
-    first. Returns {'dist_main_P<n>': {kernel: launches summed over the
+    dist_bispectrum, dist_forward, dist_fof and dist_particles against
+    one-rank runs made here first. Returns {'dist_main_P<n>': {kernel: launches summed over the
     ranks}, 'dist_convpower_P<n>': ..., ...} and the kernels' records at
     each P."""
     import tempfile
@@ -2861,6 +3335,10 @@ def dist_main(run, nmesh, backend='gloo'):
         fw_dir = os.path.join(workroot, 'forward')
         os.makedirs(fw_dir)
         fw_ref = dist_forward_reference(fw_dir)
+        pt_dir = os.path.join(workroot, 'particles')
+        os.makedirs(pt_dir)
+        fof_ref = dist_fof_reference(rc_pos_path, pt_dir)
+        pt_ref = dist_particles_reference(pt_dir)
         emit({'phase': 'dist_one_rank_references',
               'seconds': time.perf_counter() - t_ref})
         for nproc in DIST_RANKS:
@@ -2869,7 +3347,7 @@ def dist_main(run, nmesh, backend='gloo'):
             tw = time.perf_counter()
             recs = run_ranks(dist_rank, nproc,
                              (workdir, ref_path, nmesh, backend,
-                              rc_pos_path, rc_ref_path, fw_dir))
+                              rc_pos_path, rc_ref_path, fw_dir, pt_dir))
             world_s = time.perf_counter() - tw
             for rec in recs:
                 for line in rec.pop('lines'):
@@ -2910,6 +3388,10 @@ def dist_main(run, nmesh, backend='gloo'):
                 nproc, backend, recs, bs_ref, fw_ref)
             launches.update(slice_launches)
             kernel_recs[nproc].update(slice_kernels)
+            pt_launches, pt_kernels = dist_particle_phases(
+                nproc, backend, recs, fof_ref, pt_ref)
+            launches.update(pt_launches)
+            kernel_recs[nproc].update(pt_kernels)
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     emit({'phase': 'dist_main_total', 'seconds': time.perf_counter() - t0})
@@ -3056,11 +3538,12 @@ def link_turns(name, grid_args, a, out, geo, reps=10):
     return {who: float(np.mean(v)) for who, v in t.items()}
 
 
-def link_kernel_checks(where, args, cols, geo, fill=True):
+def link_kernel_checks(where, args, cols, geo, fill=True, turns=True):
     """The link count (and fill) on one grid's sorted arrays ``args``
     (pos, ci, flat, valid): each kernel against its plain version on
-    every query, bit for bit; its earlier designs launched in turns with
-    it (``link_turns``), bit for bit; the wrapper's time (CUDA events, 20
+    every query, bit for bit; with ``turns``, its earlier designs
+    launched in turns with it (``link_turns``), bit for bit; the
+    wrapper's time (CUDA events, 20
     calls), the plain version's (one call) and the byte bound
     (``fof_cuda.link_count_bytes`` / ``link_fill_bytes``, the column-table
     entries that the searching queries reach counted on the card).
@@ -3101,22 +3584,23 @@ def link_kernel_checks(where, args, cols, geo, fill=True):
     recs = {}
     for name, a, ref, plain_ms, nbytes, wrapper in cases:
         ms = cuda_ms(wrapper, reps=20)
-        turns = link_turns('nbk_' + name, (*args, cols), a, ref.clone(),
-                           geo)
-        kernel_ms, first_ms = turns['kernel'], turns['first']
         b_ms, b_by = bound(nbytes, 0, F32_FLOPS)
         recs[name] = dict(
-            ms=ms, kernel_ms=kernel_ms, first_design_ms=first_ms,
-            tiles_ms=turns['tiles'],
-            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            bytes=nbytes, max_abs_err=0, share_of_bound=b_ms / ms,
-            kernel_share_of_bound=b_ms / kernel_ms,
-            first_design_share_of_bound=b_ms / first_ms,
-            first_design_over_kernel=first_ms / kernel_ms,
-            tiles_over_kernel=turns['tiles'] / kernel_ms,
+            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by, bytes=nbytes, max_abs_err=0,
+            share_of_bound=b_ms / ms,
             at='%s f%d int%d keys n=%d, %s cells, E=%d' % (
                 where, 8 * pb, 8 * kb, n,
                 'x'.join(str(int(c)) for c in ncell), E))
+        if turns:
+            t = link_turns('nbk_' + name, (*args, cols), a, ref.clone(), geo)
+            kernel_ms, first_ms = t['kernel'], t['first']
+            recs[name].update(
+                kernel_ms=kernel_ms, first_design_ms=first_ms,
+                tiles_ms=t['tiles'], kernel_share_of_bound=b_ms / kernel_ms,
+                first_design_share_of_bound=b_ms / first_ms,
+                first_design_over_kernel=first_ms / kernel_ms,
+                tiles_over_kernel=t['tiles'] / kernel_ms)
     emit({'phase': 'fof_link_kernels', 'case': where, **recs})
     return recs, row, links, E
 
@@ -4132,15 +4616,15 @@ def pair_check(label, got, want, plain_ms=None):
                 wpairs_max=scale, plain_ms=plain_ms)
 
 
-def pair_shape(label, call, lib):
+def pair_shape(label, call, lib=None):
     """One pair count of the path, replayed: the kernel on PB_CHECK_PAIRS
     strided queries, in the grid's cell order and shuffled, against the
     plain version; an auto count of the grid's own points counted once a
     pair (as launched) against every query counting every candidate, on
     all queries, and with dead queries against a copy; then the kernel
-    (through the wrapper, and its launch alone) and the first design
-    (``lib``) timed in turns, with the candidates, the bound and the
-    share."""
+    (through the wrapper, and with ``lib`` its launch alone and the first
+    design, ``lib``, in turns) timed, with the candidates, the bound and
+    the share."""
     from nbodykit_tpu_torch.ops import paircount_cuda as pc
     args, kwargs = call
     grid, w2_s, p1, w1, live, ci1, r2edges, mode = args
@@ -4180,20 +4664,20 @@ def pair_shape(label, call, lib):
                                    *args[5:], **kwargs)))
     nb2 = kwargs['nb2']
     nbins = pc.hist_bins(len(r2edges), nb2)
-    outs = (torch.zeros(nbins, dtype=torch.int64, device='cuda'),
-            torch.zeros(nbins, dtype=torch.float64, device='cuda'))
-    largs, keep = pc.launch_args(*args[:8], nb2, kwargs['pimax'],
-                                 kwargs['los'], kwargs['origin'],
-                                 kwargs['is_auto'], *outs)
-    first = lib.nbk_paircount_hist
-    first.argtypes = pc.ARGTYPES
-    built = pc._fn()
     t = {'first': [], 'kernel': []}
-    for name in ('first', 'kernel', 'kernel', 'first'):
-        t[name].append(launch_ms(first if name == 'first' else built,
-                                 largs, outs))
-    first_n = outs[0].double()
-    assert torch.equal(first_n, got[0]), label
+    if lib is not None:
+        outs = (torch.zeros(nbins, dtype=torch.int64, device='cuda'),
+                torch.zeros(nbins, dtype=torch.float64, device='cuda'))
+        largs, keep = pc.launch_args(*args[:8], nb2, kwargs['pimax'],
+                                     kwargs['los'], kwargs['origin'],
+                                     kwargs['is_auto'], *outs)
+        first = lib.nbk_paircount_hist
+        first.argtypes = pc.ARGTYPES
+        built = pc._fn()
+        for name in ('first', 'kernel', 'kernel', 'first'):
+            t[name].append(launch_ms(first if name == 'first' else built,
+                                     largs, outs))
+        assert torch.equal(outs[0].double(), got[0]), label
     ms = cuda_ms(lambda: pc.paircount_hist_cuda(*args, **kwargs), reps=3)
     n = p1.shape[0]
     cand = candidates(grid, ci1, live)
@@ -4210,8 +4694,9 @@ def pair_shape(label, call, lib):
         n2=grid.pos_s.shape[0], periodic=bool(grid.periodic),
         each_pair_once=once, candidates=cand,
         visited=visited, pairs_in_range=inrange, ms=ms,
-        kernel_ms=float(np.mean(t['kernel'])),
-        first_design_ms=float(np.mean(t['first'])), bound_ms=b_ms,
+        kernel_ms=float(np.mean(t['kernel'])) if t['kernel'] else None,
+        first_design_ms=float(np.mean(t['first'])) if t['first'] else None,
+        bound_ms=b_ms,
         bound_by=b_by, ops=ops, bytes=nbytes, share_of_bound=b_ms / ms,
         checks=checks)
 
@@ -5004,6 +5489,10 @@ def main():
         return dict(counted('fof_sweep'),
                     launches_by_mode={k: m['launches']
                                       for k, m in by_mode.items()})
+    def at_dist(key, label):
+        """Rank 0's record of a kernel on a dist phase, at each P."""
+        return {'at_%s_P%d' % (label, p): k[key]
+                for p, k in dist_kernels.items()}
     fof_src = 'nbodykit_tpu_torch/csrc/fof_sweep.cu'
     fof_replaces = ('nbodykit_tpu/ops/devicehash.py:190 neighbor_min (XLA '
                     'while_loop of gathers; no Pallas kernel)')
@@ -5020,10 +5509,14 @@ def main():
              **{'at_dist_main_P%d' % p: k['rank']
                 for p, k in dist_kernels.items()},
              **{'at_dist_convpower_P%d' % p: k['cp_rank']
-                for p, k in dist_kernels.items()},
+                for p, k in dist_kernels.items() if 'cp_rank' in k},
              **{'at_dist_bispectrum_P%d' % p: k['bs_rank']
                 for p, k in dist_kernels.items()},
              **{'at_dist_forward_P%d' % p: k['fw_rank']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_fof_P%d' % p: k['fof_rank']
+                for p, k in dist_kernels.items()},
+             **{'at_dist_particles_P%d' % p: k['pt_rank']
                 for p, k in dist_kernels.items()}),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
@@ -5034,7 +5527,7 @@ def main():
              **{'at_dist_main_P%d' % p: k['deposit']
                 for p, k in dist_kernels.items()},
              **{'at_dist_convpower_P%d' % p: k['cp_deposit']
-                for p, k in dist_kernels.items()},
+                for p, k in dist_kernels.items() if 'cp_deposit' in k},
              **{'at_dist_recon_P%d' % p: k['rc_deposit']
                 for p, k in dist_kernels.items()},
              **{'at_dist_bispectrum_P%d' % p: k['bs_deposit']
@@ -5046,18 +5539,22 @@ def main():
              **pois_modes['occupied_cells'], modes=pois_modes),
         dict(name='fof_sweep', route='cuda', source=fof_src,
              replaces=fof_replaces, **fof_sweep_counted(),
-             **fof_recs['fof_sweep']),
+             **fof_recs['fof_sweep'], **at_dist('fof_sweep', 'dist_fof')),
         dict(name='fof_link_count', route='cuda', source=fof_src,
              replaces=fof_replaces, **counted('fof_link_count'),
-             **fof_recs['fof_link_count']),
+             **fof_recs['fof_link_count'],
+             **at_dist('fof_link_count', 'dist_fof'),
+             **at_dist('kdd_link_count', 'dist_particles_kddensity')),
         dict(name='fof_link_fill', route='cuda', source=fof_src,
              replaces=fof_replaces, **counted('fof_link_fill'),
-             **fof_recs['fof_link_fill']),
+             **fof_recs['fof_link_fill'],
+             **at_dist('fof_link_fill', 'dist_fof')),
         dict(name='paircount_hist', route='cuda',
              source='nbodykit_tpu_torch/csrc/paircount.cu',
              replaces=('nbodykit_tpu/algorithms/pair_counters/core.py:103 '
                        '_fold_body (XLA gathers and bincounts; no Pallas '
-                       'kernel)'), **counted('paircount_hist'), **pb_pair),
+                       'kernel)'), **counted('paircount_hist'), **pb_pair,
+             **at_dist('paircount', 'dist_particles')),
         dict(name='threept_alm', route='cuda',
              source='nbodykit_tpu_torch/csrc/threept_alm.cu',
              replaces=('nbodykit_tpu/algorithms/threeptcf.py:58 the fold '

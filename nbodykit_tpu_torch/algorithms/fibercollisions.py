@@ -15,6 +15,7 @@ import logging
 import numpy as np
 import torch
 
+from ..parallel.runtime import CurrentMesh, require_one_rank
 from ..source.catalog.array import ArrayCatalog
 from ..transform import SkyToUnitSphere
 from ..utils import as_numpy
@@ -36,6 +37,7 @@ class FiberCollisions(object):
 
     def __init__(self, ra, dec, collision_radius=62. / 60. / 60.,
                  seed=None, degrees=True, comm=None):
+        require_one_rank(CurrentMesh.resolve(comm), 'FiberCollisions')
         self._collision_radius_rad = np.radians(
             collision_radius if degrees else np.degrees(collision_radius))
         # the chord of the angular radius

@@ -1,6 +1,5 @@
-"""Pair counting on one device (counterpart of
-``nbodykit_tpu/algorithms/pair_counters/core.py``; its domain-decomposed
-``paircount_dist`` waits for the multi-GPU port).
+"""Pair counting (counterpart of
+``nbodykit_tpu/algorithms/pair_counters/core.py``).
 
 Weighted pair counts binned in r ('1d'), (r, mu) ('2d'), (rp, pi)
 ('projected') or theta ('angular'): the secondaries are hashed into
@@ -9,6 +8,12 @@ queries are put in the grid's cell order, and
 :func:`...ops.paircount_cuda.paircount_hist` bins every candidate pair
 of the neighbour cells (the CUDA kernel on the card, the plain fold on
 the CPU). Positions and weights are f64 throughout.
+
+:func:`paircount` counts on one device; :func:`paircount_dist` across
+the ranks of a mesh: the primaries go to the owners of x-slabs balanced
+on them, the secondaries to the same slabs with ghost copies within
+r_max of both faces, each rank counts its primaries against what it
+holds, and the histograms are summed over the ranks.
 """
 
 import numpy as np
@@ -102,21 +107,32 @@ def paircount_inputs(pos1, w1, pos2, w2, box, edges, mode='1d', Nmu=None,
     grid = GridHash(p2, work_box, rmax, periodic=periodic)
     w2_s = w2[grid.order].contiguous()
     if is_auto:
-        p1, w1 = grid.pos_s, w2_s
-        ci1 = grid.cell_of(p1)
+        args = _hist_args(grid, w2_s, grid.pos_s, w2_s, redges, mode,
+                          in_cell_order=True)
     else:
-        ci1 = grid.cell_of(p1)
+        args = _hist_args(grid, w2_s, p1, w1, redges, mode)
+    return args, _hist_kwargs(nb2, pimax, los, grid_origin, pair_los,
+                              is_auto), nb1, nb2
+
+
+def _hist_args(grid, w2_s, p1, w1, redges, mode, in_cell_order=False):
+    """The positional arguments of ``paircount_hist``: the queries put in
+    the grid's cell order (unless they are already), all live."""
+    ci1 = grid.cell_of(p1)
+    if not in_cell_order:
         qorder = grid.cell_order(ci1)
         p1, w1, ci1 = p1[qorder], w1[qorder], ci1[qorder]
-    live = torch.ones(p1.shape[0], dtype=torch.bool, device=dev)
-    args = (grid, w2_s, p1.contiguous(), w1.contiguous(), live,
+    live = torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
+    return (grid, w2_s, p1.contiguous(), w1.contiguous(), live,
             ci1.contiguous(), redges ** 2, mode)
-    kwargs = dict(nb2=nb2, pimax=pimax,
-                  los='midpoint' if pair_los == 'midpoint' else int(los),
-                  origin=np.broadcast_to(np.asarray(grid_origin, dtype='f8'),
-                                         (3,)),
-                  is_auto=is_auto)
-    return args, kwargs, nb1, nb2
+
+
+def _hist_kwargs(nb2, pimax, los, grid_origin, pair_los, is_auto):
+    return dict(nb2=nb2, pimax=pimax,
+                los='midpoint' if pair_los == 'midpoint' else int(los),
+                origin=np.broadcast_to(np.asarray(grid_origin, dtype='f8'),
+                                       (3,)),
+                is_auto=is_auto)
 
 
 def paircount(pos1, w1, pos2, w2, box, edges, mode='1d', Nmu=None,
@@ -145,4 +161,59 @@ def paircount(pos1, w1, pos2, w2, box, edges, mode='1d', Nmu=None,
         los=los, periodic=periodic, is_auto=is_auto,
         grid_origin=grid_origin, pair_los=pair_los, device=device)
     npairs, wpairs = paircount_hist(*args, **kwargs)
+    return _package(npairs.cpu().numpy(), wpairs.cpu().numpy(), nb1, nb2)
+
+
+def paircount_dist(pos1, w1, pos2, w2, box, edges, mesh, mode='1d',
+                   Nmu=None, pimax=None, los=2, periodic=True,
+                   is_auto=False, grid_origin=0.0, pair_los='axis',
+                   max_ncell=4096):
+    """Weighted pair counts across the ranks of ``mesh``: the contract of
+    :func:`paircount` on this rank's rows of both catalogs (the same
+    result on every rank); no rank gathers a catalog.
+
+    The primaries route to the owners of x-slabs balanced on them
+    (:func:`...parallel.domain.slab_route`, no ghosts), the secondaries
+    to the same slabs with ghosts on both faces, so every primary finds
+    every secondary within r_max on its rank. Each rank counts with
+    ``paircount_hist`` and the histograms are summed over the ranks. An
+    auto count queries the owner copies against every copy held, each
+    pair from both ends with every r2 == 0 pair dropped, never the
+    kernel's count-once-and-double path (its queries are not the grid's
+    own points). Requires r_max <= the work box's x / P (one hop of
+    ghosts); the pair-count classes gather the catalogs where it does
+    not hold, as the JAX package does. ``max_ncell`` caps the grid's
+    cells a side."""
+    from ...parallel.domain import slab_route
+    dev = mesh.device
+    pos1 = _as_f64(pos1, dev)
+    pos2 = _as_f64(pos2, dev)
+    w1 = torch.ones(pos1.shape[0], dtype=torch.float64, device=dev) \
+        if w1 is None else _as_f64(w1, dev)
+    w2 = torch.ones(pos2.shape[0], dtype=torch.float64, device=dev) \
+        if w2 is None else _as_f64(w2, dev)
+    p1, p2, work_box, redges, rmax, nb1, nb2, periodic = _mode_setup(
+        pos1, pos2, box, edges, mode, Nmu, pimax, grid_origin, periodic)
+
+    route1, _, _ = slab_route(p1, work_box, rmax, mesh, ghosts=None,
+                              periodic=periodic, balance=True)
+    route2, _, _ = slab_route(p2, work_box, rmax, mesh, ghosts='both',
+                              periodic=periodic, edges=route1.edges)
+    (p1_r, w1_r), ok1, _ = route1.exchange([p1, w1])
+    (p2_r, w2_r), ok2, _ = route2.exchange([p2, w2])
+    got1 = torch.nonzero(ok1).squeeze(1)
+    got2 = torch.nonzero(ok2).squeeze(1)
+    nbins = (nb1 + 2) * nb2
+    if got1.shape[0] and got2.shape[0]:
+        grid = GridHash(p2_r[got2], work_box, rmax, periodic=periodic,
+                        max_ncell=max_ncell)
+        w2_s = w2_r[got2][grid.order].contiguous()
+        npairs, wpairs = paircount_hist(
+            *_hist_args(grid, w2_s, p1_r[got1], w1_r[got1], redges, mode),
+            **_hist_kwargs(nb2, pimax, los, grid_origin, pair_los, is_auto))
+    else:
+        npairs = torch.zeros(nbins, dtype=torch.float64, device=dev)
+        wpairs = torch.zeros(nbins, dtype=torch.float64, device=dev)
+    npairs = mesh.all_reduce(npairs)
+    wpairs = mesh.all_reduce(wpairs)
     return _package(npairs.cpu().numpy(), wpairs.cpu().numpy(), nb1, nb2)

@@ -346,14 +346,35 @@ class CatalogSource(CatalogSourceBase):
         """An ArrayCatalog of the ``usecols`` columns (default: all)
         sorted by one or more scalar columns, the first key most
         significant: a stable argsort of the last key, then a stable
-        pass for each earlier key. ``reverse`` flips the whole order, so
-        ties come out in reverse catalog order too, as on one device in
-        the JAX package."""
+        pass for each earlier key. On one rank ``reverse`` flips the
+        whole order, so ties come out in reverse catalog order too, as
+        on one device in the JAX package.
+
+        Across ranks, as the JAX package on a mesh: the columns map to
+        order-preserving keys (:func:`..parallel.sort.sortable_key`,
+        inverted for ``reverse``), one stable distributed sort a key
+        from the last (:func:`..parallel.sort.dist_sort`, carrying the
+        earlier keys and the global row index), then each column's rows
+        are looked up by that index
+        (:func:`..parallel.domain.gather_by_index`). Ties keep their
+        catalog order, under ``reverse`` too; each rank holds its row
+        split of the result."""
         from ..source.catalog.array import ArrayCatalog
-        require_one_rank(self, 'CatalogSource.sort')
         if isinstance(keys, str):
             keys = [keys]
         cols = usecols or self.columns
+        if mesh_size(self.comm) > 1:
+            from ..parallel.domain import gather_by_index
+            from ..parallel.sort import dist_sort, sortable_key
+            cur = [sortable_key(self[k], reverse) for k in keys]
+            perm = self._row_offset() + torch.arange(
+                self._size, dtype=torch.int64, device=self.device)
+            for j in range(len(cur) - 1, -1, -1):
+                _, out = dist_sort(cur[j], cur[:j] + [perm], self.comm)
+                cur, perm = out[:j], out[j]
+            return self._rows_catalog(
+                {c: gather_by_index(perm, self[c], self.comm) for c in cols},
+                self.attrs)
         order = torch.argsort(self[keys[-1]], stable=True)
         for key in reversed(keys[:-1]):
             order = order[torch.argsort(self[key][order], stable=True)]

@@ -1,6 +1,7 @@
-"""The grid hash on the device and the single-device FOF labels
-(counterpart of ``nbodykit_tpu/ops/devicehash.py``, without the
-``shard_map`` axis: the distributed FOF waits for the multi-GPU port).
+"""The grid hash on the device and the FOF labels of one device's
+particles (counterpart of ``nbodykit_tpu/ops/devicehash.py``, without the
+``shard_map`` axis: across ranks each rank runs these on its routed
+particles, ``algorithms/fof._fof_labels_distributed``).
 
 :meth:`DeviceGridHash.fold` is the plain candidate traversal the
 particle algorithms fold over (:func:`.gridhash.offset_candidates`);
@@ -147,12 +148,13 @@ class GridHash(DeviceGridHash):
     cell order is DeviceGridHash's default engine's; :meth:`cell_order`
     orders queries with the same engine."""
 
-    def __init__(self, pos, box, rmax, periodic=True):
+    def __init__(self, pos, box, rmax, periodic=True, max_ncell=4096):
         if not isinstance(pos, torch.Tensor):
             pos = torch.as_tensor(np.asarray(pos, dtype='f8'),
                                   device=resolve_device())
         pos = pos.to(torch.float64).contiguous()
-        DeviceGridHash.__init__(self, pos, box, rmax, periodic=periodic)
+        DeviceGridHash.__init__(self, pos, box, rmax, periodic=periodic,
+                                max_ncell=max_ncell)
         raise_on_bad_digits(pos.device)
 
     def cell_order(self, ci):

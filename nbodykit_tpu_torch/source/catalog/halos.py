@@ -65,7 +65,6 @@ class HaloCatalog(CatalogSource):
                  particle_mass=None):
         CatalogSource.__init__(self, len(source), device=source.device,
                                comm=source.comm)
-        require_one_rank(self, 'HaloCatalog')
         self._src = source
         self.cosmo = cosmo
         self.attrs.update(source.attrs)
@@ -136,4 +135,3 @@ class HaloCatalog(CatalogSource):
 # PopulatedHaloCatalog is importable from this module, as in the JAX
 # package; the class lives with the HOD code to avoid an import cycle
 from ...hod import PopulatedHaloCatalog  # noqa: F401,E402
-from ...parallel.runtime import require_one_rank

@@ -209,21 +209,24 @@ def _refused(P, cat, pm):
     """The names of the calls with no multi-rank branch yet that raise
     NotImplementedError (at P = 1 each runs, so none is tried). Each is
     built on the P-rank mesh of ``cat`` and ``pm``."""
-    from nbodykit_tpu_torch.lab import (FOF, Bispectrum, HaloCatalog,
-                                        KDDensity, Planck15,
-                                        PopulatedHaloCatalog)
+    from nbodykit_tpu_torch.lab import (Bispectrum, CylindricalGroups,
+                                        FiberCollisions,
+                                        PopulatedHaloCatalog,
+                                        SimulationBox3PCF)
     if P == 1:
         return []
-    calls = {'FOF': lambda: FOF(cat, 0.2, 2),
-             'KDDensity': lambda: KDDensity(cat),
-             'sort': lambda: cat.sort('Index'),
-             'save': lambda: cat.save('unused-path'),
+    calls = {'save': lambda: cat.save('unused-path'),
              'poisson': lambda: cat.rng.poisson(1.0),
              "Bispectrum(method='direct')": lambda: Bispectrum(
                  cat, nbins=2, method='direct'),
              'PopulatedHaloCatalog': lambda: PopulatedHaloCatalog(
                  {'Position': np.zeros((8, 3))}, comm=pm.comm),
-             'HaloCatalog': lambda: HaloCatalog(cat, Planck15, 0.5)}
+             'SimulationBox3PCF': lambda: SimulationBox3PCF(
+                 cat, [0], np.linspace(1.0, 5.0, 3)),
+             'CylindricalGroups': lambda: CylindricalGroups(cat, None, 1.0,
+                                                            1.0),
+             'FiberCollisions': lambda: FiberCollisions(
+                 np.zeros(8), np.zeros(8), comm=pm.comm)}
     out = []
     for name, call in calls.items():
         try:
@@ -293,7 +296,7 @@ def _paint_rows(mesh, P, cases):
 def paint_cases(rank):
     """The main path's paints, the readouts and the capacity retries of
     both (tests/test_torch_dist_paint.py: the ones held to JAX's
-    multi-device paints)."""
+    multi-device paints); parallel_cases paints the other families."""
     import torch
     out = {}
     for P, mesh in _meshes():
@@ -347,7 +350,9 @@ def parallel_cases(rank):
         for mode in A2A_MODES:
             with nbodykit_tpu_torch.set_options(a2a_compress=mode):
                 out['rfftn', mode, P] = _np(dfft.dist_rfftn(x, mesh))
-        pm, _, _, got = _paint_rows(mesh, P, PAINT_CASES)
+        # the main path's paints are paint_cases' (one world computes them)
+        pm, _, _, got = _paint_rows(mesh, P, [c for c in PAINT_CASES
+                                              if c not in PAINT_AT_P])
         out.update(got)
         # rows split unevenly over the ranks, and two fields read at once
         real = T(slab(readout_field(), P, r))
@@ -876,3 +881,222 @@ def port_lab():
     out['as_numpy'] = as_numpy
     return out
 
+
+
+# -- the particle algorithms across ranks (test_torch_dist_particles.py) ------
+
+PT_LL = 0.6             # FOF's linking length (absolute): a slab at P = 4
+PT_NMIN = 5
+PT_RMAX = 2.0           # the routes' ghost band
+PT_EDGES = np.linspace(0.5, 6.0, 7)
+PT_NMU = 4
+PT_PIMAX = 5.0
+PT_SIZE = 1001          # the scatter and gather table's entries
+PT_SPARSE = 40          # a sparse catalog: FOF and KDDensity past a slab
+PT_LL_WIDE = 13.0       # wider than a slab at P = 4 (12.5), not at P = 2
+PT_WIDE_EDGES = np.linspace(1.0, 13.0, 4)
+PT_KDD_MARGIN = 1.0
+PT_NCROSS = 5000
+PT_NRANDOMS = 1500      # the 2PCFs' randoms
+PT_SURVEY_OFFSET = 300.0
+PT_MASS = 1e12
+PT_SKY = dict(ra=(10.0, 13.0), dec=(-1.5, 1.5), z=(0.40, 0.42))
+
+
+def clustered(n, seed=3):
+    """A catalog's columns: n positions in [0, BOX), half in 40 blobs of
+    width 0.4 and half uniform; velocities, weights, and columns with
+    ties (an integer Key, a float Score with -0.0, a Density)."""
+    rs = np.random.RandomState(seed)
+    centers = rs.uniform(0, BOX, (40, 3))
+    half = n // 2
+    pts = centers[rs.randint(0, 40, half)] + rs.normal(0, 0.4, (half, 3))
+    score = rs.randint(-20, 20, n) * 0.5
+    score[rs.rand(n) < 0.05] = -0.0
+    return {'Position': np.concatenate([pts % BOX,
+                                        rs.uniform(0, BOX, (n - half, 3))]),
+            'Velocity': rs.normal(0, 1, (n, 3)),
+            'Weight': rs.uniform(0.5, 1.5, n),
+            'Density': rs.randint(0, 8, n).astype('f8'),
+            'Key': rs.randint(0, 30, n).astype('i8'),
+            'Score': score}
+
+
+def scatter_inputs(n, seed=11):
+    rs = np.random.RandomState(seed + n)
+    return {'idx': rs.randint(0, PT_SIZE, n),
+            'int': rs.randint(-1000, 1000, n),
+            'float': rs.standard_normal(n),
+            'valid': rs.rand(n) < 0.8,
+            'table': np.arange(PT_SIZE * 3, dtype='f8').reshape(PT_SIZE, 3)
+            * 7.0}
+
+
+def sky(n, seed=17):
+    """(RA, DEC, Redshift, Weight) of a small patch of sky."""
+    rs = np.random.RandomState(seed + n)
+    return {k: rs.uniform(lo, hi, n) for k, (lo, hi) in
+            (('RA', PT_SKY['ra']), ('DEC', PT_SKY['dec']),
+             ('Redshift', PT_SKY['z']), ('Weight', (0.5, 1.5)))}
+
+
+def pair_inputs(n):
+    """The pair counts' inputs: (case, pos1, w1, pos2, w2, box, kw) with
+    the keywords of ``paircount`` / ``paircount_dist``."""
+    d = clustered(n)
+    box = np.full(3, BOX)
+    cases = [(mode, d['Position'], d['Weight'], d['Position'], d['Weight'],
+              box, dict(mode=mode, periodic=True, is_auto=True, **kw))
+             for mode, kw in (('1d', {}), ('2d', dict(Nmu=PT_NMU)),
+                              ('projected', dict(pimax=PT_PIMAX)))]
+    other = clustered(PT_NCROSS, seed=5)['Position']
+    cases.append(('cross', d['Position'], None, other, None, box,
+                  dict(mode='1d', periodic=False, is_auto=False)))
+    far = d['Position'] + PT_SURVEY_OFFSET
+    lo, hi = far.min(axis=0), far.max(axis=0)
+    cases.append(('survey', far, d['Weight'], far, d['Weight'],
+                  (hi - lo) * 1.001 + 1e-3,
+                  dict(mode='2d', Nmu=PT_NMU, periodic=False, is_auto=True,
+                       grid_origin=lo, pair_los='midpoint')))
+    return cases
+
+
+def sparse_columns():
+    return {'Position': particles(PT_SPARSE, seed=21)['pos']}
+
+
+def _catalog_columns(cat, names):
+    return {c: _np(cat[c]) for c in names}
+
+
+def particle_cases(rank):
+    """The slab routes, the table reduce and lookup, the sorts, FOF with
+    its halos, the pair counts with the 2PCFs and KDDensity on this
+    rank's rows at every P."""
+    import torch
+    from nbodykit_tpu_torch.lab import (ArrayCatalog, FOF, KDDensity,
+                                        Planck15, SimulationBoxPairCount)
+    from nbodykit_tpu_torch.algorithms.pair_counters.core import \
+        paircount_dist
+    from nbodykit_tpu_torch.parallel.domain import (
+        balanced_slab_edges, gather_by_index, scatter_reduce_by_index,
+        slab_route)
+    from nbodykit_tpu_torch.parallel.runtime import row_range
+    from nbodykit_tpu_torch.parallel.sort import dist_sort, sortable_key
+    T = torch.as_tensor
+    out = {}
+    for P, mesh in _meshes():
+        r = mesh.rank
+        for n in NPARTS:
+            d = clustered(n)
+            start, _ = row_range(n, P, r)
+            pos = T(rows(d['Position'], P, r))
+            gid = start + torch.arange(pos.shape[0])
+            out['edges', n, P] = balanced_slab_edges(pos[:, 0], BOX, P,
+                                                     PT_LL, mesh=mesh)
+            for ghosts, periodic in (('down', True), ('both', True),
+                                     ('both', False), (None, True)):
+                route, f, live = slab_route(pos, BOX, PT_RMAX, mesh,
+                                            ghosts=ghosts, periodic=periodic,
+                                            balance=True)
+                (g1,), ok, dropped = route.exchange([gid])
+                (g2,), ok2, _ = route.exchange([torch.cat([gid * 2] * f)])
+                out['route', n, ghosts, periodic, P] = dict(
+                    gid=_np(g1[ok]), f=f, edges=route.edges,
+                    dropped=int(dropped), live=int(live.sum()),
+                    aligned=bool(torch.equal(ok, ok2)
+                                 and torch.equal(g2[ok], g1[ok] * 2)))
+            s = scatter_inputs(n)
+            idx, valid = T(rows(s['idx'], P, r)), T(rows(s['valid'], P, r))
+            for kind in ('int', 'float'):
+                vals = T(rows(s[kind], P, r))
+                for op in ('add', 'min', 'max'):
+                    out['scatter', n, kind, op, P] = _np(
+                        scatter_reduce_by_index(
+                            idx, vals, PT_SIZE, mesh, op=op,
+                            valid=valid if kind == 'float' else None))
+            out['gather', n, P] = _np(gather_by_index(
+                idx, T(rows(s['table'], P, r)), mesh))
+            for col in ('Key', 'Score'):
+                keys, perm = dist_sort(sortable_key(T(rows(d[col], P, r))),
+                                       gid, mesh)
+                out['dist_sort', n, col, P] = dict(keys=_np(keys),
+                                                   perm=_np(perm))
+            cat = ArrayCatalog(d, BoxSize=BOX, comm=mesh)
+            for case, args in (('multi', (['Key', 'Score'],)),
+                               ('reverse', ('Key', True)),
+                               ('float', ('Score',))):
+                out['sort', n, case, P] = _catalog_columns(
+                    cat.sort(*args), ('Key', 'Score', 'Position'))
+            for periodic in (True, False):
+                fof = FOF(cat, PT_LL, PT_NMIN, absolute=True,
+                          periodic=periodic)
+                feats = fof.find_features(peakcolumn='Density')
+                halos = fof.to_halos(PT_MASS, Planck15, 0.0)
+                out['fof', n, periodic, P] = dict(
+                    labels=_np(fof.labels), nhalo=fof._halo_count,
+                    branch=fof.branch, features=_catalog_columns(
+                        feats, ('Length', 'CMPosition', 'CMVelocity',
+                                'PeakPosition', 'PeakVelocity')),
+                    halos=_catalog_columns(halos, ('Position', 'Velocity',
+                                                   'Mass', 'Radius')),
+                    halo_csize=halos.csize)
+            kd = KDDensity(cat, margin=PT_KDD_MARGIN)
+            vol = 4.0 / 3 * np.pi * kd.attrs['kernel_radius'] ** 3
+            out['kdd', n, P] = dict(counts=_np(kd.density) * vol,
+                                    branch=kd.branch)
+            for case, p1, w1, p2, w2, box, kw in pair_inputs(n):
+                args = [None if a is None else T(rows(a, P, r))
+                        for a in (p1, w1, p2, w2)]
+                out['pairs', n, case, P] = paircount_dist(
+                    *args, box, PT_EDGES, mesh, **kw)
+        out['classes', P] = _pair_classes(clustered(NPARTS[1]), mesh)
+        sparse = ArrayCatalog(sparse_columns(), BoxSize=BOX, comm=mesh)
+        out['box_wide', P] = _pair_record(
+            SimulationBoxPairCount('1d', sparse, PT_WIDE_EDGES),
+            PAIR_TOTALS)
+        fof = FOF(sparse, PT_LL_WIDE, 2, absolute=True)
+        out['fof_wide', P] = dict(labels=_np(fof.labels), branch=fof.branch,
+                                  nhalo=fof._halo_count)
+        # the kernel radius PT_LL_WIDE, in mean separations
+        kd = KDDensity(sparse, margin=PT_LL_WIDE * PT_SPARSE ** (1 / 3.)
+                       / BOX)
+        out['kdd_wide', P] = dict(density=_np(kd.density), branch=kd.branch)
+    return out
+
+
+PAIR_TOTALS = ('total_wnpairs', 'W1', 'W2', 'N1', 'N2')
+
+
+def _pair_record(pc, keys=PAIR_TOTALS):
+    return dict(npairs=np.asarray(pc.pairs['npairs']),
+                wnpairs=np.asarray(pc.pairs['wnpairs']), branch=pc.branch,
+                **{k: pc.attrs[k] for k in keys})
+
+
+def _pair_classes(d, mesh):
+    """The pair-count classes and 2PCFs on this rank's rows: results,
+    totals and branches (the same on every rank)."""
+    from nbodykit_tpu_torch.lab import (ArrayCatalog, Planck15,
+                                        SimulationBox2PCF,
+                                        SimulationBoxPairCount,
+                                        SurveyData2PCF)
+    n = len(d['Weight'])
+    cat = ArrayCatalog(d, BoxSize=BOX, comm=mesh)
+    randoms = ArrayCatalog(
+        {'Position': particles(PT_NRANDOMS, seed=23)['pos']}, BoxSize=BOX,
+        comm=mesh)
+    out = {'box': _pair_record(SimulationBoxPairCount('1d', cat, PT_EDGES)),
+           'box_cross': _pair_record(SimulationBoxPairCount(
+               '2d', cat, PT_EDGES, second=randoms, Nmu=PT_NMU))}
+    out['natural'] = np.asarray(
+        SimulationBox2PCF('1d', cat, PT_EDGES).corr['corr'])
+    out['landy_szalay'] = np.asarray(SimulationBox2PCF(
+        '1d', cat, PT_EDGES, randoms1=randoms).corr['corr'])
+    xi = SurveyData2PCF('2d', ArrayCatalog(sky(n), comm=mesh),
+                        ArrayCatalog(sky(n, seed=19), comm=mesh), PT_EDGES,
+                        cosmo=Planck15, Nmu=PT_NMU)
+    out['survey'] = dict(corr=np.asarray(xi.corr['corr']), **{
+        name: _pair_record(pc) for name, pc in
+        (('DD', xi.D1D2), ('DR', xi.D1R2), ('RR', xi.R1R2))})
+    return out

@@ -1,9 +1,11 @@
 """The paints and readouts across ranks held to the JAX package's
 multi-device paints and readouts at the same P (the main path's CIC
-paints, scatter and mxu), and the eager capacity retries of both: one
-world of 4 gloo CPU ranks (``tests/_torch_ranks.py`` ``paint_cases``),
-every rank's part within 1e-12 of the field's largest value. JAX's
-references at each P are one jitted program (``jax_refs``)."""
+paints, scatter and mxu, and their invariance to the rank count: this
+is the one world that paints them), and the eager capacity retries of
+both: one world of 4 gloo CPU ranks (``tests/_torch_ranks.py``
+``paint_cases``), every rank's part within 1e-12 of the field's largest
+value. JAX's references at each P are one jitted program
+(``jax_refs``)."""
 
 import functools
 
@@ -68,9 +70,18 @@ def jax_readout(window, P):
 @pytest.mark.parametrize('method,window,P',
                          [(m, w, P) for P in Ps[1:] for m, w in R.PAINT_AT_P])
 def test_paint_equals_jax(world, method, window, P):
+    """Each rank's part equals JAX's multi-device paint at P; and the
+    paint does not depend on the rank count (tests/test_pmesh.py:133's
+    statement across the port's ranks): it equals the port's one rank,
+    which equals JAX's one device and holds the catalog's mass."""
     want = jax_paint(method, window, P)
     got = np.concatenate(parts(world, ('paint', method, window), P))
     close(got, want, 1e-12)
+    one = world[0]['paint', method, window, 1]
+    np.testing.assert_allclose(got, one, rtol=1e-10, atol=1e-12)
+    close(one, jax_paint(method, window, 1), 1e-12)
+    assert np.isclose(one.sum(), R.particles(R.NPARTS[0])['mass'].sum(),
+                      rtol=1e-12)
 
 
 @pytest.mark.parametrize('P', Ps)

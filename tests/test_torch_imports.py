@@ -63,7 +63,9 @@ def test_import_loads_no_jax():
             "nbodykit_tpu_torch.parallel.runtime, "
             "nbodykit_tpu_torch.parallel.exchange, "
             "nbodykit_tpu_torch.parallel.halo, "
-            "nbodykit_tpu_torch.parallel.dfft, _torch_ranks, "
+            "nbodykit_tpu_torch.parallel.dfft, "
+            "nbodykit_tpu_torch.parallel.domain, "
+            "nbodykit_tpu_torch.parallel.sort, _torch_ranks, "
             "nbodykit_tpu_torch._build, nbodykit_tpu_torch.convert, "
             "nbodykit_tpu_torch.transform, "
             "nbodykit_tpu_torch.algorithms.convpower, "
@@ -278,15 +280,13 @@ def test_lab_exports_every_ported_name():
 
 # Public names of the JAX package that the port leaves out on purpose,
 # each with its reason. Queue A is ROADMAP.md's queue of modules to port.
-_MULTI_DEVICE = 'multi-GPU sharding and routing (ROADMAP Queue A)'
 _PENCIL = 'the pencil decomposition of the distributed FFT (ROADMAP Queue A)'
 _LOWMEM = ("the JAX single-device lowmem FFT programs (ROADMAP Queue A); "
            "the port's ParticleMesh.forward_slabs transforms slab by slab")
 _SHARDING = 'JAX-only: a NamedSharding of a jax.sharding.Mesh'
 OMISSIONS = {
-    'nbodykit_tpu.algorithms.pair_counters.core.paircount_dist':
-        _MULTI_DEVICE,
-    'nbodykit_tpu.ops.devicehash.DeviceGridHash.pvary': _MULTI_DEVICE,
+    'nbodykit_tpu.ops.devicehash.DeviceGridHash.pvary':
+        'JAX-only: marks a value as varying over a shard_map axis',
     'nbodykit_tpu.pmesh.ParticleMesh.sharding': _SHARDING,
     'nbodykit_tpu.parallel.runtime.sharding': _SHARDING,
     'nbodykit_tpu.parallel.runtime.tpu_mesh':
@@ -409,9 +409,16 @@ JAX_ONLY_PARAMETERS = {
                    'takes the RankMesh itself',
     'nproc': 'the rank count; the port takes the RankMesh itself',
 }
-# Parameters of one JAX function that the port does not take yet, each
-# with its reason.
+# Parameters of one JAX function that the port does not take, each with
+# its reason.
 PARAMETER_OMISSIONS = {
+    'nbodykit_tpu.parallel.sort.dist_sort': (
+        ('slack',),
+        "the bucket capacity's headroom; the counted exchange sizes the "
+        'buckets exactly'),
+    'nbodykit_tpu.parallel.domain.gather_by_index': (
+        ('size',),
+        "the table's length; the port's follows from the ranks' rows"),
     'nbodykit_tpu.pmesh.memory_plan': (
         ('fft_decomp', 'fft_pencil', 'ingest_chunk_rows', 'catalog_bytes'),
         'memory_plan prices the slab path only: the pencil decomposition '
@@ -515,7 +522,7 @@ def test_array_mesh_takes_its_comm(rank):
 def test_containers_take_their_inputs_comm():
     """MultipleSpeciesCatalog takes its species' comm and refuses
     species on different meshes; its mesh and FKPCatalog follow it;
-    HaloCatalog takes its source's and refuses more than one rank;
+    HaloCatalog takes its source's comm and rows (across ranks too);
     FFTRecon refuses data and randoms on different meshes."""
     from nbodykit_tpu_torch.lab import (ArrayCatalog, FFTRecon, FKPCatalog,
                                         HaloCatalog, MultipleSpeciesCatalog,
@@ -541,8 +548,8 @@ def test_containers_take_their_inputs_comm():
     with pytest.raises(ValueError, match='different meshes'):
         FFTRecon(aa, other, Nmesh=4, BoxSize=1.0)
     assert HaloCatalog(one, Planck15, 0.5).comm is None
-    with pytest.raises(NotImplementedError, match='HaloCatalog'):
-        HaloCatalog(a, Planck15, 0.5)
+    halos = HaloCatalog(a, Planck15, 0.5)
+    assert halos.comm is comm and len(halos) == 3
 
 
 def test_constructors_take_comm_and_refuse_ranks():
@@ -552,6 +559,8 @@ def test_constructors_take_comm_and_refuse_ranks():
     ForwardModel run on it."""
     from nbodykit_tpu_torch import io, set_options
     from nbodykit_tpu_torch.algorithms.bispectrum import direct_bispectrum
+    from nbodykit_tpu_torch.algorithms.fibercollisions import \
+        FiberCollisions
     from nbodykit_tpu_torch.base.mesh import Field, FieldMesh
     from nbodykit_tpu_torch.forward import ForwardModel
     from nbodykit_tpu_torch.lab import (BigFileMesh, LinearMesh,
@@ -576,6 +585,8 @@ def test_constructors_take_comm_and_refuse_ranks():
             io.CSVFile, args=('no-such-file',), comm=comm),
         'FileCatalog': lambda: fc.FileCatalog(io.CSVFile, 'no-such-file',
                                               comm=comm),
+        'FiberCollisions': lambda: FiberCollisions(np.ones(5), np.ones(5),
+                                                   comm=comm),
     }
     for name in ('CSVCatalog', 'BinaryCatalog', 'BigFileCatalog',
                  'HDFCatalog', 'FITSCatalog', 'TPMBinaryCatalog',

@@ -11,10 +11,11 @@ the same rows of the JAX function's result on ``cpu_mesh(P)`` of this
 process's 8 virtual devices. Bars: halos bit for bit; transforms f8
 within 1e-10 relative; paints and readouts within 1e-12 of the field's
 largest value; draws bit for bit; the adjoints' dot products within
-1e-12. The capacities and the exchange, and the paints and readouts
-held to JAX's multi-device ones, are in test_torch_dist_exchange.py and
-test_torch_dist_paint.py (files of few tests, which the test runner's
-file scheduling starts after the long JAX files).
+1e-12. The capacities and the exchange, and the main path's paints and
+readouts (held to JAX's multi-device ones), are in
+test_torch_dist_exchange.py and test_torch_dist_paint.py (files of few
+tests, which the test runner's file scheduling starts after the long
+JAX files).
 """
 
 import functools
@@ -140,13 +141,13 @@ def jax_paint(method, window, P, capacity=None):
                                    resampler=window, capacity=capacity))
 
 
-# the main path's paints (R.PAINT_AT_P) are held against JAX at every rank
-# count (at P = 2 and 4 in test_torch_dist_paint.py); the others against
-# JAX's one-device paint and, through test_paint_rank_count_invariance,
-# against the port's one-rank paint (a JAX multi-device paint compiles for
-# 13-35 s on this CPU)
-ONE_DEVICE_PAINTS = [(m, w, P) for P in Ps for m, w in R.PAINT_CASES
-                     if P == 1 or (m, w) not in R.PAINT_AT_P]
+# the main path's paints (R.PAINT_AT_P) are painted and held against JAX
+# at every rank count in test_torch_dist_paint.py's world; the others
+# here, against JAX's one-device paint and, through
+# test_paint_rank_count_invariance, against the port's one-rank paint (a
+# JAX multi-device paint compiles for 13-35 s on this CPU)
+OTHER_PAINTS = [c for c in R.PAINT_CASES if c not in R.PAINT_AT_P]
+ONE_DEVICE_PAINTS = [(m, w, P) for P in Ps for m, w in OTHER_PAINTS]
 
 
 @pytest.mark.parametrize('method,window,P', ONE_DEVICE_PAINTS)
@@ -156,7 +157,7 @@ def test_paint_equals_jax(world, method, window, P):
     close(got, want, 1e-12)
 
 
-@pytest.mark.parametrize('method,window', R.PAINT_CASES)
+@pytest.mark.parametrize('method,window', OTHER_PAINTS)
 def test_paint_rank_count_invariance(world, method, window):
     """tests/test_pmesh.py:133's statement, across the port's ranks."""
     one = world[0]['paint', method, window, 1]
@@ -258,11 +259,12 @@ def test_distributed_rng_rows(world, P):
 def test_unported_branches_refuse_ranks(world, P):
     """Every call with no multi-rank branch yet raises instead of
     running on a rank's rows alone; the FFT bispectrum and the forward
-    model run across ranks now (below), the direct bispectrum does
-    not."""
-    want = sorted(['FOF', 'KDDensity', 'sort', 'save', 'poisson',
-                   "Bispectrum(method='direct')", 'PopulatedHaloCatalog',
-                   'HaloCatalog'])
+    model run across ranks (below), FOF, HaloCatalog, KDDensity and the
+    sort too (test_torch_dist_particles.py); the direct bispectrum, the
+    3PCF, CGM and FiberCollisions do not."""
+    want = sorted(['save', 'poisson', "Bispectrum(method='direct')",
+                   'PopulatedHaloCatalog', 'SimulationBox3PCF',
+                   'CylindricalGroups', 'FiberCollisions'])
     for r in range(P):
         assert world[r]['refused', P] == want
 

@@ -36,8 +36,22 @@ drives eleven paths through the user entry points:
   FFTRecon flow (``dist_recon``: the field gathered to rank 0 within
   1e-4 of its largest value, P(k) within 1e-4; rank 0's CIC f4 slab
   deposit of the shifted randoms), each held against a one-rank run of
-  the same configuration. ``python3 chip_smoke.py --dist-nccl`` on a
-  host of 4 cards runs only these phases over NCCL, one rank a card;
+  the same configuration; ``dist_bispectrum``, ``dist_forward``,
+  ``dist_fof`` and ``dist_particles`` (see ``dist_rank``),
+  then
+  ``dist_groups`` (the particles path's 3PCF, CGM and FiberCollisions,
+  the direct Bispectrum of the imprinted 1e6 catalog at nbins 8 and
+  HaloCatalog.populate of 1e6 seeded halos: zetas within 1e-12, CGM's
+  columns and rounds, FiberCollisions against the one-rank partition
+  relabelled by the slab rule and the galaxies bit for bit, B within
+  1e-10; the rank pass on each route; replayed on rank 0's inputs from
+  the run: the 3PCF moments chunk, FiberCollisions' link count, link
+  fill and links sweep, populate's threefry and Poisson draws) and, at
+  P = 4, ``dist_tasks`` (TaskManager(2) farming four FFTPower tasks at
+  256^3, each against its one-rank run; replayed: every rank's first
+  exchange rank pass, rank 0's first deposit). ``python3 chip_smoke.py
+  --dist-nccl`` on a host of 4 cards runs only these phases over NCCL,
+  one rank a card;
 - the lognormal path, the repo's FFTPower benchmark flow
   (``benchmarks/test_fftpower.py`` at its ``desi_like`` scale):
   LogNormalCatalog(LinearPower(Planck15, 0.55, 'EisensteinHu'),
@@ -161,7 +175,15 @@ LN_REPS = 3
 LN_BOX, LN_NMESH, LN_N, LN_BIAS, LN_SEED = 5000.0, 1024, 1e7, 2.0, 42
 
 
+# the script's start, for each phase line's ``script_s``
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase line also says when it was printed
+    (``script_s``, seconds since the script started)."""
+    if 'phase' in obj:
+        obj = dict(obj, script_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -373,9 +395,6 @@ def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
     plan, payload, geometry, max |kernel - plain|, deposit launch
     plan)."""
     from nbodykit_tpu_torch.ops.paint import mxu_payload, mxu_plan
-    from nbodykit_tpu_torch.ops.paint_cuda import (deposit_blocks_cuda,
-                                                   deposit_blocks_plain,
-                                                   deposit_plan)
     plan = mxu_plan(pos_cells.shape[0], shape, resampler, period,
                     mass.element_size(), slack=slack)
     sx, sy, sz, sm, over = mxu_payload(pos_cells, mass, plan, resampler,
@@ -391,14 +410,29 @@ def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
     geom = dict(resampler=resampler, rb=plan['rb'], cb=plan['cb'],
                 n0l=int(shape[0]), p0=int(period[0]), N1=int(shape[1]),
                 N2=int(shape[2]), origin=origin)
-    sub = (sx, sy, sz, sm) if stripes is None else \
-        tuple(a[:stripes].contiguous() for a in (sx, sy, sz, sm))
+    err, lplan = payload_deposit_check(label, (sx, sy, sz, sm), geom,
+                                       plan['ck'], stripes, check_order)
+    return plan, (sx, sy, sz, sm), geom, err, lplan
+
+
+def payload_deposit_check(label, payload, geom, ck, stripes=None,
+                          radix_equals_argsort=False):
+    """The deposit kernel against its plain version on one mxu payload
+    (sx, sy, sz, sm), or on its first ``stripes`` x-stripes: within
+    1e-12 (f8 mesh) or 1e-5 (f4) of the largest block value, the blocks
+    holding the payload's mass. Returns (max |kernel - plain|, deposit
+    launch plan)."""
+    from nbodykit_tpu_torch.ops.paint_cuda import (deposit_blocks_cuda,
+                                                   deposit_blocks_plain,
+                                                   deposit_plan)
+    sub = payload if stripes is None else \
+        tuple(a[:stripes].contiguous() for a in payload)
     got = deposit_blocks_cuda(*sub, **geom)
-    ref = deposit_blocks_plain(*sub, ck=plan['ck'], **geom)
+    ref = deposit_blocks_plain(*sub, ck=ck, **geom)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    tol = (1e-12 if sm.dtype == torch.float64 else 1e-5) * scale
+    tol = (1e-12 if sub[3].dtype == torch.float64 else 1e-5) * scale
     total, mass_in = float(got.double().sum()), float(sub[3].double().sum())
     lplan = deposit_plan(got.shape[2], got.shape[3], got.element_size())
     blocks = list(got.shape)
@@ -407,14 +441,15 @@ def deposit_case(label, pos_cells, mass, shape, period, origin, resampler,
           'max_abs_block': scale, 'tol': tol, 'blocks': blocks,
           'cluster': lplan['nz'], 'z_cells_per_cta': lplan['zc'],
           'ragged': lplan['ragged'], 'blocks_sum': total,
-          'payload_mass': mass_in, 'radix_equals_argsort': check_order,
+          'payload_mass': mass_in,
+          'radix_equals_argsort': radix_equals_argsort,
           'stripes_checked': stripes or blocks[0]})
     assert np.isfinite(err) and err <= tol, \
         "deposit %s: max |kernel - plain| %g > %g" % (label, err, tol)
     # every window sums to one: the blocks hold the payload's mass
     assert abs(total - mass_in) <= 1e-5 * mass_in, \
         "deposit %s does not conserve mass" % label
-    return plan, (sx, sy, sz, sm), geom, err, lplan
+    return err, lplan
 
 
 def uniform_cells(n, nmesh, seed, dtype=torch.float64):
@@ -941,13 +976,17 @@ def _device_us(evt):
     return 0
 
 
-def profile_main_path(run, path='main_512'):
+def profile_main_path(run, path='main_512', host_ops=True):
     """One run of a path under ``torch.profiler``: device busy time, the
-    idle share of the run's wall time and the kernels that take most."""
+    idle share of the run's wall time and the kernels that take most.
+    ``host_ops=False`` records the device's activity only (no host op
+    events to gather and sort after the run)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -959,7 +998,7 @@ def profile_main_path(run, path='main_512'):
     emit({'phase': 'profile', 'path': path, 'wall_ms_profiled': wall_ms,
           'device_busy_ms': busy_ms,
           'device_idle_share': (1 - busy_ms / wall_ms) if busy_ms else None,
-          'device_time_visible': bool(busy_ms),
+          'device_time_visible': bool(busy_ms), 'host_ops': host_ops,
           'top_kernels': [[e.key[:90], e.count, _device_us(e) / 1e3]
                           for e in top]})
 
@@ -2084,7 +2123,7 @@ DIST_STAGES = ('dist_exchange', 'dist_paint_local', 'dist_halo',
                'dist_r2c', 'dist_binning_reduce')
 DIST_REPS = 3
 DIST_KERNELS = ('radix_rank', 'paint_deposit', 'threefry', 'fof_sweep',
-                'paircount')
+                'paircount', 'threept_alm')
 # the f4 bar of BASELINE.md for P(k) (relative to each column's largest)
 DIST_PK_RTOL = 1e-4
 # dist_convpower: the convpower flow's catalogs across ranks at
@@ -2137,6 +2176,31 @@ DFOF_VEL_RTOL = 1e-5
 # identical, the sorted catalog bit for bit
 DPC_COUNTS = ('box_1d', 'box_cross_1d', 'survey_DD')
 DPC_RTOL = 1e-12
+# dist_groups: the particles path's 3PCF, CGM and FiberCollisions on
+# the boss_like catalogs the parent saves (Mass the CGM's rankby), the
+# direct Bispectrum of the bispectrum agreement's imprinted catalog at
+# BS_CHECK_NBINS, and HaloCatalog.populate (Zheng07, DGR_HOD_SEED) of
+# DGR_NHALO halos seeded in the boss_like box, across ranks against the
+# one-rank runs: each corr_ell within DGR_ZETA_RTOL of its largest value;
+# CGM's columns and rounds identical; FiberCollisions' columns identical
+# to the one-rank partition relabelled by the slab branch's rule
+# (equal-size groups by least member) with the assignment run on it; the
+# direct B within DBS_B_RTOL of its largest, ntri identical, the modes
+# within DGR_MODES_RTOL of sum |w|; the galaxies bit for bit
+DGR_ZETA_RTOL = 1e-12
+DGR_MODES_RTOL = 1e-12
+DGR_NHALO = 10 ** 6
+DGR_HALO_SEED = 43
+DGR_HOD_SEED = 42
+DGR_REDSHIFT = 0.5
+# dist_tasks: TaskManager(DTK_CPUS) over the world at DTK_RANKS, FFTPower
+# tasks on seeded UniformCatalogs at DTK_NMESH, each held to its
+# one-rank run (modes identical, P(k) within DIST_PK_RTOL)
+DTK_RANKS = (4,)
+DTK_CPUS = 2
+DTK_SEEDS = (101, 102, 103, 104)
+DTK_NMESH = 256
+DTK_NBAR, DTK_BOX = 1e-3, 1000.0
 
 
 def _quiet(fn, *args, **kw):
@@ -2163,9 +2227,9 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
     ``ref_path``; then runs ``dist_convpower``, ``dist_recon`` (the
     recon's data at ``rc_pos_path``, the one-rank field at
     ``rc_ref_path``), ``dist_bispectrum``, ``dist_forward`` (the
-    one-rank arrays in ``fw_dir``), ``dist_fof`` and ``dist_particles``
-    (their inputs and one-rank arrays in ``pt_dir``) and puts its record
-    on ``q``.
+    one-rank arrays in ``fw_dir``), ``dist_fof``, ``dist_particles`` and
+    ``dist_groups`` (their inputs and one-rank arrays in ``pt_dir``) and,
+    at DTK_RANKS, ``dist_tasks``, and puts its record on ``q``.
     ``workdir`` holds the world's rendezvous file."""
     from nbodykit_tpu_torch import _build, utils
     from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
@@ -2291,6 +2355,15 @@ def dist_rank(rank, nproc, workdir, ref_path, nmesh, backend, rc_pos_path,
     t1 = time.perf_counter()
     rec['particles'] = dist_particles_rank(mesh, pt_dir)
     rec['particles']['seconds'] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rec['groups'] = dist_groups_rank(mesh, pt_dir)
+    rec['groups']['seconds'] = time.perf_counter() - t1
+    if nproc in DTK_RANKS:
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rec['tasks'] = dist_tasks_rank(mesh)
+        rec['tasks']['seconds'] = time.perf_counter() - t1
     rec['rank_seconds'] = time.perf_counter() - t_start
     q.put(rec)
     torch.distributed.destroy_process_group()
@@ -2689,11 +2762,11 @@ def dist_slice_phases(nproc, backend, recs, bs_ref, fw_ref):
     return launches, kernels
 
 
-def route_rank_check(mesh, dest):
+def route_rank_check(mesh, dest, times=None):
     """The exchange's rank pass at D = P on a route's destinations
-    against its plain version, bit for bit; rank 0 also times it beside
-    ``torch.argsort``. Returns (bit-identical, rank 0's record or None,
-    lines)."""
+    against its plain version, bit for bit; rank 0 (or, given, the ranks
+    where ``times``) also times it beside ``torch.argsort``. Returns
+    (bit-identical, the timing record or None, lines)."""
     from nbodykit_tpu_torch.ops.radix_cuda import (pass_rank_hist_cuda,
                                                    pass_rank_hist_plain,
                                                    raise_on_bad_digits)
@@ -2704,7 +2777,7 @@ def route_rank_check(mesh, dest):
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     assert same, "rank %d: the route's rank pass differs" % mesh.rank
     del got, want
-    if mesh.rank != 0:
+    if not (mesh.rank == 0 if times is None else times):
         return same, None, []
     rec, lines = _quiet(time_rank, dest.shape[0], D=mesh.size, digits=dest,
                         plain_reps=1)
@@ -2915,7 +2988,7 @@ def dist_fof_rank(mesh, pos_path, pt_dir):
 
 
 def dist_particle_catalogs(pt_dir, comm=None):
-    """The boss_like catalog (Position, Weight), its randoms and the
+    """The boss_like catalog (Position, Weight, Mass), its randoms and the
     catalog on the sky (``sky_catalog`` of the whole catalog), from the
     arrays the parent saved in ``pt_dir``, on ``comm``'s ranks or on
     one rank."""
@@ -2926,8 +2999,9 @@ def dist_particle_catalogs(pt_dir, comm=None):
                          device='cuda')
     sky = sky_catalog(whole)
     kw = dict(device='cuda') if comm is None else dict(comm=comm)
-    cat = ArrayCatalog({c: whole[c] for c in ('Position', 'Weight')},
-                       BoxSize=PB_BOX, **kw)
+    cat = ArrayCatalog({'Position': whole['Position'],
+                        'Weight': whole['Weight'],
+                        'Mass': load('pb_mass')}, BoxSize=PB_BOX, **kw)
     randoms = ArrayCatalog({'Position': load('pb_randoms')}, BoxSize=PB_BOX,
                            **kw)
     dsky = ArrayCatalog({c: sky[c] for c in ('RA', 'DEC', 'Redshift',
@@ -2969,6 +3043,7 @@ def dist_particles_reference(pt_dir):
     cat, randoms = particles_catalogs()
     for name, t in (('pb_position', cat['Position']),
                     ('pb_weight', cat['Weight']),
+                    ('pb_mass', cat['Mass']),
                     ('pb_randoms', randoms['Position'])):
         np.save(os.path.join(pt_dir, name + '.npy'), t.cpu().numpy())
     del cat, randoms
@@ -3116,6 +3191,555 @@ def dist_particle_phases(nproc, backend, recs, fof_ref, pt_ref):
                        'ms', 'bound_ms', 'bound_by', 'share_of_bound',
                        'shape', 'n1', 'n2', 'visited')})
     return launches, kernels
+
+
+def dist_halo_catalog(pt_dir, comm=None):
+    """dist_groups' halos: the DGR_NHALO seeded halo columns the parent
+    saved in ``pt_dir`` as a HaloCatalog (Planck15, DGR_REDSHIFT) with
+    its own Concentration column, on ``comm``'s ranks or on one rank."""
+    from nbodykit_tpu_torch.cosmology import Planck15
+    from nbodykit_tpu_torch.lab import ArrayCatalog, HaloCatalog
+    cols = dict(np.load(os.path.join(pt_dir, 'halos.npz')))
+    conc = cols.pop('Concentration')
+    kw = dict(device='cuda') if comm is None else dict(comm=comm)
+    halos = HaloCatalog(ArrayCatalog(cols, BoxSize=PB_BOX, **kw), Planck15,
+                        DGR_REDSHIFT)
+    halos['Concentration'] = conc
+    return halos
+
+
+def save_halo_columns(pt_dir):
+    """DGR_NHALO halos in the boss_like box from DGR_HALO_SEED (numpy):
+    uniform positions, Gaussian velocities of 300 km/s, Mass
+    log-uniform in [10^12.5, 10^15] Msun/h and a Concentration in [3,
+    12), saved in ``pt_dir``."""
+    rs = np.random.RandomState(DGR_HALO_SEED)
+    np.savez(os.path.join(pt_dir, 'halos.npz'),
+             Position=rs.uniform(0, PB_BOX, (DGR_NHALO, 3)),
+             Velocity=rs.normal(0, 300.0, (DGR_NHALO, 3)),
+             Mass=10 ** rs.uniform(12.5, 15.0, DGR_NHALO),
+             Concentration=rs.uniform(3.0, 12.0, DGR_NHALO))
+
+
+DGR_PHASES = ('3pcf', 'cgm', 'fibercollisions', 'direct_bispectrum',
+              'populate')
+DGR_GALAXY_COLUMNS = ('Position', 'Velocity', 'gal_type', 'HaloMass')
+DGR_CGM_COLUMNS = ('cgm_type', 'cgm_haloid', 'num_cgm_sats')
+DGR_FIBER_COLUMNS = ('Label', 'Collided', 'NeighborID')
+
+
+def dist_groups_steps(cat, dsky, imprinted, halos):
+    """dist_groups' configurations through the user entry points, as
+    (phase, closure) in DGR_PHASES order: the particles path's 3PCF, CGM
+    and FiberCollisions, the bispectrum agreement's direct Bispectrum at
+    BS_CHECK_NBINS and HaloCatalog.populate (Zheng07)."""
+    from nbodykit_tpu_torch.lab import (Bispectrum, CylindricalGroups,
+                                        FiberCollisions, SimulationBox3PCF,
+                                        Zheng07Model)
+    return (
+        ('3pcf', lambda: SimulationBox3PCF(cat, PB_POLES, PB_3PT_EDGES)),
+        ('cgm', lambda: CylindricalGroups(cat, rankby='Mass', rperp=2,
+                                          rpar=10, flat_sky_los=[0, 0, 1])),
+        ('fibercollisions', lambda: FiberCollisions(
+            dsky['RA'], dsky['DEC'], seed=PB_SEED, comm=cat.comm)),
+        ('direct_bispectrum', lambda: Bispectrum(
+            imprinted, nbins=BS_CHECK_NBINS, method='direct')),
+        ('populate', lambda: halos.populate(Zheng07Model,
+                                            seed=DGR_HOD_SEED)))
+
+
+def direct_modes(cat, comm=None):
+    """The direct bispectrum's modes of ``cat`` (``pairblock_sum`` over
+    the ranks of ``comm``), host complex, and sum |w|."""
+    from nbodykit_tpu_torch.algorithms.bispectrum import shell_modes
+    from nbodykit_tpu_torch.ops.pairblock import lattice_kvecs, pairblock_sum
+    q, _ = shell_modes(BS_CHECK_NBINS)
+    w = cat['Weight']
+    total = w.abs().sum()
+    if comm is not None:
+        total = comm.all_reduce(total)
+    modes = pairblock_sum(cat['Position'], w, lattice_kvecs(q, BS_BOX),
+                          comm=comm)
+    return modes.cpu().numpy(), float(total)
+
+
+def slab_relabel(labels):
+    """FOF labels renumbered by the slab branch's rule: groups by
+    descending size, equal sizes by ascending least member (0 stays 0);
+    host int64."""
+    labels = np.asarray(labels).astype('i8')
+    sizes = np.bincount(labels)
+    n = len(labels)
+    least = np.full(len(sizes), n, dtype='i8')
+    np.minimum.at(least, labels, np.arange(n))
+    groups = np.flatnonzero(sizes[1:]) + 1
+    order = np.lexsort((least[groups], -sizes[groups]))
+    relabel = np.zeros(len(sizes), dtype='i8')
+    relabel[groups[order]] = np.arange(1, len(groups) + 1)
+    return relabel[labels]
+
+
+def dist_groups_reference(pt_dir):
+    """The one-rank runs of dist_groups (the parent saved the boss_like
+    catalogs and saves the halos here), each staged as a rank's: the
+    zetas, the direct B, ntri and modes in the record; CGM's columns,
+    FiberCollisions' slab-rule oracle (the one-rank partition relabelled
+    by ``slab_relabel``, then the port's ``_assign_fibers`` on it) and
+    the galaxies saved in ``pt_dir`` for rank 0's checks."""
+    from nbodykit_tpu_torch.transform import SkyToUnitSphere
+    save_halo_columns(pt_dir)
+    cat, _, dsky = dist_particle_catalogs(pt_dir)
+    imprinted = imprinted_catalog()
+    halos = dist_halo_catalog(pt_dir)
+    ref = dict(runs={}, n_rows=len(cat))
+    for phase, step in dist_groups_steps(cat, dsky, imprinted, halos):
+        res, ref['runs'][phase] = staged_run(step)
+        if phase == '3pcf':
+            ref['zeta'] = {'corr_%d' % ell: np.asarray(
+                res.poles['corr_%d' % ell]) for ell in PB_POLES}
+        elif phase == 'cgm':
+            ref['cgm_rounds'] = res.rounds
+            np.savez(os.path.join(pt_dir, 'cgm.npz'), **{
+                c: res.groups[c].cpu().numpy() for c in DGR_CGM_COLUMNS})
+        elif phase == 'fibercollisions':
+            labels = res.labels['Label'].cpu().numpy()
+            slab = slab_relabel(labels)
+            pos = SkyToUnitSphere(dsky['RA'], dsky['DEC']).double()
+            collided, neighbors = res._assign_fibers(pos.cpu().numpy(), slab,
+                                                     PB_SEED)
+            np.savez(os.path.join(pt_dir, 'fiber.npz'), Label=slab,
+                     Collided=collided, NeighborID=neighbors)
+            ref['fiber_groups'] = int(slab.max())
+            ref['fiber_collided_one_rank'] = int(
+                res.labels['Collided'].sum())
+            ref['fiber_collided_slab_rule'] = int(collided.sum())
+        elif phase == 'direct_bispectrum':
+            ref['B'] = np.asarray(res.B['B'])
+            ref['ntri'] = np.asarray(res.B['ntri'])
+        else:
+            ref['galaxies'] = len(res)
+            np.savez(os.path.join(pt_dir, 'galaxies.npz'), **{
+                c: res[c].cpu().numpy() for c in DGR_GALAXY_COLUMNS})
+        del res
+    ref['modes'], ref['sum_abs_w'] = direct_modes(imprinted)
+    del cat, dsky, imprinted, halos
+    torch.cuda.empty_cache()
+    return ref
+
+
+@contextlib.contextmanager
+def captured_alm_calls():
+    """The args of every ``threept_alm_cuda`` call inside, in order (the
+    wrapper called through; its launches counted on the spy while it is
+    installed and given back on exit)."""
+    from nbodykit_tpu_torch.ops import threept_cuda as tc
+    orig = tc.threept_alm_cuda
+    calls = []
+
+    def spy(*a):
+        calls.append(a)
+        return orig(*a)
+    spy.launches = orig.launches
+    tc.threept_alm_cuda = spy
+    try:
+        yield calls
+    finally:
+        tc.threept_alm_cuda = orig
+        orig.launches = spy.launches
+
+
+def alm_chunk_check(where, chunk):
+    """The 3PCF moments kernel on one captured chunk (grid, w_s, p, live,
+    ci, r2edges, ells) against its plain version on every query, within
+    PB_RTOL of the largest moment; its time beside its bound (the
+    particles path's counts: its candidates and in-bin pairs)."""
+    from nbodykit_tpu_torch.ops import paircount_cuda as pc
+    from nbodykit_tpu_torch.ops import threept_cuda as tc
+    grid, w_s, p, live, ci, r2edges, ells = chunk
+    a = tc.threept_alm_cuda(*chunk)
+    b, plain_ms = timed(lambda: tc.threept_alm_plain(*chunk, block=128))
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    assert err <= PB_RTOL * scale, (where, 'threept_alm', err, scale)
+    del a, b
+    ms = cuda_ms(lambda: tc.threept_alm_cuda(*chunk), reps=3)
+    nq, n2 = p.shape[0], grid.pos_s.shape[0]
+    # the chunk's in-bin pairs: a cross count of its live queries
+    w1 = w_s[:nq].contiguous() if w_s.shape[0] >= nq else \
+        torch.ones(nq, dtype=torch.float64, device=p.device)
+    hn, _ = pc.paircount_hist_cuda(grid, w_s, p, w1, live, ci, r2edges,
+                                   '1d', is_auto=False)
+    inbin = int(hn[1:-1].sum())
+    cand = candidates(grid, ci, live)
+    nlm = len(tc.lm_table(ells)[0])
+    ops = cand * (pc.candidate_ops('1d', 2) - 1) + inbin * tc.ylm_ops(ells)
+    mma = inbin * tc.ylm_mma_ops(ells)
+    nbytes = tc.alm_bytes(nq, n2, grid.flat_s.element_size(),
+                          grid.columns().numel(), len(r2edges) - 1, nlm)
+    b_ms, b_by = bound(nbytes, ops, F64_UNFUSED_OPS,
+                       more=[(mma, F64_TC_FLOPS)])
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / ms, max_abs_err=err,
+                alm_max=scale, candidates=cand, inbin_pairs=inbin,
+                at='%s: %d queries (%d live owner copies) of n=%d copies, '
+                   '%d Y_lm, %d bins, %d candidates, %d in-bin pairs'
+                   % (where, nq, int(live.sum()), n2, nlm,
+                      len(r2edges) - 1, cand, inbin))
+
+
+@contextlib.contextmanager
+def captured_calls(module, names):
+    """{name: [(args, kwargs)]}: every call of ``module``'s functions
+    ``names`` inside, in order, each called through and put back on exit
+    (dispatchers, which look their kernels up when called: the kernels
+    count their launches as always)."""
+    origs = {name: getattr(module, name) for name in names}
+    calls = {name: [] for name in names}
+    for name, orig in origs.items():
+        def spy(*a, name=name, orig=orig, **kw):
+            calls[name].append((a, kw))
+            return orig(*a, **kw)
+        setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        for name, orig in origs.items():
+            setattr(module, name, orig)
+
+
+def captured_draws():
+    """The HOD's draws inside: the calls of ``rng``'s threefry_fill and
+    poisson_threefry dispatchers (:func:`captured_calls`)."""
+    from nbodykit_tpu_torch import rng
+    return captured_calls(rng, ('threefry_fill', 'poisson_threefry'))
+
+
+def fof_links_checks(where, link_calls):
+    """One FOF's link count and fill, replayed on their captured inputs
+    (``link_kernel_checks``), and the first links sweep on the links
+    they give (``links_sweep_check``), each against its plain version,
+    bit for bit, timed beside its bound. Returns ({kernel: record},
+    lines)."""
+    names = [c[0] for c in link_calls]
+    assert names == ['fof_link_count_cuda', 'fof_link_fill_cuda'], names
+    a = link_calls[0][1]
+    (recs, row, links, _), lines = _quiet(
+        link_kernel_checks, where, a[:4], a[4], a[5:10], turns=False)
+    recs['fof_sweep'] = links_sweep_check(where, row, links)
+    return recs, lines
+
+
+def draws_checks(where, calls):
+    """The HOD's draws replayed: every threefry_fill call (key, counter,
+    n, kind, bounds) and the Poisson draw of the satellite counts
+    against their plain versions, bit for bit; the largest fill and the
+    Poisson draw timed beside their bounds (the bytes of their inputs
+    and outputs, the hashes this lam takes). Returns {kernel:
+    record}."""
+    from nbodykit_tpu_torch.ops import threefry_cuda as tf
+    _, opcodes = sass_hash_ops()
+    fills = calls['threefry_fill']
+    for a, kw in fills:
+        nd, ulp = _same(tf.threefry_fill_cuda(*a, **kw),
+                        tf.threefry_fill_plain(*a, **kw))
+        assert nd == 0, "%s: %s n=%d, %d differ (%d ulp)" % (
+            where, a[3], a[2], nd, ulp)
+    a, kw = max(fills, key=lambda c: c[0][2])
+    n, kind = a[2], a[3]
+    ms = cuda_ms(lambda: tf.threefry_fill_cuda(*a, **kw), reps=5)
+    _, plain_ms = timed(lambda: tf.threefry_fill_plain(*a, **kw))
+    b_ms, b_by = threefry_bound(n * tf.DTYPES[kind].itemsize, n, opcodes)
+    recs = {'threefry_fill': dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=0, share_of_bound=b_ms / ms,
+        at='%s: %s n=%d, the largest of %d draws (all bit for bit)'
+           % (where, kind, n, len(fills)))}
+    (pois,) = calls['poisson_threefry']
+    key, lam = pois[0]
+    sk, sp = {}, {}
+    got = tf.poisson_threefry_cuda(key, lam, stats=sk)
+    want, plain_ms = timed(lambda: tf.poisson_threefry_plain(key, lam,
+                                                             stats=sp))
+    nd = int((got != want).sum())
+    assert nd == 0, "%s: %d Poisson counts differ" % (where, nd)
+    assert sk['hashes'] == sp['hashes'], (sk, sp)
+    del got, want
+    ms = cuda_ms(lambda: tf.poisson_threefry_cuda(key, lam), reps=5)
+    n = lam.numel()
+    b_ms, b_by = threefry_bound(n * (lam.element_size() + 8), sk['hashes'],
+                                opcodes)
+    recs['poisson_threefry'] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=0, share_of_bound=b_ms / ms,
+        at='%s: %s lam of %d halos -> int64 counts, %d hashes'
+           % (where, str(lam.dtype)[6:], n, sk['hashes']))
+    return recs
+
+
+def dist_groups_rank(mesh, pt_dir):
+    """One rank of ``dist_groups``: each configuration of
+    ``dist_groups_steps`` once on this rank's rows, staged; the zetas, B,
+    ntri, modes and CGM's rounds returned for the parent's checks; CGM's
+    and FiberCollisions' columns and the galaxies gathered to rank 0 and
+    held against the one-rank run bit for bit; the routes' rank passes
+    at D = P (3PCF, CGM, FiberCollisions' FOF) against their plain
+    versions; on rank 0, replayed on the inputs the run gave them and
+    timed beside their bounds: the 3PCF's first moments chunk,
+    FiberCollisions' link count, link fill and links sweep
+    (``fof_links_checks``) and populate's draws (``draws_checks``)."""
+    from nbodykit_tpu_torch.parallel.domain import slab_route
+    from nbodykit_tpu_torch.transform import SkyToUnitSphere
+    from nbodykit_tpu_torch.utils import GatherArray
+    cat, _, dsky = dist_particle_catalogs(pt_dir, mesh)
+    imprinted = imprinted_catalog(comm=mesh)
+    halos = dist_halo_catalog(pt_dir, mesh)
+    out = dict(runs={}, n_rows=len(cat), lines=[], kernels={})
+    load = lambda name: np.load(os.path.join(pt_dir, name + '.npz'))  # noqa
+    where = 'dist %%s rank 0 of %d' % mesh.size
+    # the phases whose kernel inputs are captured in the run
+    spies = {'3pcf': captured_alm_calls,
+             'fibercollisions': captured_link_calls,
+             'populate': captured_draws}
+    alm_calls = []
+    for phase, step in dist_groups_steps(cat, dsky, imprinted, halos):
+        t1 = time.perf_counter()
+        with spies.get(phase, contextlib.nullcontext)() as calls:
+            res, rec = staged_run(step, mesh)
+        out['runs'][phase] = rec
+        launches = rec['launches']
+        if phase == '3pcf':
+            assert res.branch == 'slab', res.branch
+            assert launches['threept_alm'] >= 1 and \
+                launches['radix_rank'] >= 2, launches
+            out['zeta'] = {'corr_%d' % ell: np.asarray(
+                res.poles['corr_%d' % ell]) for ell in PB_POLES}
+            alm_calls = calls
+        elif phase == 'cgm':
+            assert res.branch == 'slab' and launches['radix_rank'] >= 2, \
+                (res.branch, launches)
+            out['cgm_rounds'] = res.rounds
+            cols = {c: GatherArray(res.groups[c], mesh, root=0)
+                    for c in DGR_CGM_COLUMNS}
+            if mesh.rank == 0:
+                want = load('cgm')
+                for c in DGR_CGM_COLUMNS:
+                    assert np.array_equal(cols[c], want[c]), \
+                        "dist_groups CGM: %s differs from one rank's" % c
+                out['cgm_identical'] = True
+        elif phase == 'fibercollisions':
+            for name in ('fof_link_count', 'fof_link_fill', 'radix_rank'):
+                assert launches[name] >= 1, launches
+            cols = {c: GatherArray(res.labels[c], mesh, root=0)
+                    for c in DGR_FIBER_COLUMNS}
+            if mesh.rank == 0:
+                want = load('fiber')
+                for c in DGR_FIBER_COLUMNS:
+                    assert np.array_equal(cols[c], want[c]), \
+                        "dist_groups FiberCollisions: %s differs from " \
+                        "the slab-rule oracle" % c
+                out['fiber_identical'] = True
+        elif phase == 'direct_bispectrum':
+            out['B'] = np.asarray(res.B['B'])
+            out['ntri'] = np.asarray(res.B['ntri'])
+        else:
+            assert res.comm is halos.comm
+            assert launches['threefry_fill'] >= 1 and \
+                launches['poisson_threefry'] >= 1, launches
+            out['galaxies'] = res.csize
+            cols = {c: GatherArray(res[c], mesh, root=0)
+                    for c in DGR_GALAXY_COLUMNS}
+            if mesh.rank == 0:
+                want = load('galaxies')
+                for c in DGR_GALAXY_COLUMNS:
+                    assert np.array_equal(cols[c], want[c]), \
+                        "dist_groups populate: %s differs" % c
+                out['galaxies_identical'] = True
+        rec['seconds'] = time.perf_counter() - t1
+        del res
+        if mesh.rank == 0 and phase == 'fibercollisions':
+            recs, lines = fof_links_checks(where % phase, calls)
+            out['kernels'].update(recs)
+            out['lines'] += lines
+        elif mesh.rank == 0 and phase == 'populate':
+            out['kernels'].update(draws_checks(where % phase, calls))
+        calls = None
+        torch.cuda.empty_cache()
+    out['modes'], _ = direct_modes(imprinted, mesh)
+    # the routes' rank passes at D = P
+    pos = cat['Position'].double()
+    sphere = SkyToUnitSphere(dsky['RA'], dsky['DEC']).double() + 2.0
+    chord = 2 * np.sin(0.5 * np.radians(62. / 60. / 60.))
+    routes = (('3pcf', pos, PB_BOX, PB_3PT_EDGES[-1], 'both'),
+              ('cgm', pos, PB_BOX, float(np.sqrt(2 ** 2 + 10 ** 2)), 'both'),
+              ('fibercollisions', sphere, 4.0, chord, 'down'))
+    for label, p, box, rmax, ghosts in routes:
+        route, _, _ = slab_route(p, box, rmax, mesh, ghosts=ghosts,
+                                 balance=True)
+        same, rec0, lines = route_rank_check(mesh, route.dest)
+        assert same
+        out['lines'] += lines
+        out['kernels']['rank_' + label] = rec0
+        del route
+    del cat, dsky, imprinted, halos, pos, sphere
+    if mesh.rank == 0:
+        out['kernels']['threept_alm'] = alm_chunk_check(where % '3pcf',
+                                                        alm_calls[0])
+    del alm_calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_groups_phases(nproc, backend, recs, ref):
+    """The parent's checks of dist_groups at ``nproc`` ranks against the
+    one-rank runs, and its line. Returns ({'dist_groups_P<n>': launches
+    summed over the ranks and phases}, rank 0's kernel records)."""
+    grs = [rec['groups'] for rec in recs]
+    for c in grs:
+        for line in c.pop('lines'):
+            emit(dict(line, dist_ranks=nproc))
+    assert sum(c['n_rows'] for c in grs) == ref['n_rows']
+    zeta_worst = 0.0
+    for c in grs:
+        for col, want in ref['zeta'].items():
+            d = float(np.abs(c['zeta'][col] - want).max()
+                      / np.abs(want).max())
+            assert d <= DGR_ZETA_RTOL, ("dist_groups 3PCF", nproc, col, d)
+            zeta_worst = max(zeta_worst, d)
+        assert c['cgm_rounds'] == ref['cgm_rounds'], \
+            (c['cgm_rounds'], ref['cgm_rounds'])
+        assert c['galaxies'] == ref['galaxies']
+    closed = ~np.isnan(ref['B'])
+    b_worst, m_worst = 0.0, 0.0
+    for c in grs:
+        assert np.array_equal(np.nan_to_num(c['ntri'], nan=-1.0),
+                              np.nan_to_num(ref['ntri'], nan=-1.0)), \
+            "dist_groups direct B P=%d: ntri differs" % nproc
+        d = float(np.abs(c['B'][closed] - ref['B'][closed]).max()
+                  / np.abs(ref['B'][closed]).max())
+        assert d <= DBS_B_RTOL, ("dist_groups direct B", nproc, d)
+        b_worst = max(b_worst, d)
+        dm = float(np.abs(c['modes'] - ref['modes']).max()
+                   / ref['sum_abs_w'])
+        assert dm <= DGR_MODES_RTOL, ("dist_groups modes", nproc, dm)
+        m_worst = max(m_worst, dm)
+    g0 = grs[0]
+    assert g0['cgm_identical'] and g0['fiber_identical'] and \
+        g0['galaxies_identical'], g0
+
+    def summed(runs):
+        return {k: sum(run['launches'][k] for run in runs)
+                for k in runs[0]['launches']}
+    launches = {'dist_groups_P%d' % nproc: summed(
+        [r for c in grs for r in c['runs'].values()])}
+    emit({'phase': 'dist_groups', 'ranks': nproc, 'box': PB_BOX,
+          'phases': DGR_PHASES, 'backend': backend,
+          'setting': DIST_SETTINGS[backend],
+          'zeta_max_rel_diff_vs_one_rank': zeta_worst,
+          'zeta_rtol': DGR_ZETA_RTOL, 'cgm_identical': True,
+          'cgm_rounds': ref['cgm_rounds'],
+          'fiber_identical_to_slab_rule_oracle': True,
+          'fiber_groups': ref['fiber_groups'],
+          'fiber_collided': dict(one_rank=ref['fiber_collided_one_rank'],
+                                 slab_rule=ref['fiber_collided_slab_rule']),
+          'direct_B_max_rel_diff_vs_one_rank': b_worst,
+          'direct_B_rtol': DBS_B_RTOL, 'ntri_identical': True,
+          'modes_max_diff_over_sum_abs_w': m_worst,
+          'modes_rtol': DGR_MODES_RTOL, 'galaxies': ref['galaxies'],
+          'galaxies_identical': True, 'one_rank': ref['runs'],
+          'per_rank': [dict(rank=rec['rank'], n_rows=c['n_rows'],
+                            runs=c['runs']) for rec, c in zip(recs, grs)],
+          'kernels_rank0': g0['kernels']})
+    return launches, {'gr_' + k: v for k, v in g0['kernels'].items()}
+
+
+def dist_task(seed):
+    """One TaskManager task of dist_tasks: FFTPower (1d, CIC,
+    compensated) of a seeded UniformCatalog at DTK_NMESH on the ambient
+    mesh (the task's group)."""
+    from nbodykit_tpu_torch.lab import FFTPower, UniformCatalog
+    cat = UniformCatalog(nbar=DTK_NBAR, BoxSize=DTK_BOX, seed=seed)
+    r = FFTPower(cat.to_mesh(Nmesh=DTK_NMESH, resampler='cic',
+                             compensated=True), mode='1d')
+    return dict(power=np.asarray(r.power['power'].real),
+                modes=np.asarray(r.power['modes']), csize=cat.csize,
+                ranks=1 if cat.comm is None else cat.comm.size)
+
+
+def dist_tasks_reference():
+    """The one-rank runs of dist_tasks' tasks, staged as a rank's."""
+    res, rec = staged_run(lambda: [dist_task(s) for s in DTK_SEEDS])
+    return dict(run=rec, power=res)
+
+
+def dist_tasks_rank(mesh):
+    """One rank of ``dist_tasks``: ``TaskManager(DTK_CPUS)`` over the
+    world maps dist_task over DTK_SEEDS, once, staged; every rank
+    returns every task's result. Replayed on the inputs that the run
+    gave them, against their plain versions: the bucket rank of this
+    rank's first exchange (its first task's paint, D = its group's
+    ranks), bit for bit; on rank 0 that task's deposit, each timed
+    beside its bound."""
+    from nbodykit_tpu_torch.batch import TaskManager
+    from nbodykit_tpu_torch.ops import paint, radix_cuda
+    from nbodykit_tpu_torch.parallel.runtime import CurrentMesh
+    with TaskManager(DTK_CPUS, comm=mesh) as tm, \
+            captured_calls(radix_cuda, ('pass_rank_hist',)) as ranks, \
+            captured_calls(paint, ('deposit_blocks',)) as deposits:
+        group = CurrentMesh.get()
+        res, rec = staged_run(lambda: tm.map(dist_task, DTK_SEEDS), mesh)
+    for name, want in (('paint_deposit', 1), ('radix_rank', 2)):
+        assert rec['launches'][name] >= want, rec['launches']
+    out = dict(run=rec, power=res, lines=[], kernels={})
+    (digit, D), _ = ranks['pass_rank_hist'][0]
+    assert D == group.size == DTK_CPUS, (D, group.size)
+    _, out['kernels']['rank'], out['lines'] = route_rank_check(
+        group, digit, times=mesh.rank == 0)
+    if mesh.rank == 0:
+        payload, kw = deposits['deposit_blocks'][0]
+        geom = dict(kw)
+        ck = geom.pop('ck')
+        label = 'dist_tasks: %s, the first task\'s deposit, rank 0 of ' \
+            'the group of %d' % (geom['resampler'], group.size)
+        (err, _), lines = _quiet(payload_deposit_check, label, payload,
+                                 geom, ck)
+        out['lines'] += lines
+        out['kernels']['deposit'] = time_deposit(
+            payload, geom, dict(ck=ck, rb=geom['rb'], cb=geom['cb']), err)
+    return out
+
+
+def dist_tasks_phase(nproc, backend, recs, ref):
+    """The parent's checks of dist_tasks: every rank's results, in task
+    order, each task's modes identical to its one-rank run's and P(k)
+    within DIST_PK_RTOL; its line. Returns ({'dist_tasks_P<n>':
+    launches summed over the ranks}, rank 0's kernel records)."""
+    tks = [rec['tasks'] for rec in recs]
+    for c in tks:
+        for line in c.pop('lines'):
+            emit(dict(line, dist_ranks=nproc))
+    worst = 0.0
+    for c in tks:
+        assert len(c['power']) == len(DTK_SEEDS)
+        for got, want in zip(c['power'], ref['power']):
+            assert got['ranks'] == DTK_CPUS and got['csize'] == want['csize']
+            assert np.array_equal(got['modes'], want['modes'])
+            worst = max(worst, _pk_close(
+                {k: got[k] for k in ('power', 'modes')},
+                {k: want[k] for k in ('power', 'modes')},
+                'dist_tasks P=%d task %d' % (nproc, got['csize'])))
+    launches = {'dist_tasks_P%d' % nproc: {
+        k: sum(c['run']['launches'][k] for c in tks)
+        for k in tks[0]['run']['launches']}}
+    emit({'phase': 'dist_tasks', 'ranks': nproc, 'cpus_per_task': DTK_CPUS,
+          'tasks': len(DTK_SEEDS), 'nmesh': DTK_NMESH, 'backend': backend,
+          'setting': DIST_SETTINGS[backend],
+          'pk_max_rel_diff_vs_one_rank': worst, 'modes_identical': True,
+          'one_rank': ref['run'],
+          'per_rank': [dict(rank=rec['rank'], run=c['run'],
+                            seconds=c['seconds'])
+                       for rec, c in zip(recs, tks)],
+          'kernels_rank0': tks[0]['kernels']})
+    return launches, {'tk_' + k: v for k, v in tks[0]['kernels'].items()}
 
 
 def run_ranks(target, nproc, args, timeout_s=600):
@@ -3307,8 +3931,9 @@ def dist_main(run, nmesh, backend='gloo'):
     within main_path's 1e-5 of its largest value, the mean of 1 + delta;
     every rank's rank pass bit for bit and rank 0's deposit within its
     tolerance. The same worlds run dist_convpower, dist_recon,
-    dist_bispectrum, dist_forward, dist_fof and dist_particles against
-    one-rank runs made here first. Returns {'dist_main_P<n>': {kernel: launches summed over the
+    dist_bispectrum, dist_forward, dist_fof, dist_particles, dist_groups
+    and (at DTK_RANKS) dist_tasks against one-rank runs made here
+    first. Returns {'dist_main_P<n>': {kernel: launches summed over the
     ranks}, 'dist_convpower_P<n>': ..., ...} and the kernels' records at
     each P."""
     import tempfile
@@ -3339,6 +3964,8 @@ def dist_main(run, nmesh, backend='gloo'):
         os.makedirs(pt_dir)
         fof_ref = dist_fof_reference(rc_pos_path, pt_dir)
         pt_ref = dist_particles_reference(pt_dir)
+        gr_ref = dist_groups_reference(pt_dir)
+        tk_ref = dist_tasks_reference()
         emit({'phase': 'dist_one_rank_references',
               'seconds': time.perf_counter() - t_ref})
         for nproc in DIST_RANKS:
@@ -3392,6 +4019,15 @@ def dist_main(run, nmesh, backend='gloo'):
                 nproc, backend, recs, fof_ref, pt_ref)
             launches.update(pt_launches)
             kernel_recs[nproc].update(pt_kernels)
+            gr_launches, gr_kernels = dist_groups_phases(nproc, backend,
+                                                         recs, gr_ref)
+            launches.update(gr_launches)
+            kernel_recs[nproc].update(gr_kernels)
+            if nproc in DTK_RANKS:
+                tk_launches, tk_kernels = dist_tasks_phase(
+                    nproc, backend, recs, tk_ref)
+                launches.update(tk_launches)
+                kernel_recs[nproc].update(tk_kernels)
     finally:
         shutil.rmtree(workroot, ignore_errors=True)
     emit({'phase': 'dist_main_total', 'seconds': time.perf_counter() - t0})
@@ -3976,7 +4612,9 @@ def fftrecon_path(data):
 
 # the convpower path's randoms: 10 nbar at the same box, seed 84
 IO_RANDOMS_SEED = 84
-IO_REPS = 2
+# timed repetitions of each save and load (cut from 2 for the script's
+# time, PERF.md section 4)
+IO_REPS = 1
 # per-bin |P| agreement of two runs that differ only in the order of the
 # deposit's f32 atomic adds
 IO_POWER_RTOL = 1e-5
@@ -4896,10 +5534,11 @@ def forward_plan(ndevices=1):
                        pm_steps=FW_STEPS)['peak_bytes'] / 1e9
 
 
-def imprinted_catalog(npart=BS_NPART, L=BS_BOX, seed=BS_SEED):
+def imprinted_catalog(npart=BS_NPART, L=BS_BOX, seed=BS_SEED, comm=None):
     """bench.py's bispectrum catalog: numpy uniform positions from
     RandomState(seed + 11) and weights (1 + g / 2)^2, g a sum of eight
-    low-|q| cosines, as an f8 ArrayCatalog on the card."""
+    low-|q| cosines, as an f8 ArrayCatalog on the card (this rank's rows
+    of ``comm``'s ranks)."""
     from nbodykit_tpu_torch.lab import ArrayCatalog
     rng = np.random.RandomState(seed + 11)
     pos = rng.uniform(0.0, L, size=(npart, 3))
@@ -4908,8 +5547,9 @@ def imprinted_catalog(npart=BS_NPART, L=BS_BOX, seed=BS_SEED):
               (1, 0, 1), (2, 0, 0), (1, 1, 1)]:
         ph = rng.uniform(0, 2 * np.pi)
         g += 0.4 * np.cos(2 * np.pi * (pos @ np.array(m)) / L + ph)
+    kw = dict(device='cuda') if comm is None else dict(comm=comm)
     return ArrayCatalog({'Position': pos, 'Weight': (1.0 + 0.5 * g) ** 2},
-                        device='cuda', BoxSize=L)
+                        BoxSize=L, **kw)
 
 
 def fft_triangle_oracle(N=16, L=100.0, nbins=4):
@@ -5424,8 +6064,10 @@ def main():
 
     cp_mesh, cp_launches = convpower_path()
     convpower_stages(cp_mesh)
+    # the device only: with the host's ops the profile took ~58 s beyond
+    # its run (PERF.md section 4)
     profile_main_path(lambda: convpower_algorithm(cp_mesh),
-                      'convpower_1024')
+                      'convpower_1024', host_ops=False)
     cp_dep, cp_rank = convpower_kernels(cp_mesh)
     del cp_mesh
     torch.cuda.empty_cache()
@@ -5489,10 +6131,12 @@ def main():
         return dict(counted('fof_sweep'),
                     launches_by_mode={k: m['launches']
                                       for k, m in by_mode.items()})
-    def at_dist(key, label):
-        """Rank 0's record of a kernel on a dist phase, at each P."""
+    def at_dist(key, label, ranks=None):
+        """Rank 0's record of a kernel on a dist phase, at each P (of
+        ``ranks``, where the phase runs at those only)."""
         return {'at_%s_P%d' % (label, p): k[key]
-                for p, k in dist_kernels.items()}
+                for p, k in dist_kernels.items()
+                if ranks is None or p in ranks}
     fof_src = 'nbodykit_tpu_torch/csrc/fof_sweep.cu'
     fof_replaces = ('nbodykit_tpu/ops/devicehash.py:190 neighbor_min (XLA '
                     'while_loop of gathers; no Pallas kernel)')
@@ -5517,7 +6161,11 @@ def main():
              **{'at_dist_fof_P%d' % p: k['fof_rank']
                 for p, k in dist_kernels.items()},
              **{'at_dist_particles_P%d' % p: k['pt_rank']
-                for p, k in dist_kernels.items()}),
+                for p, k in dist_kernels.items()},
+             **{'at_dist_%s_P%d' % (label, p): k['gr_rank_' + label]
+                for p, k in dist_kernels.items()
+                for label in ('3pcf', 'cgm', 'fibercollisions')},
+             **at_dist('tk_rank', 'dist_tasks', DTK_RANKS)),
         dict(name='paint_deposit', route='cuda',
              source='nbodykit_tpu_torch/csrc/paint_deposit.cu',
              replaces='nbodykit_tpu/ops/paint_pallas.py:37',
@@ -5531,24 +6179,30 @@ def main():
              **{'at_dist_recon_P%d' % p: k['rc_deposit']
                 for p, k in dist_kernels.items()},
              **{'at_dist_bispectrum_P%d' % p: k['bs_deposit']
-                for p, k in dist_kernels.items()}),
+                for p, k in dist_kernels.items()},
+             **at_dist('tk_deposit', 'dist_tasks', DTK_RANKS)),
         dict(name='threefry_fill', route='cuda', source=rng_src,
-             replaces=rng_replaces, **counted('threefry_fill'), **tf_rec),
+             replaces=rng_replaces, **counted('threefry_fill'), **tf_rec,
+             **at_dist('gr_threefry_fill', 'dist_populate')),
         dict(name='poisson_threefry', route='cuda', source=rng_src,
              replaces=rng_replaces, **poisson_counted(),
-             **pois_modes['occupied_cells'], modes=pois_modes),
+             **pois_modes['occupied_cells'], modes=pois_modes,
+             **at_dist('gr_poisson_threefry', 'dist_populate')),
         dict(name='fof_sweep', route='cuda', source=fof_src,
              replaces=fof_replaces, **fof_sweep_counted(),
-             **fof_recs['fof_sweep'], **at_dist('fof_sweep', 'dist_fof')),
+             **fof_recs['fof_sweep'], **at_dist('fof_sweep', 'dist_fof'),
+             **at_dist('gr_fof_sweep', 'dist_fibercollisions')),
         dict(name='fof_link_count', route='cuda', source=fof_src,
              replaces=fof_replaces, **counted('fof_link_count'),
              **fof_recs['fof_link_count'],
              **at_dist('fof_link_count', 'dist_fof'),
-             **at_dist('kdd_link_count', 'dist_particles_kddensity')),
+             **at_dist('kdd_link_count', 'dist_particles_kddensity'),
+             **at_dist('gr_fof_link_count', 'dist_fibercollisions')),
         dict(name='fof_link_fill', route='cuda', source=fof_src,
              replaces=fof_replaces, **counted('fof_link_fill'),
              **fof_recs['fof_link_fill'],
-             **at_dist('fof_link_fill', 'dist_fof')),
+             **at_dist('fof_link_fill', 'dist_fof'),
+             **at_dist('gr_fof_link_fill', 'dist_fibercollisions')),
         dict(name='paircount_hist', route='cuda',
              source='nbodykit_tpu_torch/csrc/paircount.cu',
              replaces=('nbodykit_tpu/algorithms/pair_counters/core.py:103 '
@@ -5559,7 +6213,8 @@ def main():
              source='nbodykit_tpu_torch/csrc/threept_alm.cu',
              replaces=('nbodykit_tpu/algorithms/threeptcf.py:58 the fold '
                        'body of chunk_zeta (XLA; no Pallas kernel)'),
-             **counted('threept_alm'), **pb_alm),
+             **counted('threept_alm'), **pb_alm,
+             **at_dist('gr_threept_alm', 'dist_3pcf')),
     ]
     for kern in kernels:
         kern['share_of_bound'] = kern['bound_ms'] / kern['ms']

@@ -50,7 +50,7 @@ from ..ops.histogram import lattice_shell_edges
 from ..ops.pairblock import DEFAULT_TILE
 from ..utils import as_numpy, stage
 from .fftpower import FFTBase
-from ..parallel.runtime import require_one_rank
+from ..parallel.runtime import mesh_size
 
 
 def shell_filtered_field(pm, cplx, lo2, hi2, isq=None):
@@ -233,7 +233,9 @@ def direct_bispectrum(pos, w, BoxSize, nbins, tile=None, comm=None):
     :func:`~nbodykit_tpu_torch.ops.pairblock.pairblock_sum` on the
     device of ``pos``, host triangle combination. ``(B, ntri)`` as
     (nbins,)*3 host arrays, NaN where no closed (unwrapped) triangle
-    exists. ``comm`` is :func:`pairblock_sum`'s."""
+    exists. ``comm`` is :func:`pairblock_sum`'s: across ranks ``pos``
+    and ``w`` are this rank's rows, the modes and the weight total are
+    sums over the ranks, and every rank combines the triangles."""
     from ..ops.pairblock import lattice_kvecs, pairblock_sum
 
     BoxSize = np.ones(3) * np.asarray(BoxSize, dtype='f8')
@@ -243,7 +245,10 @@ def direct_bispectrum(pos, w, BoxSize, nbins, tile=None, comm=None):
     pos = torch.as_tensor(pos)
     w = torch.as_tensor(w, device=pos.device)
     modes = pairblock_sum(pos, w, kv, tile=tile, comm=comm)
-    W = float(torch.sum(w))
+    W = torch.sum(w)
+    if mesh_size(comm) > 1:
+        W = comm.all_reduce(W.to(torch.float64))
+    W = float(W)
     d_half = as_numpy(modes) / W
 
     # conjugate expansion to the full sphere
@@ -266,8 +271,8 @@ class Bispectrum(FFTBase):
     and ``tile=None`` resolve as the JAX package's tuner does on a cold
     cache, to ``'fft'`` and tile 1024 (the port has no tuner). The
     direct path sums over particles and needs a catalog source. The FFT
-    path runs across the ranks of the source's ``comm``; the direct
-    path on one rank only (its sharded pairblock sum is not ported).
+    path runs across the ranks of the source's ``comm``, and so does
+    the direct path (each rank's particles summed, one reduce).
 
     Results land in :attr:`B`, a ``BinnedStatistic`` over ``(k1, k2,
     k3)`` with fields ``B`` and ``ntri`` (NaN outside the
@@ -296,11 +301,11 @@ class Bispectrum(FFTBase):
             tile = DEFAULT_TILE
 
         if method == 'direct':
-            require_one_rank(source, "Bispectrum(method='direct')")
             box = BoxSize if BoxSize is not None \
                 else source.attrs['BoxSize']
             box = np.ones(3) * np.asarray(box, dtype='f8')
             self.first = self.second = source
+            self.comm = source.comm
             self.device = source.device
             self.attrs = {'Nmesh': np.atleast_1d(
                 Nmesh if Nmesh is not None else 0),
@@ -309,7 +314,8 @@ class Bispectrum(FFTBase):
             w = source['Weight'] if 'Weight' in source \
                 else torch.ones(pos.shape[0], dtype=pos.dtype,
                                 device=pos.device)
-            B, ntri = direct_bispectrum(pos, w, box, nbins, tile=tile)
+            B, ntri = direct_bispectrum(pos, w, box, nbins, tile=tile,
+                                        comm=self.comm)
         else:
             FFTBase.__init__(self, source, None, Nmesh, BoxSize)
             c1 = self.first.compute(mode='complex',

@@ -1,6 +1,5 @@
 """CylindricalGroups: the cylinder-based group finder (counterpart of
-``nbodykit_tpu/algorithms/cgm.py``), on one device; the JAX package's
-routed, domain-decomposed rounds wait for the multi-GPU port.
+``nbodykit_tpu/algorithms/cgm.py``).
 
 Objects are ranked (e.g. by mass); an object is a satellite iff a
 higher-ranked central lies in the cylinder of radius ``rperp`` and half
@@ -11,6 +10,15 @@ the grid hash (:meth:`..ops.devicehash.DeviceGridHash.fold`, plain
 torch on the positions' device), from all-central to no change. Ranks
 are unique and the test ``rank[j] < best`` strict, so every round gives
 the JAX package's round exactly.
+
+Across ranks (a catalog with a ``comm`` of P ranks) the rank order is
+the JAX package's global lexsort of the gathered ``rankby`` keys, and
+the rounds run domain-decomposed where the cylinder's radius fits a
+slab (:func:`_cgm_rounds_dist`): the particles and their ghosts go to
+the owners of balanced x-slabs once, and each round ships the central
+flags along that frozen route, sweeps every copy a rank holds, and
+sends the owner copies' verdicts back to their rows, until no flag
+changes on any rank. A wider radius gathers the catalog on every rank.
 """
 
 import logging
@@ -19,9 +27,9 @@ import numpy as np
 import torch
 
 from ..ops.devicehash import DeviceGridHash
-from ..source.catalog.array import ArrayCatalog
+from ..source.catalog.array import rows_catalog
 from ..utils import as_numpy
-from ..parallel.runtime import require_one_rank
+from ..parallel.runtime import mesh_size
 
 # slots of one neighbour offset a step of the fold
 FOLD_BLOCK = 8
@@ -64,18 +72,19 @@ def _cylinder_sweep(grid, rank_s, central_s, los, rperp, rpar):
     return bestj
 
 
-def _cgm_classify(pos, rank, box, rperp, rpar, los, periodic):
-    """(satellite mask, haloid) in input order, numpy; haloid -1 for
-    centrals. ``rank``: (N,) int32 tensor, 0 the highest priority;
-    ``box`` None: non-periodic in the data's extent plus 1e-3."""
+def _open_box(pos, mesh):
+    """(pos shifted by its least corner, the non-periodic work box): the
+    data's extent plus 1e-3, over every rank's positions."""
+    from ..parallel.domain import global_bounds
+    lo, hi = global_bounds(pos, mesh)
+    lo, hi = lo.to(pos.dtype), hi.to(pos.dtype)
+    return pos - lo, (hi - lo).cpu().numpy() + 1e-3
+
+
+def _cgm_rounds(pos, rank, work, rperp, rpar, los, periodic):
+    """(satellite mask, haloid, rounds) in input order, tensors, on one
+    device; haloid -1 for centrals, else the central's index."""
     rmax = float(np.sqrt(rperp ** 2 + rpar ** 2))
-    if box is None:
-        lo = pos.min(dim=0).values
-        work = (pos.max(dim=0).values - lo).cpu().numpy() + 1e-3
-        pos = pos - lo
-        periodic = False
-    else:
-        work = np.ones(3) * np.asarray(box, dtype='f8')
     N = pos.shape[0]
     grid = DeviceGridHash(pos, work, rmax, periodic=periodic)
     rank_s = rank[grid.order]
@@ -94,7 +103,98 @@ def _cgm_classify(pos, rank, box, rperp, rpar, los, periodic):
     sat[order] = bestj >= 0
     haloid = torch.full((N,), -1, dtype=torch.int64, device=pos.device)
     haloid[order] = haloid_s
-    return as_numpy(sat), as_numpy(haloid).astype('i4'), rounds
+    return sat, haloid, rounds
+
+
+def _cgm_rounds_dist(pos, rank, work, rperp, rpar, los, periodic, mesh):
+    """(satellite mask, haloid, rounds) of this rank's rows across the
+    ranks of ``mesh`` (the JAX package's routed rounds): haloid is the
+    central's global index.
+
+    1. Route once (:func:`..parallel.domain.slab_route`, ``'both'`` at
+       sqrt(rperp^2 + rpar^2), balanced slabs) with the global ids,
+       ranks and owner flags; one grid over the copies a rank holds.
+    2. Each round ships the central flags along the frozen route,
+       sweeps the local grid, and reduces the owner copies' satellite
+       flags into their rows (:func:`..parallel.domain.scatter_reduce_by_index`,
+       'max').
+    3. An ``all_reduce`` of 'changed' ends the rounds on every rank
+       together."""
+    from ..parallel.domain import (rows_layout, scatter_reduce_by_index,
+                                   slab_route)
+    rmax = float(np.sqrt(rperp ** 2 + rpar ** 2))
+    n = pos.shape[0]
+    dev = pos.device
+    counts, start = rows_layout(n, mesh)
+    N = sum(counts)
+    route, f, _ = slab_route(pos, work, rmax, mesh, ghosts='both',
+                             periodic=periodic, balance=True)
+    gid = start + torch.arange(n, dtype=torch.int64, device=dev)
+    own = torch.zeros(f * n, dtype=torch.bool, device=dev)
+    own[:n] = True
+    (pos_r, gid_r, rank_r, own_r), ok, _ = route.exchange(
+        [pos, gid, rank, own])
+    got = torch.nonzero(ok).squeeze(1)
+    # the copies this rank holds, in the order of its grid's slots (a
+    # rank that holds none sweeps nothing)
+    grid = DeviceGridHash(pos_r[got].contiguous(), work, rmax,
+                          periodic=periodic) if got.shape[0] else None
+    order = got[grid.order] if grid is not None else got
+    gid_s, rank_s, own_s = gid_r[order], rank_r[order], own_r[order]
+    central = torch.ones(n, dtype=torch.bool, device=dev)
+    bestj = torch.empty(0, dtype=torch.int64, device=dev)
+    rounds = 0
+    while True:
+        (central_r,), _, _ = route.exchange([central])
+        if grid is not None:
+            bestj = _cylinder_sweep(grid, rank_s, central_r[order], los,
+                                    rperp, rpar)
+        sat = scatter_reduce_by_index(
+            gid_s, (bestj >= 0).to(torch.int32), N, mesh, op='max',
+            valid=own_s, counts=counts) > 0
+        rounds += 1
+        changed = mesh.all_reduce(
+            (sat == central).any().to(torch.int32).reshape(1), 'max')
+        central = ~sat
+        if not int(changed):
+            break
+    haloid_s = torch.where(bestj >= 0, gid_s[torch.clamp(bestj, min=0)], -1)
+    haloid = scatter_reduce_by_index(gid_s, haloid_s, N, mesh, op='max',
+                                     valid=own_s, counts=counts)
+    return sat, torch.where(sat, haloid, -1), rounds
+
+
+def _cgm_classify(pos, rank, box, rperp, rpar, los, periodic, mesh=None):
+    """(satellite mask, haloid, rounds, branch) for this rank's rows,
+    numpy; haloid -1 for centrals, else the central's (global) index.
+    ``rank``: this rank's rows of the (N,) int32 global rank, 0 the
+    highest priority; ``box`` None: non-periodic in the data's extent
+    plus 1e-3."""
+    from ..parallel.domain import allgather_rows, rows_layout
+    rmax = float(np.sqrt(rperp ** 2 + rpar ** 2))
+    if box is None:
+        pos, work = _open_box(pos, mesh)
+        periodic = False
+    else:
+        work = np.ones(3) * np.asarray(box, dtype='f8')
+    nproc = mesh_size(mesh)
+    if nproc > 1 and rmax <= work[0] / nproc:
+        sat, haloid, rounds = _cgm_rounds_dist(pos, rank, work, rperp, rpar,
+                                               los, periodic, mesh)
+        branch = 'slab'
+    elif nproc > 1:
+        counts, start = rows_layout(pos.shape[0], mesh)
+        sat, haloid, rounds = _cgm_rounds(
+            allgather_rows(pos, mesh), allgather_rows(rank, mesh), work,
+            rperp, rpar, los, periodic)
+        rows = slice(start, start + counts[mesh.rank])
+        sat, haloid = sat[rows], haloid[rows]
+        branch = 'gathered'
+    else:
+        sat, haloid, rounds = _cgm_rounds(pos, rank, work, rperp, rpar, los,
+                                          periodic)
+        branch = 'one_rank'
+    return as_numpy(sat), as_numpy(haloid), rounds, branch
 
 
 class CylindricalGroups(object):
@@ -105,17 +205,19 @@ class CylindricalGroups(object):
     the cylinder; flat_sky_los : unit vector (None: the z axis);
     periodic; BoxSize (default ``source.attrs['BoxSize']``).
 
-    Results in :attr:`groups`, an ArrayCatalog with ``cgm_type`` (0
-    central, 1 satellite), ``cgm_haloid`` (the central's index for a
-    satellite, else -1) and ``num_cgm_sats`` (for a central);
-    :attr:`rounds`, the Jacobi rounds to the fixpoint.
+    Results in :attr:`groups`, an ArrayCatalog of this rank's rows with
+    ``cgm_type`` (0 central, 1 satellite), ``cgm_haloid`` (the central's
+    global index for a satellite, else -1) and ``num_cgm_sats`` (for a
+    central); :attr:`rounds`, the Jacobi rounds to the fixpoint;
+    :attr:`branch`, 'one_rank', 'slab' or 'gathered'.
     """
 
     logger = logging.getLogger('CylindricalGroups')
 
     def __init__(self, source, rankby, rperp, rpar, flat_sky_los=None,
                  periodic=True, BoxSize=None):
-        require_one_rank(source, 'CylindricalGroups')
+        from ..parallel.domain import (allgather_rows, rows_layout,
+                                       scatter_reduce_by_index)
         if rankby is None:
             rankby = []
         if isinstance(rankby, str):
@@ -123,6 +225,7 @@ class CylindricalGroups(object):
         for col in rankby:
             if col not in source:
                 raise ValueError("rankby column %r missing" % col)
+        self.comm = source.comm
         if BoxSize is None:
             BoxSize = source.attrs.get('BoxSize', None)
         if periodic and BoxSize is None:
@@ -137,10 +240,14 @@ class CylindricalGroups(object):
             box = np.ones(3) * np.asarray(BoxSize)
             self.attrs['BoxSize'] = box
 
-        N = source.csize
-        # descending rank order on the host (small 1-D keys)
+        n = len(source)
+        counts, start = rows_layout(n, self.comm)
+        N = sum(counts)
+        # descending rank order of the whole keys, on the host (small 1-D
+        # keys, gathered across ranks), as the JAX package lexsorts them
         if rankby:
-            keys = tuple(as_numpy(source[c]) for c in reversed(rankby))
+            keys = tuple(as_numpy(allgather_rows(source[c], self.comm))
+                         for c in reversed(rankby))
             order = np.lexsort(keys)[::-1]
         else:
             order = np.arange(N)
@@ -148,15 +255,22 @@ class CylindricalGroups(object):
         rank_of[order] = np.arange(N, dtype='i4')
 
         pos = source['Position']
-        sat, haloid, self.rounds = _cgm_classify(
-            pos, torch.as_tensor(rank_of, device=pos.device), box, rperp,
-            rpar, flat_sky_los, self.attrs['periodic'])
+        sat, haloid, self.rounds, self.branch = _cgm_classify(
+            pos, torch.as_tensor(rank_of[start:start + n], device=pos.device),
+            box, rperp, rpar, flat_sky_los, self.attrs['periodic'],
+            self.comm)
+        self.logger.info("CGM branch %s, %d rounds", self.branch,
+                         self.rounds)
 
-        nsat = np.bincount(haloid[sat], minlength=N).astype('i8')
-        cgm_type = np.zeros(N, dtype='i4')
+        hid = torch.as_tensor(haloid[sat], dtype=torch.int64,
+                              device=pos.device)
+        nsat = as_numpy(scatter_reduce_by_index(
+            hid, torch.ones_like(hid), N, self.comm, op='add',
+            counts=counts))
+        cgm_type = np.zeros(n, dtype='i4')
         cgm_type[sat] = 1
         cgm_haloid = np.where(sat, haloid, -1).astype('i8')
-        self.groups = ArrayCatalog(
+        self.groups = rows_catalog(
             {'cgm_type': cgm_type, 'cgm_haloid': cgm_haloid,
-             'num_cgm_sats': nsat}, device=source.device)
+             'num_cgm_sats': nsat}, self.comm, device=source.device)
         self.groups.attrs.update(self.attrs)

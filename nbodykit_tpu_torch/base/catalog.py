@@ -117,17 +117,8 @@ class CatalogSourceBase(object):
     def _rows_catalog(self, data, attrs):
         """An ArrayCatalog of these columns, taken as this rank's rows,
         with a copy of ``attrs``."""
-        from ..source.catalog.array import ArrayCatalog
-        if mesh_size(self.comm) == 1:
-            return ArrayCatalog(data, device=self.device, comm=self.comm,
-                                **attrs)
-        obj = CatalogSourceBase.create_instance(ArrayCatalog, self.device,
-                                                self.comm)
-        obj._size = next(iter(data.values())).shape[0] if data else 0
-        for name, value in data.items():
-            obj[name] = value
-        obj.attrs.update(attrs)
-        return obj
+        from ..source.catalog.array import rows_catalog
+        return rows_catalog(data, self.comm, self.device, attrs)
 
     def view(self, type=None):
         """A re-typed view sharing the column tensors; the column dicts

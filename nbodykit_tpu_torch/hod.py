@@ -6,25 +6,33 @@ Hearin15) are numpy and scipy, as in the JAX package. Population draws
 with the port's threefry (``rng.split``, ``uniform``, ``poisson``,
 ``normal``) on the halos' device, so a seed gives the JAX package's
 galaxies; the rest of it runs on the host.
+
+Across ranks (halos with a ``comm`` of P ranks) population follows the
+JAX package, which gathers the halo columns to the host: every rank
+gathers the whole columns, draws the same whole streams and builds the
+galaxy catalog on the halos' ``comm``, keeping its row split of the
+galaxies. A seed drawn for ``seed=None`` is rank 0's.
 """
 
 import numpy as np
+import torch
 from scipy import special
 
 from . import rng
 from .source.catalog.array import ArrayCatalog
 from .utils import as_numpy
-from .parallel.runtime import require_one_rank
+from .parallel.runtime import mesh_size
 
 
 class PopulatedHaloCatalog(ArrayCatalog):
     """The galaxy catalog produced by HOD population (reference
     source/catalog/halos.py PopulatedHaloCatalog): an ArrayCatalog
-    that remembers the ``model`` that made it."""
+    that remembers the ``model`` that made it. With a ``comm`` of P
+    ranks each rank is given the whole columns and keeps its rows, as
+    an ArrayCatalog does."""
 
     def __init__(self, data, model=None, comm=None, device=None, **attrs):
         ArrayCatalog.__init__(self, data, device=device, comm=comm, **attrs)
-        require_one_rank(self, 'PopulatedHaloCatalog')
         self.model = model
 
 
@@ -229,60 +237,96 @@ def mass_binned_percentile(M, secondary, nbins=20):
     return pct
 
 
+# uniforms bracketed at a time by _sample_nfw_radius: its (rows, 256) f64
+# tables take 32 MiB, where one table of every satellite would take
+# gigabytes at a million satellites
+NFW_ROWS = 1 << 14
+
+
 def _sample_nfw_radius(u, conc):
     """Scaled NFW radii r/rvir of the uniforms ``u`` by inverse-CDF
     interpolation on a common grid: m(x) = ln(1+cx) - cx/(1+cx),
-    normalized at x = 1 (host numpy)."""
+    normalized at x = 1 (host numpy). The grid of each distinct
+    concentration is computed once (a halo's satellites share it) and
+    the uniforms are bracketed ``NFW_ROWS`` at a time: element for
+    element the arithmetic of one (n, 256) table, in a fraction of its
+    time and memory."""
     x_grid = np.logspace(-3, 0, 256)
 
     def m(x, c):
         cx = c * x
         return np.log(1 + cx) - cx / (1 + cx)
 
-    n = len(u)
-    mgrid = m(x_grid[None, :], np.asarray(conc)[:, None])
-    mgrid = mgrid / mgrid[:, -1:]
-    # bracket u in each row, then interpolate linearly between the
-    # bracketing grid points
-    j = (mgrid < u[:, None]).sum(axis=1)
-    j = np.clip(j, 1, len(x_grid) - 1)
-    rows = np.arange(n)
-    m_lo = mgrid[rows, j - 1]
-    m_hi = mgrid[rows, j]
-    t = np.where(m_hi > m_lo, (u - m_lo) / np.where(
-        m_hi > m_lo, m_hi - m_lo, 1.0), 0.0)
-    return x_grid[j - 1] + t * (x_grid[j] - x_grid[j - 1])
+    u = np.asarray(u)
+    cu, inv = np.unique(np.asarray(conc), return_inverse=True)
+    mtab = m(x_grid[None, :], cu[:, None])
+    mtab = mtab / mtab[:, -1:]
+    out = np.empty(len(u))
+    for s in range(0, len(u), NFW_ROWS):
+        sl = slice(s, s + NFW_ROWS)
+        mgrid, us = mtab[inv[sl]], u[sl]
+        # bracket u in each row, then interpolate linearly between the
+        # bracketing grid points
+        j = (mgrid < us[:, None]).sum(axis=1)
+        j = np.clip(j, 1, len(x_grid) - 1)
+        r = np.arange(len(us))
+        m_lo = mgrid[r, j - 1]
+        m_hi = mgrid[r, j]
+        t = np.where(m_hi > m_lo, (us - m_lo) / np.where(
+            m_hi > m_lo, m_hi - m_lo, 1.0), 0.0)
+        out[sl] = x_grid[j - 1] + t * (x_grid[j] - x_grid[j - 1])
+    return out
 
 
 class HODModel(object):
     """Populate a halo catalog with galaxies under an occupation model
-    (default Zheng07). ``seed=None`` draws a seed from ``np.random``."""
+    (default Zheng07). ``seed=None`` draws a seed from ``np.random``;
+    across ranks the first population replaces it by rank 0's, so every
+    rank draws the same galaxies."""
 
     def __init__(self, occupation=None, seed=None):
         self.occupation = occupation or Zheng07Model()
+        self._seed_drawn = seed is None
         self.seed = seed if seed is not None else \
             np.random.randint(0, 2 ** 31 - 1)
+
+    def _shared_seed(self, comm):
+        """The model's seed, rank 0's when it was drawn here (one
+        broadcast, the first time across ranks)."""
+        if self._seed_drawn and mesh_size(comm) > 1:
+            self.seed = int(comm.broadcast(torch.tensor(
+                [self.seed], dtype=torch.int64, device=comm.device)))
+            self._seed_drawn = False
+        return self.seed
 
     def populate(self, halos, seed=None):
         """A PopulatedHaloCatalog of galaxies on the halos' device, with
         Position, Velocity, gal_type (0 central, 1 satellite) and
-        HaloMass."""
-        seed = self.seed if seed is None else seed
+        HaloMass. Across ranks the halo columns are gathered to every
+        rank (:func:`.parallel.domain.allgather_rows`), the draws are
+        the whole streams on every rank, and the catalog is built on the
+        halos' ``comm`` (each rank keeps its rows of the galaxies)."""
+        from .parallel.domain import allgather_rows
+        comm = halos.comm
+        seed = self._shared_seed(comm) if seed is None else seed
         dev = halos.device
         k_cen, k_sat, k_rad, k_dir, k_vel = rng.split(rng.key(seed), 5)
 
-        M = as_numpy(halos['Mass'])
-        pos = as_numpy(halos['Position'])
-        vel = as_numpy(halos['Velocity']) if 'Velocity' in halos \
+        def whole(name):
+            return as_numpy(allgather_rows(halos[name], comm))
+
+        M = whole('Mass')
+        pos = whole('Position')
+        vel = whole('Velocity') if 'Velocity' in halos \
             else np.zeros_like(pos)
         try:
-            rvir = as_numpy(halos['Radius'])
+            rvir = whole('Radius')
         except Exception:
             rvir = 0.3 * (M / 1e13) ** (1.0 / 3)
         conc = None
         if 'Concentration' in halos:
             try:
-                conc = as_numpy(halos['Concentration'])
+                conc = whole('Concentration')
             except Exception:
                 conc = None
         has_conc = conc is not None
@@ -348,7 +392,7 @@ class HODModel(object):
         cat = PopulatedHaloCatalog(
             {'Position': gal_pos, 'Velocity': gal_vel,
              'gal_type': gal_type, 'HaloMass': halo_mass},
-            model=self, device=dev, **halos.attrs)
+            model=self, device=dev, comm=comm, **halos.attrs)
         cat.attrs['seed'] = seed
         cat.attrs.update(self.occupation.params)
         return cat

@@ -53,6 +53,7 @@ from .algorithms.kdtree import KDDensity  # noqa: F401
 from .algorithms.cgm import CylindricalGroups  # noqa: F401
 from .algorithms.fibercollisions import FiberCollisions  # noqa: F401
 from .algorithms.bispectrum import Bispectrum  # noqa: F401
+from .batch import TaskManager  # noqa: F401
 
 FKPPower = ConvolvedFFTPower  # the reference's alias
 IO = io  # the reference's alias

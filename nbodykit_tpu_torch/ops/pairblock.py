@@ -16,12 +16,16 @@ torch here: one Python step per block, with blocks as large as
 
 Precision: phases are computed in the position dtype; the
 accumulators widen to the common dtype of the positions and weights.
+
+Across ranks each rank sums its own particles and one f64 ``all_reduce``
+of the stacked (re, im) adds the ranks' sums (the JAX package pads the
+catalog to equal shards for ``shard_map`` and ``psum``s).
 """
 
 import numpy as np
 import torch
 
-from ..parallel.runtime import require_one_rank
+from ..parallel.runtime import mesh_size
 
 # The cold-cache ``pairblock_tile`` of the JAX tuner (tune/resolve.py
 # FALLBACKS): the tile edge that ``tile=None`` resolves to
@@ -72,12 +76,12 @@ def pairblock_sum(pos, w, kvecs, tile=None, comm=None):
     w : (Np,) weights; kvecs : (Nk, 3) wavevectors (numpy or tensor);
     tile : tile edge of both axes, the unit of the padding and of the
     blocks (``None``: the JAX tuner's cold-cache 1024); comm : a mesh
-    of ranks over which the particles are split (None: none), one rank
-    only, as the sum across ranks is not ported.
+    of ranks over which the particles are split, ``pos`` and ``w``
+    this rank's rows (None: one rank).
 
-    Returns a complex (Nk,) tensor ``re - 1j * im``.
+    Returns a complex (Nk,) tensor ``re - 1j * im``, the same on every
+    rank.
     """
-    require_one_rank(comm, 'pairblock_sum')
     pos = torch.as_tensor(pos)
     w = torch.as_tensor(w, device=pos.device).to(pos.dtype)
     kvecs = torch.as_tensor(kvecs, device=pos.device).to(pos.dtype)
@@ -87,9 +91,13 @@ def pairblock_sum(pos, w, kvecs, tile=None, comm=None):
     kv = _pad_rows(kvecs, -(-Nk // tile_k) * tile_k)
     Np = int(pos.shape[0])
     tile_p = min(tile, max(8, Np))
-    np_pad = -(-Np // tile_p) * tile_p
+    # a rank without particles sums one tile of zero weights
+    np_pad = max(-(-Np // tile_p), 1) * tile_p
     re, im = _pairblock_tiles(_pad_rows(pos, np_pad), _pad_rows(w, np_pad),
                               kv, tile_p, tile_k)
+    if mesh_size(comm) > 1:
+        both = comm.all_reduce(torch.stack([re, im]).to(torch.float64))
+        re, im = both[0].to(re.dtype), both[1].to(im.dtype)
     return (re - 1j * im)[:Nk]
 
 

@@ -340,6 +340,20 @@ def gather_by_index(idx, table, mesh):
     return out
 
 
+def global_bounds(pos, mesh):
+    """(lo, hi): the least and largest coordinates of every rank's
+    positions, (3,) f64 tensors on every rank (one ``all_reduce`` of the
+    minima and the negated maxima; an empty rank adds +inf)."""
+    inf = torch.full((3,), float('inf'), dtype=torch.float64,
+                     device=pos.device)
+    lo = pos.min(dim=0).values if pos.shape[0] else inf
+    nhi = (-pos).min(dim=0).values if pos.shape[0] else inf
+    both = torch.stack([lo, nhi]).to(torch.float64)
+    if mesh_size(mesh) > 1:
+        both = mesh.all_reduce(both, 'min')
+    return both[0], -both[1]
+
+
 def allgather_rows(t, mesh):
     """Every rank's rows of ``t`` concatenated in rank order, on every
     rank (a collective; ``t`` on one rank)."""

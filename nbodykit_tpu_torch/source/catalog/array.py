@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from ...base.catalog import CatalogSource
+from ...base.catalog import CatalogSource, CatalogSourceBase
 from ...parallel.runtime import CurrentMesh, mesh_size, row_range
 
 
@@ -38,3 +38,19 @@ class ArrayCatalog(CatalogSource):
         self.attrs.update(kwargs)
         for name, value in data.items():
             self[name] = value
+
+
+def rows_catalog(data, comm, device=None, attrs=None):
+    """An ArrayCatalog of columns that already hold this rank's rows of
+    ``comm`` (the constructor takes whole columns and cuts them), with
+    a copy of the dict ``attrs``; on one rank the constructor's
+    catalog."""
+    attrs = attrs or {}
+    if mesh_size(comm) == 1:
+        return ArrayCatalog(data, device=device, comm=comm, **attrs)
+    obj = CatalogSourceBase.create_instance(ArrayCatalog, device, comm)
+    obj._size = next(iter(data.values())).shape[0] if data else 0
+    for name, value in data.items():
+        obj[name] = value
+    obj.attrs.update(attrs)
+    return obj

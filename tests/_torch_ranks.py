@@ -205,28 +205,14 @@ class _retries(object):
         self.logger.setLevel(self.level)
 
 
-def _refused(P, cat, pm):
+def _refused(P, cat):
     """The names of the calls with no multi-rank branch yet that raise
     NotImplementedError (at P = 1 each runs, so none is tried). Each is
-    built on the P-rank mesh of ``cat`` and ``pm``."""
-    from nbodykit_tpu_torch.lab import (Bispectrum, CylindricalGroups,
-                                        FiberCollisions,
-                                        PopulatedHaloCatalog,
-                                        SimulationBox3PCF)
+    built on the P-rank mesh of ``cat``."""
     if P == 1:
         return []
     calls = {'save': lambda: cat.save('unused-path'),
-             'poisson': lambda: cat.rng.poisson(1.0),
-             "Bispectrum(method='direct')": lambda: Bispectrum(
-                 cat, nbins=2, method='direct'),
-             'PopulatedHaloCatalog': lambda: PopulatedHaloCatalog(
-                 {'Position': np.zeros((8, 3))}, comm=pm.comm),
-             'SimulationBox3PCF': lambda: SimulationBox3PCF(
-                 cat, [0], np.linspace(1.0, 5.0, 3)),
-             'CylindricalGroups': lambda: CylindricalGroups(cat, None, 1.0,
-                                                            1.0),
-             'FiberCollisions': lambda: FiberCollisions(
-                 np.zeros(8), np.zeros(8), comm=pm.comm)}
+             'poisson': lambda: cat.rng.poisson(1.0)}
     out = []
     for name, call in calls.items():
         try:
@@ -378,7 +364,7 @@ def parallel_cases(rank):
         sl = cat.gslice(5, cat.csize - 7, 3)
         out['gslice', P] = dict(Position=_np(sl['Position']),
                                 csize=sl.csize)
-        out['refused', P] = _refused(P, cat, pm)
+        out['refused', P] = _refused(P, cat)
         out['forward_refuses', P] = _forward_refusals(mesh)
         rng = DistributedRNG(11, 1001, comm=mesh)
         out['drng', P] = dict(uniform=_np(rng.uniform(itemshape=(3,))),
@@ -1099,4 +1085,212 @@ def _pair_classes(d, mesh):
     out['survey'] = dict(corr=np.asarray(xi.corr['corr']), **{
         name: _pair_record(pc) for name, pc in
         (('DD', xi.D1D2), ('DR', xi.D1R2), ('RR', xi.R1R2))})
+    return out
+
+
+# -- the 3PCF, CGM, FiberCollisions, the direct bispectrum and populate
+# across ranks (test_torch_dist_groups.py) ---------------------------------
+
+GR_3PT_EDGES = np.linspace(0.5, 4.0, 5)
+GR_SKY_EDGES = np.linspace(1.0, 8.0, 5)   # a slab of the sky's box at P = 4
+GR_POLES = [0, 1, 2]
+GR_CYL = (1.0, 2.0)                       # rperp, rpar
+GR_CYL_WIDE = (5.0, 12.0)                 # sqrt(rperp^2 + rpar^2) = 13
+GR_RANKBY = ['Key', 'Score']              # ties in both columns
+GR_FIBER_RADIUS = 120. / 3600.            # degrees: pairs and multiplets
+GR_FIBER_SEED = 42
+GR_BS_NBINS = 3
+GR_HOD_SEED = 11
+GR_HOD_MODELS = ('Zheng07Model', 'Hearin15Model')
+GR_REDSHIFT = 0.5
+# the catalog size each costlier case runs at (the world's time)
+GR_AT = {'3pcf': NPARTS[1], '3pcf_survey': NPARTS[0], 'cgm': NPARTS[0],
+         'cgm_open': NPARTS[1],
+         'populate': {NPARTS[0]: 'Zheng07Model', NPARTS[1]: 'Hearin15Model'}}
+
+
+def halo_columns(n, seed=29):
+    """Halos in [0, BOX): Mass log-uniform in [10^12.5, 10^15], and a
+    Concentration column of their own."""
+    rs = np.random.RandomState(seed + n)
+    return {'Position': rs.uniform(0, BOX, (n, 3)),
+            'Velocity': rs.normal(0, 300.0, (n, 3)),
+            'Mass': 10 ** rs.uniform(12.5, 15.0, n),
+            'Concentration': rs.uniform(3.0, 12.0, n)}
+
+
+def halos_of(lab, cols, comm=None):
+    """The HaloCatalog of ``cols`` with their own Concentration, in
+    either package (``lab`` its names)."""
+    kw = {} if comm is None else dict(comm=comm)
+    halos = lab['HaloCatalog'](lab['ArrayCatalog'](
+        {k: v for k, v in cols.items() if k != 'Concentration'}, BoxSize=BOX,
+        **kw), lab['Planck15'], GR_REDSHIFT)
+    halos['Concentration'] = cols['Concentration']
+    return halos
+
+
+def _three_pt(pc):
+    return dict(branch=getattr(pc, 'branch', None),
+                **{'corr_%d' % ell: np.asarray(pc.poles['corr_%d' % ell])
+                   for ell in GR_POLES})
+
+
+def _groups(cgm):
+    return dict(rounds=cgm.rounds, branch=cgm.branch,
+                **_catalog_columns(cgm.groups, ('cgm_type', 'cgm_haloid',
+                                                'num_cgm_sats')))
+
+
+def group_cases(rank):
+    """The 3PCF (box and survey; slab and gathered), CylindricalGroups
+    (periodic and open, ties in ``rankby``; slab and gathered),
+    FiberCollisions, ``pairblock_sum`` with the direct bispectrum and
+    HOD population, on this rank's rows at every P. The costlier cases
+    take one catalog size each (GR_AT)."""
+    import torch
+    from nbodykit_tpu_torch import hod, lab
+    from nbodykit_tpu_torch.algorithms.bispectrum import (direct_bispectrum,
+                                                          shell_modes)
+    from nbodykit_tpu_torch.ops.pairblock import lattice_kvecs, pairblock_sum
+    T = torch.as_tensor
+    port = dict(HaloCatalog=lab.HaloCatalog, ArrayCatalog=lab.ArrayCatalog,
+                Planck15=lab.Planck15)
+    out = {}
+    for P, mesh in _meshes():
+        r = mesh.rank
+        for n in NPARTS:
+            d = clustered(n)
+            cat = lab.ArrayCatalog(d, BoxSize=BOX, comm=mesh)
+            dsky = lab.ArrayCatalog(sky(n), comm=mesh)
+            if n == GR_AT['3pcf']:
+                out['3pcf', n, P] = _three_pt(lab.SimulationBox3PCF(
+                    cat, GR_POLES, GR_3PT_EDGES))
+            if n == GR_AT['3pcf_survey']:
+                out['3pcf_survey', n, P] = _three_pt(lab.SurveyData3PCF(
+                    dsky, GR_POLES, GR_SKY_EDGES, lab.Planck15))
+            if n == GR_AT['cgm']:
+                out['cgm', n, P] = _groups(lab.CylindricalGroups(
+                    cat, GR_RANKBY, *GR_CYL))
+            if n == GR_AT['cgm_open']:
+                nobox = lab.ArrayCatalog(d, comm=mesh)
+                out['cgm_open', n, P] = _groups(lab.CylindricalGroups(
+                    nobox, GR_RANKBY, *GR_CYL, periodic=False))
+            fc = lab.FiberCollisions(dsky['RA'], dsky['DEC'],
+                                     collision_radius=GR_FIBER_RADIUS,
+                                     seed=GR_FIBER_SEED, comm=mesh)
+            out['fiber', n, P] = _catalog_columns(
+                fc.labels, ('Label', 'Collided', 'NeighborID'))
+            q, _ = shell_modes(GR_BS_NBINS)
+            pos, w = T(rows(d['Position'], P, r)), T(rows(d['Weight'], P, r))
+            out['pairblock', n, P] = _np(pairblock_sum(
+                pos, w, lattice_kvecs(q, BOX), comm=mesh))
+            B, ntri = direct_bispectrum(pos, w, BOX, GR_BS_NBINS, comm=mesh)
+            bs = lab.Bispectrum(cat, nbins=GR_BS_NBINS, method='direct')
+            out['direct_bs', n, P] = dict(
+                B=B, ntri=ntri, cls_B=np.asarray(bs.B['B']),
+                cls_ntri=np.asarray(bs.B['ntri']),
+                comm_kept=bs.comm is cat.comm)
+            name = GR_AT['populate'][n]
+            halos = halos_of(port, halo_columns(n), comm=mesh)
+            gal = halos.populate(getattr(hod, name), seed=GR_HOD_SEED)
+            out['populate', n, name, P] = dict(
+                comm_kept=gal.comm is halos.comm, csize=gal.csize,
+                seed=gal.attrs['seed'], **_catalog_columns(
+                    gal, ('Position', 'Velocity', 'gal_type', 'HaloMass')))
+        # seeds drawn for seed=None: rank 0's on every rank
+        few = halos_of(port, halo_columns(PT_SPARSE), comm=mesh)
+        out['seeds', P] = dict(
+            populate=hod.HODModel(hod.Zheng07Model()).populate(
+                few).attrs['seed'],
+            fiber=lab.FiberCollisions(sky(PT_SPARSE)['RA'],
+                                      sky(PT_SPARSE)['DEC'],
+                                      comm=mesh).attrs['seed'])
+        sparse = lab.ArrayCatalog(sparse_columns(), BoxSize=BOX, comm=mesh)
+        out['3pcf_wide', P] = _three_pt(lab.SimulationBox3PCF(
+            sparse, GR_POLES, PT_WIDE_EDGES))
+        out['3pcf_survey_wide', P] = _three_pt(lab.SurveyData3PCF(
+            lab.ArrayCatalog(sky(PT_SPARSE), comm=mesh), GR_POLES,
+            PT_WIDE_EDGES, lab.Planck15))
+        out['cgm_wide', P] = _groups(lab.CylindricalGroups(
+            sparse, None, *GR_CYL_WIDE))
+    return out
+
+
+# -- TaskManager across ranks (test_torch_dist_batch.py) ----------------------
+
+BT_TASKS = 7
+BT_CPUS = (1, 2, 3, 4)
+BT_RAISING = (3, 4)          # on groups 1 and 0 of two: task 3 is first
+BT_SEEDS = (5, 6, 7, 8)
+BT_NBAR, BT_BOX, BT_NMESH = 2e-3, 60.0, 16
+
+
+def _task_record(task):
+    """Who ran ``task``: the ambient mesh's world ranks and size, and an
+    all_reduce over it (every rank of the group adds 1)."""
+    import torch
+    from nbodykit_tpu_torch.parallel.runtime import CurrentMesh, mesh_size
+    mesh = CurrentMesh.get()
+    total = mesh.all_reduce(torch.ones(1)) if mesh_size(mesh) > 1 else \
+        torch.ones(1)
+    return dict(task=task, ranks=list(mesh.ranks), total=float(total))
+
+
+def _maybe_raise(task):
+    if task in BT_RAISING:
+        raise ValueError("task %d failed" % task)
+    return _task_record(task)
+
+
+def _power_task(seed):
+    """FFTPower of a seeded UniformCatalog on the ambient mesh (f8)."""
+    from nbodykit_tpu_torch.lab import FFTPower, UniformCatalog
+    cat = UniformCatalog(nbar=BT_NBAR, BoxSize=BT_BOX, seed=seed)
+    r = FFTPower(cat.to_mesh(Nmesh=BT_NMESH, dtype='f8'), mode='1d')
+    return dict(power=np.asarray(r.power['power'].real),
+                modes=np.asarray(r.power['modes']), nrank=cat.comm.size
+                if cat.comm is not None else 1)
+
+
+def batch_cases(rank):
+    """TaskManager on the world of 4 ranks: map, iterate, sub_meshes and
+    the ambient mesh at every ``cpus_per_task`` of BT_CPUS; a raising
+    task; ``use_all_cpus``; FFTPower tasks on groups of 2 against the
+    serial one-rank map."""
+    from nbodykit_tpu_torch.batch import TaskManager
+    from nbodykit_tpu_torch.parallel.runtime import CurrentMesh, cpu_mesh
+    world = cpu_mesh(WORLD)
+    out = {}
+    for cpus in BT_CPUS:
+        with TaskManager(cpus, comm=world) as tm:
+            amb = CurrentMesh.get()
+            out['ambient', cpus] = list(amb.ranks)
+            out['map', cpus] = tm.map(_task_record, range(BT_TASKS))
+            out['iterate', cpus] = list(tm.iterate(range(BT_TASKS)))
+            out['sub_meshes', cpus] = [
+                None if m is None else list(m.ranks)
+                for m in tm.sub_meshes()]
+        out['after', cpus] = CurrentMesh.get() is None
+    with TaskManager(2, comm=world) as tm:
+        try:
+            tm.map(_maybe_raise, range(BT_TASKS))
+            out['raised'] = None
+        except ValueError as e:
+            out['raised'] = dict(message=str(e), task_index=e.task_index,
+                                 remote=getattr(e, 'remote_traceback',
+                                                None) is not None)
+        out['after_raise'] = tm.map(_task_record, range(2))
+    with TaskManager(1, comm=world, use_all_cpus=True) as tm:
+        out['all_cpus'] = tm.map(_task_record, range(3))
+        out['all_cpus_meshes'] = len(tm.sub_meshes())
+        out['is_root'] = tm.is_root()
+        with tm.everyone():
+            out['everyone'] = True
+    with TaskManager(2, comm=world) as tm:
+        out['power'] = tm.map(_power_task, BT_SEEDS)
+    tm = TaskManager(2)
+    out['serial_meshes'] = tm.sub_meshes()
+    out['serial_iterate'] = list(tm.iterate(range(3)))
+    out['serial_power'] = tm.map(_power_task, BT_SEEDS)
     return out

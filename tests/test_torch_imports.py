@@ -556,16 +556,14 @@ def test_constructors_take_comm_and_refuse_ranks():
     """Each constructor and function that the JAX package gives a
     ``comm`` takes one; those whose branch across ranks is not ported
     refuse a 2-rank mesh, and LinearMesh, FieldMesh of a Field and
-    ForwardModel run on it."""
+    ForwardModel run on it. (The direct bispectrum, ``pairblock_sum`` and
+    FiberCollisions run across ranks: tests/test_torch_dist_groups.py.)"""
     from nbodykit_tpu_torch import io, set_options
     from nbodykit_tpu_torch.algorithms.bispectrum import direct_bispectrum
-    from nbodykit_tpu_torch.algorithms.fibercollisions import \
-        FiberCollisions
     from nbodykit_tpu_torch.base.mesh import Field, FieldMesh
     from nbodykit_tpu_torch.forward import ForwardModel
     from nbodykit_tpu_torch.lab import (BigFileMesh, LinearMesh,
                                         LogNormalCatalog, ParticleMesh)
-    from nbodykit_tpu_torch.ops.pairblock import pairblock_sum
     from nbodykit_tpu_torch.source.catalog import file as fc
     comm = _two_ranks()
     plin = lambda k: k * 0 + 1.0                       # noqa: E731
@@ -576,17 +574,10 @@ def test_constructors_take_comm_and_refuse_ranks():
         'BigFileMesh': lambda: BigFileMesh('no-such-dir', comm=comm),
         'FieldMesh': lambda: FieldMesh(torch.zeros((4, 4, 4)),
                                        BoxSize=1.0, comm=comm),
-        'direct_bispectrum': lambda: direct_bispectrum(
-            pos, np.ones(5), 10.0, 2, comm=comm),
-        'pairblock_sum': lambda: pairblock_sum(
-            torch.as_tensor(pos), torch.ones(5), np.ones((3, 3)),
-            comm=comm),
         'FileCatalogBase': lambda: fc.FileCatalogBase(
             io.CSVFile, args=('no-such-file',), comm=comm),
         'FileCatalog': lambda: fc.FileCatalog(io.CSVFile, 'no-such-file',
                                               comm=comm),
-        'FiberCollisions': lambda: FiberCollisions(np.ones(5), np.ones(5),
-                                                   comm=comm),
     }
     for name in ('CSVCatalog', 'BinaryCatalog', 'BigFileCatalog',
                  'HDFCatalog', 'FITSCatalog', 'TPMBinaryCatalog',
@@ -611,6 +602,61 @@ def test_constructors_take_comm_and_refuse_ranks():
         assert B.shape == (2, 2, 2)
         assert FieldMesh(torch.zeros((4, 4, 4)), BoxSize=1.0,
                          comm=None).comm is None
+
+
+class _MirrorRanks(object):
+    """The collectives of a world of ``size`` ranks that all hold the
+    same rows: enough for a collective entry point to run on one
+    process."""
+
+    def __init__(self, size=2, rank=0):
+        from nbodykit_tpu_torch.parallel.runtime import RankMesh
+        self.mesh = RankMesh(None, range(size), rank, 'cpu', 'gloo')
+        self.mesh.all_reduce = lambda t, op='sum': \
+            t * size if op == 'sum' else t.clone()
+        self.mesh.all_gather = lambda t: torch.stack([t] * size)
+        self.mesh.broadcast = lambda t, src=0: t.clone()
+        self.mesh.all_to_all = self._all_to_all
+
+    def _all_to_all(self, send, send_splits=None, recv_splits=None):
+        # rank r sends this rank the block this rank sends rank r's twin
+        m = self.mesh
+        blocks = torch.split(send, send_splits or
+                             [send.shape[0] // m.size] * m.size)
+        return torch.cat([blocks[m.rank]] * m.size)
+
+
+def test_populate_keeps_the_halos_comm():
+    """HODModel.populate of a 2-rank HaloCatalog builds its galaxies on
+    the halos' comm, from every rank's halos: rank 0 keeps the first
+    rows of the one-rank population of both ranks' halos, and a seed
+    drawn for ``seed=None`` is rank 0's."""
+    from nbodykit_tpu_torch.lab import (ArrayCatalog, HaloCatalog,
+                                        HODModel, Planck15, Zheng07Model)
+    from nbodykit_tpu_torch.parallel.runtime import row_range
+    rs = np.random.RandomState(5)
+    cols = {'Position': rs.uniform(0, 100.0, (40, 3)),
+            'Velocity': rs.normal(0, 50.0, (40, 3)),
+            'Mass': 10 ** rs.uniform(12.5, 15.0, 40)}
+    mesh = _MirrorRanks().mesh
+    local = ArrayCatalog(cols, device='cpu', BoxSize=100.0)
+    halos = HaloCatalog(local, Planck15, 0.5)
+    halos.comm = mesh
+    both = HaloCatalog(ArrayCatalog(
+        {k: np.concatenate([v, v]) for k, v in cols.items()}, device='cpu',
+        BoxSize=100.0), Planck15, 0.5)
+    model = Zheng07Model(logMmin=12.5, logM1=13.5)
+    gal = halos.populate(model, seed=11)
+    one = both.populate(model, seed=11)
+    assert gal.comm is halos.comm
+    start, stop = row_range(len(one), 2, 0)
+    assert len(gal) == stop - start > 0
+    for c in ('Position', 'Velocity', 'gal_type', 'HaloMass'):
+        np.testing.assert_array_equal(gal[c].numpy(), one[c][:stop].numpy())
+    drawn = HODModel(model)
+    seed = drawn.seed
+    mesh.broadcast = lambda t, src=0: t * 0 + seed + 1
+    assert drawn.populate(halos).attrs['seed'] == seed + 1 == drawn.seed
 
 
 def test_preview_root_and_return_dropped():

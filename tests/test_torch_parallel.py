@@ -260,11 +260,10 @@ def test_unported_branches_refuse_ranks(world, P):
     """Every call with no multi-rank branch yet raises instead of
     running on a rank's rows alone; the FFT bispectrum and the forward
     model run across ranks (below), FOF, HaloCatalog, KDDensity and the
-    sort too (test_torch_dist_particles.py); the direct bispectrum, the
-    3PCF, CGM and FiberCollisions do not."""
-    want = sorted(['save', 'poisson', "Bispectrum(method='direct')",
-                   'PopulatedHaloCatalog', 'SimulationBox3PCF',
-                   'CylindricalGroups', 'FiberCollisions'])
+    sort too (test_torch_dist_particles.py), and the direct bispectrum,
+    the 3PCF, CGM, FiberCollisions and PopulatedHaloCatalog
+    (test_torch_dist_groups.py)."""
+    want = sorted(['save', 'poisson'])
     for r in range(P):
         assert world[r]['refused', P] == want
 
